@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the LEAR serving path once on one card.
+
+Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
+and the CUDA toolkit (``nvcc`` in ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
+or on ``PATH``)::
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass:
+
+- ``build``: compile ``src/repro_torch/csrc/forest_score.cu`` with nvcc for
+  sm_90a into ``build/repro_torch/`` and print the compiler's register and
+  shared-memory report.
+- ``kernels``: at the ``lear-msn1`` shapes (1,047 trees of depth 6, 136
+  features, 8 queries × 256 documents; the 10-tree depth-5 classifier on
+  140 features) call each kernel's wrapper on the card and hold it to its
+  plain PyTorch version on the same inputs — max abs diff must be 0 — and
+  to the numpy traversal oracle on a small input (1e-5). Print each
+  kernel's median time (CUDA events, after warm-up, tables warm in L2 as
+  between serving batches), the plain version's and the least time the
+  card could take.
+- ``serve``: a :class:`repro_torch.RankingService` over a random (seeded)
+  ``lear-msn1`` ranker and classifiers, threshold 0.5, serving batches of
+  8 × 256 with ragged masks: single sentinel 50, then sentinels (50, 150)
+  fused, staged and ``auto`` (the service's default; its line says which
+  mode it picked for each batch). Each run must launch its kernels (the launch counts
+  are zeroed just before it and read just after), give finite scores that
+  equal the same service's on the CPU within 1e-5, and the same top-k
+  except where scores tie within 1e-5. A short torch.profiler window after
+  each run prints the card's busy share and the top ops on card and host.
+
+The last lines are the card's name and power limit, one JSON line with the
+kernels' numbers, and ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero without that last line, as does a machine without a card or a
+directory without the repository's ``src/repro_torch``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+# NVIDIA H100 SXM data sheet: HBM3 rate, and 67e12 fp32 operations per
+# second outside the tensor cores, which counts each FMA as two. The node
+# tests hold no FMA, so one operation is one instruction: half that rate.
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12 / 2
+# Per (doc, tree, node): feature load, x load, compare, select, and the
+# 64-bit AND as two 32-bit ones.
+OPS_PER_NODE_TEST = 6
+
+Q, D = 8, 256            # one serving batch: 8 queries × max_docs 256
+N_BATCHES = 5            # per serve run; the first includes buffer set-up
+SENTINELS_2 = (50, 150)  # second sentinel: repro/launch/hillclimb.py:45 (A2)
+THRESHOLD = 0.5
+SEED = 0
+TOL = 1e-5
+DEVICE = "cuda"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median wall time of ``fn`` on the card, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_build() -> float:
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    path, report = build.build("forest_score")
+    seconds = time.perf_counter() - t0
+    log(f"[build] {path.name}: {seconds:.2f} s (nvcc {' '.join(build.NVCC_FLAGS)})")
+    for line in report.splitlines():
+        if "ptxas info" in line:
+            log(f"[build]   {line.strip()}")
+    return seconds
+
+
+def _models(device, sentinels):
+    from repro_torch.configs.lear_msn1 import config
+    from repro_torch.core.features import N_AUG
+    from repro_torch.core.lear import LearClassifier
+    from repro_torch.forest.ensemble import random_ensemble
+
+    cfg = config()
+    ranker = random_ensemble(
+        SEED, cfg.n_trees, cfg.depth, cfg.n_features, device=device
+    )
+    clfs = [
+        LearClassifier(
+            forest=random_ensemble(
+                SEED + 1 + i, cfg.classifier_trees, cfg.classifier_depth,
+                cfg.n_features + N_AUG, device=device,
+            ),
+            sentinel=s,
+        )
+        for i, s in enumerate(sentinels)
+    ]
+    return cfg, ranker, clfs
+
+
+def _bound(B: int, F: int, pf, n_blocks: int, S: int) -> tuple[float, str]:
+    trees = n_blocks * pf.block_t
+    N, L = pf.feature.shape[1], pf.leaf_value.shape[1]
+    nbytes = B * F * 4 + trees * N * (4 + 4 + 8) + trees * L * 4 + B * S * 4
+    ops = OPS_PER_NODE_TEST * B * trees * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def phase_kernels() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.forest.scoring import score_numpy_oracle
+    from repro_torch.forest.ensemble import random_ensemble
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels.ops import forest_score, padded_forest
+
+    dev = torch.device(DEVICE)
+    cfg, ranker, clfs = _models(dev, SENTINELS_2)
+    T, B = cfg.n_trees, Q * D
+    rng = np.random.default_rng(SEED)
+    x = torch.as_tensor(rng.normal(size=(B, cfg.n_features)).astype(np.float32), device=dev)
+    x_aug = torch.as_tensor(
+        rng.normal(size=(B, cfg.n_features + 4)).astype(np.float32), device=dev
+    )
+    pf1 = padded_forest(ranker, boundaries=(cfg.sentinel, T))
+    pf2 = padded_forest(ranker, boundaries=(*SENTINELS_2, T))
+    pfc = padded_forest(clfs[0].forest)
+
+    def tables(pf):
+        return pf.feature, pf.threshold, pf.mask, pf.leaf_value
+
+    cases = []
+    for label, pf, xs, seg_lo, seg_hi in (
+        ("ranker head [0,1)", pf1, x, 0, 1),
+        ("ranker tail [1,2)", pf1, x, 1, 2),
+        ("classifier [0,1)", pfc, x_aug, 0, 1),
+    ):
+        kw = dict(
+            block_t=pf.block_t, tree_block_offset=pf.seg_block_starts[seg_lo],
+            n_tree_blocks=sum(pf.seg_blocks[seg_lo:seg_hi]), leaf_gather=pf.leaf_gather,
+        )
+        cases.append((
+            "forest_score", label, pf, xs, kw["n_tree_blocks"], 1,
+            lambda xs=xs, pf=pf, kw=kw: fs.forest_score_kernel(xs, *tables(pf), **kw),
+            lambda xs=xs, pf=pf, kw=kw: fs.forest_score_plain(
+                xs, *tables(pf), block_t=kw["block_t"],
+                tree_block_offset=kw["tree_block_offset"],
+                n_tree_blocks=kw["n_tree_blocks"],
+            ),
+        ))
+    S = len(SENTINELS_2)
+    n_seg_blocks = pf2.seg_block_starts[S - 1] + pf2.seg_blocks[S - 1]
+    seg_kw = dict(
+        seg_block_starts=pf2.seg_block_starts[:S], n_tree_blocks=n_seg_blocks,
+        block_t=pf2.block_t,
+    )
+    cases.append((
+        "forest_score_segments", f"ranker head S={S} {SENTINELS_2}", pf2, x,
+        n_seg_blocks, S,
+        lambda: fs.forest_score_segments_kernel(
+            x, *tables(pf2), leaf_gather=pf2.leaf_gather, **seg_kw
+        ),
+        lambda: fs.forest_score_segments_plain(x, *tables(pf2), **seg_kw),
+    ))
+
+    results: dict[str, dict] = {}
+    for name, label, pf, xs, n_blocks, S_out, kernel, plain in cases:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {label}: shape {tuple(got.shape)} or non-finite")
+        err = float((got - want).abs().max())
+        k_ms = cuda_ms(kernel, reps=30)
+        p_ms = cuda_ms(plain, reps=5, warmup=1)
+        b_ms, b_by = _bound(xs.shape[0], xs.shape[1], pf, n_blocks, S_out)
+        log(
+            f"[kernels] {name} {label}: B={xs.shape[0]} F={xs.shape[1]} "
+            f"trees={n_blocks * pf.block_t} N={pf.feature.shape[1]} "
+            f"L={pf.leaf_value.shape[1]} max_abs_err={err:.3g} kernel={k_ms:.4f} ms "
+            f"plain={p_ms:.3f} ms bound={b_ms:.5f} ms ({b_by})"
+        )
+        if err != 0.0:
+            raise AssertionError(f"{name} {label}: kernel differs from plain by {err}")
+        r = results.setdefault(name, {"max_abs_err": 0.0, "cases": []})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["cases"].append({
+            "case": label, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by,
+        })
+
+    # An independent oracle on a small input: per-document traversal.
+    small = random_ensemble(SEED + 7, 37, 6, 21, device=dev)
+    xs = rng.normal(size=(100, 21)).astype(np.float32)
+    got = forest_score(small, torch.as_tensor(xs, device=dev)).cpu().numpy()
+    oracle_err = float(np.abs(got - score_numpy_oracle(small, xs)).max())
+    log(f"[kernels] forest_score vs numpy traversal oracle (37 trees, 100 docs): max_abs_err={oracle_err:.3g}")
+    if not oracle_err <= TOL:
+        raise AssertionError(f"forest_score vs oracle: {oracle_err}")
+    return results
+
+
+def _batches(n_features: int):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 100)
+    out = []
+    for _ in range(N_BATCHES):
+        X = rng.normal(size=(Q, D, n_features)).astype(np.float32)
+        n_docs = rng.integers(D // 4, D + 1, size=Q)
+        mask = np.arange(D)[None, :] < n_docs[:, None]
+        out.append((X, mask))
+    return out
+
+
+def _topk_agree(top_a, top_b, scores) -> bool:
+    """Same top-k, except positions whose scores tie within TOL."""
+    return all(
+        a == b or abs(scores[q, a] - scores[q, b]) <= TOL
+        for q in range(top_a.shape[0])
+        for a, b in zip(top_a[q], top_b[q])
+    )
+
+
+def serve_run(label: str, sentinels, mode: str) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import ops
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+
+    cfg, ranker, clfs = _models(DEVICE, sentinels)
+    svc = RankingService(
+        ranker, clfs[0],
+        ServiceConfig(threshold=THRESHOLD, execution_mode=mode),
+        extra_classifiers=clfs[1:], device=DEVICE,
+    )
+    batches = _batches(cfg.n_features)
+    ops.reset_launch_counts()
+    fs.reset_kernel_launches()
+    outs, lat = [], []
+    for X, mask in batches:
+        t0 = time.perf_counter()
+        outs.append(svc.rank_batch(X, mask))  # ends in the one host read
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = fs.kernel_launches()
+    dispatches = ops.launch_counts()
+
+    # The same service on the CPU (plain PyTorch path), same inputs.
+    cfg, ranker_c, clfs_c = _models("cpu", sentinels)
+    svc_cpu = RankingService(
+        ranker_c, clfs_c[0],
+        ServiceConfig(
+            threshold=THRESHOLD, execution_mode=mode,
+            launch_overhead_trees=svc.launch_overhead_trees,
+        ),
+        extra_classifiers=clfs_c[1:], device="cpu",
+    )
+    max_err = 0.0
+    for (X, mask), (top, scores) in zip(batches, outs):
+        top_c, scores_c = svc_cpu.rank_batch(X, mask)
+        if scores.shape != (Q, D) or top.shape != top_c.shape:
+            raise AssertionError(f"{label}: shapes {scores.shape} {top.shape}")
+        if not np.isfinite(scores).all():
+            raise AssertionError(f"{label}: non-finite scores")
+        max_err = max(max_err, float(np.abs(scores - scores_c).max()))
+        if not _topk_agree(top, top_c, scores_c):
+            raise AssertionError(f"{label}: top-k differs from the CPU run")
+    if max_err > TOL:
+        raise AssertionError(f"{label}: scores differ from the CPU run by {max_err}")
+    if svc.stats.batches_staged != svc_cpu.stats.batches_staged:
+        raise AssertionError(f"{label}: mode picks differ from the CPU run")
+
+    p50 = statistics.median(lat[1:])
+    docs_per_batch = float(np.mean([m.sum() for _, m in batches]))
+    st = svc.stats
+    log(
+        f"[serve] {label}: mode={mode} sentinels={tuple(sentinels)} batches={st.batches} "
+        f"(fused {st.batches_fused}, staged {st.batches_staged}) "
+        f"p50 latency={p50:.3f} ms (first {lat[0]:.3f} ms) "
+        f"docs/s={docs_per_batch / (p50 / 1e3):.0f} continue_rate={st.continue_rate:.4f} "
+        f"speedup={st.speedup:.3f}x overflow={st.overflow_docs} "
+        f"kernel_launches={launches} dispatches={dispatches} "
+        f"max|score-cpu|={max_err:.3g}"
+    )
+    return {"launches": launches, "service": svc, "batches": batches}
+
+
+def profile_window(label: str, svc, batches) -> None:
+    """Where one run's time goes: torch.profiler over a few more batches
+    (after the timed and checked ones) — the window's wall time, the
+    card's busy time in it (summed self device time) and the top ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for X, mask in batches:
+            svc.rank_batch(X, mask)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [
+        e for e in prof.key_averages()
+        if getattr(e, "self_device_time_total", 0) > 0
+    ]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if busy_us == 0:
+        log(f"[profile] {label}: device time not measured (the profiler saw none)")
+        return
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    log(
+        f"[profile] {label}: {len(batches)} batches, window {wall_us / 1e3:.3f} ms "
+        f"(traced), device busy {busy_us / 1e3:.3f} ms "
+        f"({100 * busy_us / wall_us:.1f}%, idle {100 - 100 * busy_us / wall_us:.1f}%); top: "
+        + "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top
+        )
+    )
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
+    log(
+        f"[profile] {label}: host self time top: "
+        + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}" for e in host)
+    )
+
+
+def phase_serve() -> dict[str, int]:
+    runs = (
+        ("single-sentinel", (50,), "auto", ("forest_score",)),
+        ("fused-2", SENTINELS_2, "fused", ("forest_score", "forest_score_segments")),
+        ("staged-2", SENTINELS_2, "staged", ("forest_score",)),
+        ("auto-2", SENTINELS_2, "auto", ("forest_score",)),
+    )
+    total = {"forest_score": 0, "forest_score_segments": 0}
+    for label, sentinels, mode, needed in runs:
+        r = serve_run(label, sentinels, mode)
+        for name in needed:
+            if r["launches"][name] == 0:
+                raise AssertionError(f"{label}: kernel {name} was never launched")
+        profile_window(label, r["service"], r["batches"][1:4])
+        for name, n in r["launches"].items():
+            total[name] += n
+    return total
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    try:
+        phase_build()
+        kernels = phase_kernels()
+        launches = phase_serve()
+        card = card_line()
+    except Exception:  # report the failing phase, then fail the run
+        traceback.print_exc()
+        return 1
+
+    sources = {
+        "forest_score": ("src/repro_torch/csrc/forest_score.cu",
+                         "src/repro/kernels/forest_score.py:318"),
+        "forest_score_segments": ("src/repro_torch/csrc/forest_score.cu",
+                                  "src/repro/kernels/forest_score.py:367"),
+    }
+    headline = {"forest_score": "ranker tail [1,2)"}
+    line = []
+    for name, r in kernels.items():
+        case = next(
+            (c for c in r["cases"] if c["case"] == headline.get(name)), r["cases"][0]
+        )
+        line.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": None,
+            "case": case["case"], "cases": r["cases"],
+        })
+    print(card, flush=True)
+    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

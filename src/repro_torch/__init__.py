@@ -1,0 +1,57 @@
+"""repro_torch — the LEAR serving path in PyTorch, with CUDA kernels for Hopper.
+
+A port of :mod:`repro` (JAX, Pallas kernels for the TPU), which stays in
+the repository unchanged as the reference the port is tested against. The
+port imports neither JAX nor anything of ``repro``. Entry points take a
+``device``; ``None`` means the CUDA card, and ``device="cpu"`` runs the
+plain PyTorch version of every kernel.
+
+Module map (port ↔ reference):
+
+=====================================  =====================================
+``repro_torch.forest.ensemble``        ``repro.forest.ensemble`` (+ the
+                                       ``from_numpy`` weight converter)
+``repro_torch.forest.scoring``         ``repro.forest.scoring``
+``repro_torch.kernels.forest_score``   ``repro.kernels.forest_score`` —
+                                       CUDA source in ``csrc/forest_score.cu``
+``repro_torch.kernels.build``          (none: nvcc build + ctypes load)
+``repro_torch.kernels.ops``            ``repro.kernels.ops``
+``repro_torch.core.compaction``        ``repro.core.compaction``
+``repro_torch.core.features``          ``repro.core.features``
+``repro_torch.core.strategies``        ``repro.core.strategies`` (ERT, EPT,
+                                       query-exit predicate)
+``repro_torch.core.stage``             ``repro.core.stage``
+``repro_torch.core.lear``              ``repro.core.lear`` (inference half)
+``repro_torch.core.cascade``           ``repro.core.cascade``
+``repro_torch.metrics.ranking``        ``repro.metrics.ranking``
+``repro_torch.metrics.speedup``        ``repro.metrics.speedup``
+``repro_torch.serve.calibration``      ``repro.serve.calibration``
+``repro_torch.serve.ranking_service``  ``repro.serve.ranking_service``
+``repro_torch.configs.lear_msn1``      ``repro.configs.lear_msn1`` (+ its
+                                       ``ForestConfig``)
+``repro_torch.utils``                  (none: device resolution)
+=====================================  =====================================
+
+What is not ported yet is listed in ``ROADMAP.md``.
+"""
+
+from repro_torch.core.cascade import CascadeRanker
+from repro_torch.core.lear import LearClassifier
+from repro_torch.core.stage import EngineConfig, TreeStage
+from repro_torch.forest.ensemble import TreeEnsemble, from_numpy, random_ensemble
+from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+
+__all__ = [
+    "CascadeRanker",
+    "EngineConfig",
+    "LearClassifier",
+    "RankingService",
+    "ServiceConfig",
+    "TreeEnsemble",
+    "TreeStage",
+    "from_numpy",
+    "launch_counts",
+    "random_ensemble",
+    "reset_launch_counts",
+]

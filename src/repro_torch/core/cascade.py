@@ -1,0 +1,297 @@
+"""Sentinel-partitioned cascade execution — early exit as batch compaction.
+
+The port of :mod:`repro.core.cascade`. Three execution paths with the
+same ranking semantics:
+
+- :meth:`CascadeRanker.rank` — *reference* path: scores every document
+  through head and tail (:func:`~repro_torch.forest.scoring.score_bitvector`)
+  and applies the continue mask arithmetically.
+- :meth:`CascadeRanker.rank_compacted` — single-sentinel production path:
+  only the cumsum-compacted survivors run the tail kernel.
+- :meth:`CascadeRanker.rank_progressive` — the multi-stage engine and the
+  serving hot path, configured by a frozen
+  :class:`~repro_torch.core.stage.EngineConfig`:
+
+  * ``mode="fused"``: one segmented kernel launch over the head trees gives
+    every document's prefix score at every sentinel; stage decisions are
+    vector work with nested exit masks; one tail launch runs the remaining
+    trees on the compacted survivors of the last stage (1 segmented + ≤1
+    plain launch; with one sentinel the head is a plain launch).
+  * ``mode="staged"``: segment ``k`` runs only on the compacted stage-(k−1)
+    survivors, each capacity a real kernel bound (≤S+1 plain launches).
+
+  Both modes build prefixes with the same left-to-right association
+  (``seg0 + base``, then ``+ seg_k``), so they are bit-exact with each
+  other off overflow, and with the reference.
+
+Capacities are sizes known on the host, so the compacted blocks have fixed
+shapes and nothing on this path waits for the device: survivors beyond a
+capacity keep their stage prefix and are counted in ``overflow``, a 0-dim
+device tensor read later with the batch's stats.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.compaction import (
+    COMPACTORS,
+    compact_indices_cumsum,
+    compact_indices_cumsum_masked,
+)
+from repro_torch.core.stage import EngineConfig
+from repro_torch.forest.ensemble import TreeEnsemble, slice_trees
+from repro_torch.forest.scoring import score_bitvector
+from repro_torch.kernels.ops import (
+    forest_score,
+    forest_score_range,
+    forest_score_segments,
+    padded_forest,
+)
+from repro_torch.metrics.speedup import speedup_progressive, speedup_vs_full
+
+
+def bucket_capacity(want: int, limit: int, minimum: int = 64) -> int:
+    """Power-of-two capacity bucketing, clipped to ``limit``."""
+    cap = 1 << int(np.ceil(np.log2(max(want, minimum, 1))))
+    return min(cap, limit)
+
+
+@dataclasses.dataclass
+class CascadeResult:
+    scores: torch.Tensor          # [Q, D] final scores (exited docs keep the
+    #                               prefix of the stage that exited them)
+    continue_mask: torch.Tensor   # [Q, D] survivors of the LAST stage
+    speedup: float | torch.Tensor  # trees-traversed speedup vs Full (0-dim
+    #                                tensor on the progressive path)
+    overflow: torch.Tensor | int = 0  # docs beyond capacity (0-dim tensor)
+    stage_masks: list | None = None   # progressive: nested alive mask per stage
+    partials: torch.Tensor | None = None  # progressive: [Q, D, S] score grid
+    #   each stage's policy saw (fused: exact prefixes for every doc;
+    #   staged: docs already exited hold their exit-stage score)
+    mode: str | None = None
+
+
+@dataclasses.dataclass
+class CascadeRanker:
+    ensemble: TreeEnsemble
+    sentinel: int
+    strategy: Callable[..., torch.Tensor]
+    classifier_trees: int = 0   # extra per-doc cost charged for the strategy
+    _ht_cache: tuple | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False
+    )
+
+    def _head_tail(self) -> tuple[TreeEnsemble, TreeEnsemble]:
+        # Cached so repeated calls reuse the same sub-ensembles (and their
+        # padded-buffer caches).
+        if self._ht_cache is None:
+            head = slice_trees(self.ensemble, 0, self.sentinel)
+            tail = slice_trees(self.ensemble, self.sentinel, self.ensemble.n_trees)
+            self._ht_cache = (head, tail)
+        return self._ht_cache
+
+    def rank(
+        self, X: torch.Tensor, mask: torch.Tensor, **strategy_kwargs: object
+    ) -> CascadeResult:
+        """Reference path: full compute, masked combine."""
+        Q, D, F = X.shape
+        flat = X.reshape(Q * D, F)
+        head, tail = self._head_tail()
+        partial = score_bitvector(head, flat).reshape(Q, D)
+        cont = self.strategy(partial, mask, **strategy_kwargs)
+        tail_scores = score_bitvector(tail, flat).reshape(Q, D)
+        scores = torch.where(cont, partial + tail_scores, partial)
+        sp = speedup_vs_full(
+            cont, mask, self.sentinel, self.ensemble.n_trees, self.classifier_trees
+        )
+        return CascadeResult(scores=scores, continue_mask=cont, speedup=sp)
+
+    def rank_compacted(
+        self,
+        X: torch.Tensor,
+        mask: torch.Tensor,
+        capacity: int,
+        compaction: str = "cumsum",
+        **strategy_kwargs: object,
+    ) -> CascadeResult:
+        """Single-sentinel production path: the tail sees only compacted
+        survivors."""
+        Q, D, F = X.shape
+        head, tail = self._head_tail()
+        partial = forest_score(head, X.reshape(Q * D, F)).reshape(Q, D)
+        cont = self.strategy(partial, mask, **strategy_kwargs)
+        scores, n_cont = _compacted_tail(X, partial, cont, tail, capacity, compaction)
+        sp = speedup_vs_full(
+            cont, mask, self.sentinel, self.ensemble.n_trees, self.classifier_trees
+        )
+        return CascadeResult(
+            scores=scores, continue_mask=cont, speedup=sp,
+            overflow=torch.clamp_min(n_cont - capacity, 0),
+        )
+
+    def rank_progressive(
+        self,
+        X: torch.Tensor,
+        mask: torch.Tensor,
+        config: EngineConfig,
+        **strategy_kwargs: object,
+    ) -> CascadeResult:
+        """Multi-stage engine (see the module docstring).
+
+        A ``TreeStage`` with ``strategy=None`` / ``classifier_trees=None``
+        inherits the ranker's defaults. Per-stage capacities resolve as
+        stage.capacity → config.capacities entry → :func:`bucket_capacity`
+        of ``Q·D``, each clipped to ``Q·D``. ``strategy_kwargs`` are passed
+        to every stage's strategy.
+        """
+        Q, D, F = X.shape
+        sentinels = config.sentinels
+        S = len(sentinels)
+        T = self.ensemble.n_trees
+        if not 0 < sentinels[0] or not sentinels[-1] <= T:
+            raise ValueError(f"sentinels {sentinels} outside (0, {T}]")
+        strategies = tuple(
+            st.strategy if st.strategy is not None else self.strategy
+            for st in config.stages
+        )
+        classifier_trees = tuple(
+            float(
+                st.classifier_trees if st.classifier_trees is not None
+                else self.classifier_trees
+            )
+            for st in config.stages
+        )
+        conf_caps = config.capacities
+        if conf_caps is None or isinstance(conf_caps, int):
+            conf_caps = (conf_caps,) * S
+        default_cap = bucket_capacity(Q * D, Q * D)
+        caps = tuple(
+            min(
+                int(st.capacity if st.capacity is not None
+                    else (c if c is not None else default_cap)),
+                Q * D,
+            )
+            for st, c in zip(config.stages, conf_caps)
+        )
+        has_tail = sentinels[-1] < T
+        pf = padded_forest(
+            self.ensemble,
+            boundaries=sentinels + ((T,) if has_tail else ()),
+            block_t=config.block_t,
+            leaf_gather=config.leaf_gather,
+        )
+        flat = X.reshape(Q * D, F)
+        body = _fused if config.mode == "fused" else _staged
+        scores, alive, stage_masks, partials, overflow = body(
+            pf, flat, mask, strategies, caps, strategy_kwargs
+        )
+        if has_tail:
+            scores, overflow = _final_tail(pf, S, flat, scores, alive, overflow, caps[-1])
+        return CascadeResult(
+            scores=scores,
+            continue_mask=alive,
+            speedup=speedup_progressive(mask, stage_masks, sentinels, T, classifier_trees),
+            overflow=overflow,
+            stage_masks=stage_masks,
+            partials=partials,
+            mode=config.mode,
+        )
+
+
+def _fused(pf, flat, mask, strategies, caps, skw):
+    """All prefixes from one head launch; stage decisions as vector work."""
+    Q, D = mask.shape
+    S = len(strategies)
+    if S == 1:
+        prefixes = [forest_score_range(pf, flat, 0, 1).reshape(Q, D)]
+    else:
+        seg = forest_score_segments(pf, flat, n_segments=S).reshape(Q, D, S)
+        acc = seg[..., 0] + pf.base_score
+        prefixes = [acc]
+        for k in range(1, S):
+            acc = acc + seg[..., k]
+            prefixes.append(acc)
+    alive = mask
+    stage_masks = []
+    scores = prefixes[0]
+    for k in range(S):
+        alive = alive & strategies[k](prefixes[k], alive, **skw)
+        stage_masks.append(alive)
+        if k + 1 < S:
+            scores = torch.where(alive, prefixes[k + 1], scores)
+    overflow = torch.zeros((), dtype=torch.long, device=flat.device)
+    return scores, alive, stage_masks, torch.stack(prefixes, dim=-1), overflow
+
+
+def _staged(pf, flat, mask, strategies, caps, skw):
+    """Segment k scored only on the compacted stage-(k−1) survivors."""
+    Q, D = mask.shape
+    S = len(strategies)
+    alive = mask
+    overflow = torch.zeros((), dtype=torch.long, device=flat.device)
+    prefix = forest_score_range(pf, flat, 0, 1).reshape(Q, D)
+    prefixes = [prefix]
+    stage_masks = []
+    for k in range(S):
+        alive = alive & strategies[k](prefix, alive, **skw)
+        if k + 1 < S:
+            sel, n_cont, within = compact_indices_cumsum_masked(
+                alive.reshape(Q * D), caps[k]
+            )
+            overflow = overflow + torch.clamp_min(n_cont - caps[k], 0)
+            alive = alive & within.reshape(Q, D)
+            seg_sel = forest_score_range(pf, flat[sel], k + 1, k + 2)
+            prefix = torch.where(
+                alive, _scatter_tail(prefix, sel, seg_sel, n_cont), prefix
+            )
+            prefixes.append(prefix)
+        stage_masks.append(alive)
+    return prefix, alive, stage_masks, torch.stack(prefixes, dim=-1), overflow
+
+
+def _final_tail(pf, S, flat, scores, alive, overflow, cap):
+    """One tail launch on the compacted survivors of the last stage."""
+    sel, n_cont = compact_indices_cumsum(alive.reshape(-1), cap)
+    tail_sel = forest_score_range(pf, flat[sel], seg_lo=S)
+    scores = _scatter_tail(scores, sel, tail_sel, n_cont)
+    return scores, overflow + torch.clamp_min(n_cont - cap, 0)
+
+
+def _compacted_tail(
+    X: torch.Tensor,
+    partial: torch.Tensor,
+    cont: torch.Tensor,
+    tail: TreeEnsemble,
+    capacity: int,
+    compaction: str = "cumsum",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather survivors → block of ``capacity`` → tail kernel → scatter."""
+    Q, D, F = X.shape
+    sel, n_cont = COMPACTORS[compaction](cont.reshape(Q * D), capacity)
+    tail_sel = forest_score(tail, X.reshape(Q * D, F)[sel])
+    return _scatter_tail(partial, sel, tail_sel, n_cont), n_cont
+
+
+def _scatter_tail(
+    scores: torch.Tensor,
+    sel: torch.Tensor,
+    tail_sel: torch.Tensor,
+    n_cont: torch.Tensor,
+) -> torch.Tensor:
+    """Add the valid compacted tail scores back onto the ``[Q, D]`` grid.
+
+    Valid slots hold distinct indices, so a plain scatter (padding slots
+    sent to a discarded extra element) places each sum without atomics;
+    every other document gets ``+ 0.0``, as in the reference.
+    """
+    Q, D = scores.shape
+    valid = torch.arange(sel.shape[0], device=sel.device) < n_cont
+    idx = torch.where(valid, sel, torch.full_like(sel, Q * D))
+    deltas = torch.zeros(Q * D + 1, dtype=torch.float32, device=scores.device)
+    deltas.scatter_(0, idx, tail_sel.float())
+    return scores + deltas[: Q * D].reshape(Q, D)

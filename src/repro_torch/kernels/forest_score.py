@@ -1,0 +1,354 @@
+"""Forest-scoring kernels: CUDA for the card, plain PyTorch for the CPU.
+
+The port of :mod:`repro.kernels.forest_score`. Two kernels, each a wrapper
+with a launch counter and a plain PyTorch version beside it:
+
+- :func:`forest_score_kernel` (replaces ``forest_score_pallas``): scores
+  ``x [B, F]`` through one contiguous range of tree blocks → ``[B]``.
+- :func:`forest_score_segments_kernel` (replaces
+  ``forest_score_segments_pallas``): scores tree blocks ``[0, n)`` and adds
+  each block's partial into the column of its segment → ``[B, S]``.
+
+The CUDA source is ``repro_torch/csrc/forest_score.cu``; its header says
+what bounds the kernels on an H100 and how the design answers it. A wrapper
+given CPU tensors runs the plain version; given CUDA tensors it launches the
+kernel or raises. It never falls back.
+
+Both versions keep the reference kernel's order of summation, so they are
+bit-exact with it and with each other on finite inputs: per tree block the
+``block_t`` leaf values are summed by the contiguous-halves chain of
+``_pairwise_tree_sum``, and the blocks are added in order into an
+accumulator that starts at 0. Leaf values are gathered directly; the
+reference's three leaf-gather variants move the same values, so
+``leaf_gather`` only selects the buffer layout (:mod:`.ops`).
+
+The feature gather is a true gather (as in ``repro.kernels.ref`` and
+``score_bitvector``), not the Pallas kernel's one-hot matmul: a NaN or inf
+feature affects only the nodes that test it. Masks are int64 bit patterns
+(see :mod:`repro_torch.forest.ensemble`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from repro_torch.kernels import build
+
+ALL_ONES = -1
+LEAF_GATHERS = ("onehot", "select", "mxu")
+CUDA_MAX_SEGMENTS = 16    # kMaxSegments in forest_score.cu
+SMEM_LIMIT = 48 * 1024    # static-launch shared memory of one CTA
+
+# Launches of each CUDA kernel, bumped by its wrapper where it launches the
+# kernel and nowhere else (the plain CPU path does not count).
+KERNEL_LAUNCHES = {"forest_score": 0, "forest_score_segments": 0}
+
+# Bound on the [B, trees, N] working set of one step of the plain version.
+_PLAIN_CHUNK_ELEMS = 1 << 22
+
+_LIB: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()
+
+
+def reset_kernel_launches() -> None:
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
+
+
+def kernel_launches() -> dict[str, int]:
+    return dict(KERNEL_LAUNCHES)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+def library() -> ctypes.CDLL:
+    """The built kernel library (compiled at first use, then cached)."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            path, _ = build.build("forest_score")
+            lib = ctypes.CDLL(str(path))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.forest_score_range.argtypes = [
+                p, i, i, p, p, p, p, i, i, i, i, i, p, p,
+            ]
+            lib.forest_score_range.restype = i
+            lib.forest_score_segments.argtypes = [
+                p, i, i, p, p, p, p, i, i, i, i, p, i, p, p,
+            ]
+            lib.forest_score_segments.restype = i
+            _LIB = lib
+        return _LIB
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version: the CPU path, and what the kernels are held to.
+# ---------------------------------------------------------------------------
+
+
+def _and_reduce(m: torch.Tensor) -> torch.Tensor:
+    """AND over the last axis by contiguous halves (order-free for AND)."""
+    n = m.shape[-1]
+    while n > 1:
+        half = n // 2
+        red = m[..., :half] & m[..., half:2 * half]
+        if n % 2:
+            red = torch.cat([red, m[..., 2 * half:]], dim=-1)
+        m = red
+        n = m.shape[-1]
+    return m[..., 0]
+
+
+def ctz64(m: torch.Tensor) -> torch.Tensor:
+    """Index of the lowest set bit of nonzero int64 bit patterns.
+
+    Works on the two 32-bit halves so no step overflows: ``v & -v`` of a
+    half is an exact power of two below 2**32, and ``frexp`` reads its
+    exponent exactly.
+    """
+    lo = m & 0xFFFFFFFF
+    hi = (m >> 32) & 0xFFFFFFFF
+    lo_nz = lo != 0
+    v = torch.where(lo_nz, lo, hi)
+    low = (v & -v).to(torch.float64)
+    bit = torch.frexp(low).exponent.to(torch.int64) - 1
+    return torch.where(lo_nz, bit, bit + 32)
+
+
+def exit_leaves(
+    x: torch.Tensor,          # [B, F] f32
+    feature: torch.Tensor,    # [T, N] i32
+    threshold: torch.Tensor,  # [T, N] f32
+    mask: torch.Tensor,       # [T, N] i64
+) -> torch.Tensor:
+    """Exit leaf per (doc, tree) by QuickScorer mask AND → ``[B, T]`` i64."""
+    pred = x[:, feature.long()] <= threshold            # NaN → False → mask
+    m = torch.where(pred, torch.full_like(mask, ALL_ONES), mask)
+    return ctz64(_and_reduce(m))
+
+
+def pairwise_tree_sum(per_tree: torch.Tensor) -> torch.Tensor:
+    """Contiguous-halves sum over the last axis, the reference's
+    ``_pairwise_tree_sum`` order (odd lengths carry the trailing element)."""
+    n = per_tree.shape[-1]
+    while n > 1:
+        half = n // 2
+        summed = per_tree[..., :half] + per_tree[..., half:2 * half]
+        if n % 2:
+            summed = torch.cat([summed, per_tree[..., 2 * half:]], dim=-1)
+        per_tree = summed
+        n = per_tree.shape[-1]
+    return per_tree[..., 0]
+
+
+def _block_partials(
+    x, feature, threshold, mask, leaf_value, block_t, block_lo, n_blocks
+) -> torch.Tensor:
+    """Per-tree-block partial sums ``[B, n_blocks]`` of blocks
+    ``[block_lo, block_lo + n_blocks)``, a bounded chunk of blocks at a time."""
+    B, N = x.shape[0], feature.shape[1]
+    per_chunk = max(1, _PLAIN_CHUNK_ELEMS // max(B * block_t * N, 1))
+    parts = []
+    for j0 in range(0, n_blocks, per_chunk):
+        c = min(per_chunk, n_blocks - j0)
+        t0 = (block_lo + j0) * block_t
+        t1 = t0 + c * block_t
+        leaves = exit_leaves(x, feature[t0:t1], threshold[t0:t1], mask[t0:t1])
+        rows = torch.arange(t1 - t0, device=x.device)
+        vals = leaf_value[t0:t1][rows[None, :], leaves]      # [B, c·block_t]
+        parts.append(pairwise_tree_sum(vals.reshape(B, c, block_t)))
+    return torch.cat(parts, dim=1)
+
+
+def _accumulate(partials: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``0 + p[lo] + p[lo+1] + …`` left to right, as the kernel accumulates."""
+    acc = torch.zeros(partials.shape[0], dtype=torch.float32, device=partials.device)
+    for j in range(lo, hi):
+        acc = acc + partials[:, j]
+    return acc
+
+
+def forest_score_plain(
+    x, feature, threshold, mask, leaf_value, *,
+    block_t: int, tree_block_offset: int, n_tree_blocks: int,
+) -> torch.Tensor:
+    """Plain version of :func:`forest_score_kernel` → ``[B]``."""
+    partials = _block_partials(
+        x, feature, threshold, mask, leaf_value,
+        block_t, tree_block_offset, n_tree_blocks,
+    )
+    return _accumulate(partials, 0, n_tree_blocks)
+
+
+def forest_score_segments_plain(
+    x, feature, threshold, mask, leaf_value, *,
+    block_t: int, seg_block_starts: tuple[int, ...], n_tree_blocks: int,
+) -> torch.Tensor:
+    """Plain version of :func:`forest_score_segments_kernel` → ``[B, S]``."""
+    partials = _block_partials(
+        x, feature, threshold, mask, leaf_value, block_t, 0, n_tree_blocks,
+    )
+    ends = (*seg_block_starts[1:], n_tree_blocks)
+    return torch.stack(
+        [_accumulate(partials, lo, hi) for lo, hi in zip(seg_block_starts, ends)],
+        dim=1,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: check, then the plain version on the CPU or the kernel on the card.
+# ---------------------------------------------------------------------------
+
+
+def _check(
+    x, feature, threshold, mask, leaf_value, block_t, block_lo, n_blocks,
+    leaf_gather,
+) -> None:
+    B, F = x.shape
+    T, N = feature.shape
+    L = leaf_value.shape[1]
+    expected = (
+        (x, torch.float32, (B, F)),
+        (feature, torch.int32, (T, N)),
+        (threshold, torch.float32, (T, N)),
+        (mask, torch.int64, (T, N)),
+        (leaf_value, torch.float32, (T, L)),
+    )
+    for t, dtype, shape in expected:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"forest kernel: expected {dtype} {shape}, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if t.device != x.device:
+            raise ValueError(f"forest kernel: tensors on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError("forest kernel: inputs must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"forest kernel: unsupported device {x.device}")
+    if T % block_t or N & (N - 1):
+        raise ValueError(
+            f"forest kernel: T={T} must be a multiple of block_t={block_t} "
+            f"and N={N} a power of two"
+        )
+    if not 0 <= block_lo or not 0 < n_blocks <= T // block_t - block_lo:
+        raise ValueError(
+            f"forest kernel: tree blocks [{block_lo}, {block_lo + n_blocks}) "
+            f"outside [0, {T // block_t})"
+        )
+    if leaf_gather not in LEAF_GATHERS:
+        raise ValueError(f"forest kernel: leaf_gather {leaf_gather!r}")
+    if leaf_gather == "select" and L & (L - 1):
+        raise ValueError(
+            f"leaf_gather='select' needs a power-of-two leaf axis, got {L} — "
+            "use repro_torch.kernels.ops.padded_forest (it pads the leaf axis)"
+        )
+    if x.device.type == "cuda":
+        smem = block_t * N * 16 + block_t * L * 4
+        if block_t & (block_t - 1) or block_t > 32 or smem > SMEM_LIMIT:
+            raise ValueError(
+                f"CUDA forest kernel: block_t={block_t} must be a power of two "
+                f"<= 32 and its tables ({smem} B) fit {SMEM_LIMIT} B"
+            )
+
+
+def _launch(fn: ctypes._CFuncPtr, *args: int) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"forest kernel launch failed: cudaError_t {err}")
+
+
+def forest_score_kernel(
+    x: torch.Tensor,           # [B, F] f32
+    feature: torch.Tensor,     # [T, N] i32, T % block_t == 0, N power of two
+    threshold: torch.Tensor,   # [T, N] f32
+    mask: torch.Tensor,        # [T, N] i64
+    leaf_value: torch.Tensor,  # [T, L] f32
+    *,
+    block_t: int = 16,
+    tree_block_offset: int = 0,
+    n_tree_blocks: int | None = None,
+    leaf_gather: str = "onehot",
+) -> torch.Tensor:
+    """Score ``x`` through tree blocks ``[offset, offset + n)`` → ``[B]``."""
+    T = feature.shape[0]
+    if n_tree_blocks is None:
+        n_tree_blocks = T // block_t - tree_block_offset
+    _check(x, feature, threshold, mask, leaf_value, block_t,
+           tree_block_offset, n_tree_blocks, leaf_gather)
+    if x.device.type == "cpu":
+        return forest_score_plain(
+            x, feature, threshold, mask, leaf_value, block_t=block_t,
+            tree_block_offset=tree_block_offset, n_tree_blocks=n_tree_blocks,
+        )
+    B, F = x.shape
+    out = torch.empty(B, dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    _launch(
+        library().forest_score_range,
+        x.data_ptr(), B, F, feature.data_ptr(), threshold.data_ptr(),
+        mask.data_ptr(), leaf_value.data_ptr(), feature.shape[1],
+        leaf_value.shape[1], block_t, tree_block_offset, n_tree_blocks,
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    KERNEL_LAUNCHES["forest_score"] += 1
+    return out
+
+
+def forest_score_segments_kernel(
+    x: torch.Tensor,
+    feature: torch.Tensor,
+    threshold: torch.Tensor,
+    mask: torch.Tensor,
+    leaf_value: torch.Tensor,
+    *,
+    seg_block_starts: tuple[int, ...],  # ascending, seg_block_starts[0] == 0
+    n_tree_blocks: int,                 # launch covers blocks [0, n)
+    block_t: int = 16,
+    leaf_gather: str = "onehot",
+) -> torch.Tensor:
+    """Per-segment partial scores ``[B, S]`` in one launch.
+
+    Segment ``k`` covers tree blocks ``[seg_block_starts[k],
+    seg_block_starts[k+1])`` (the last runs to ``n_tree_blocks``); prefix
+    scores at sentinel ``k`` are the left-to-right sum of columns ``0..k``.
+    """
+    _check(x, feature, threshold, mask, leaf_value, block_t, 0,
+           n_tree_blocks, leaf_gather)
+    starts = tuple(int(s) for s in seg_block_starts)
+    if (
+        not starts or starts[0] != 0 or list(starts) != sorted(set(starts))
+        or starts[-1] >= n_tree_blocks
+    ):
+        raise ValueError(
+            f"seg_block_starts {starts} must ascend from 0 below {n_tree_blocks}"
+        )
+    if x.device.type == "cpu":
+        return forest_score_segments_plain(
+            x, feature, threshold, mask, leaf_value, block_t=block_t,
+            seg_block_starts=starts, n_tree_blocks=n_tree_blocks,
+        )
+    if len(starts) > CUDA_MAX_SEGMENTS:
+        raise ValueError(f"CUDA segmented kernel: at most {CUDA_MAX_SEGMENTS} segments")
+    B, F = x.shape
+    S = len(starts)
+    out = torch.empty((B, S), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    c_starts = (ctypes.c_int * S)(*starts)
+    _launch(
+        library().forest_score_segments,
+        x.data_ptr(), B, F, feature.data_ptr(), threshold.data_ptr(),
+        mask.data_ptr(), leaf_value.data_ptr(), feature.shape[1],
+        leaf_value.shape[1], block_t, n_tree_blocks,
+        ctypes.cast(c_starts, ctypes.c_void_p), S,
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    KERNEL_LAUNCHES["forest_score_segments"] += 1
+    return out

@@ -1,0 +1,307 @@
+"""Batched ranking service with the LEAR cascade.
+
+The port of :mod:`repro.serve.ranking_service`. A batch of queries arrives
+with its candidate documents (feature-extracted, padded to ``[Q, D, F]``);
+the service scores them through the λ-MART ensemble with document-level
+early exit and returns the top-k:
+
+- the multi-sentinel progressive engine
+  (:meth:`repro_torch.core.cascade.CascadeRanker.rank_progressive`): all
+  three forests of the path — ranker head, LEAR classifier, ranker tail —
+  go through the port's forest kernels, and LEAR's sentinel-time features
+  are built on the device between the head and the classifier;
+- fused vs staged execution picked per batch by :meth:`_pick_mode` on the
+  host, from the batch shape's smoothed survivor counts (the reference's
+  host reference pick; its on-device ``lax.cond`` has no eager
+  counterpart without a sync);
+- a calibrated cost model (``launch_overhead_trees="auto"`` measures the
+  launch overhead on the service's device at start-up);
+- compaction capacities from a running per-stage survivor peak with
+  headroom, never below the cold-start estimate, in powers of two;
+- ONE device→host copy per batch: the response (top-k, scores) and the
+  stats (per-stage survivors, trees traversed, overflow, doc count) are
+  packed into one tensor and read together;
+- overflowing survivors keep their sentinel scores (bounded quality loss,
+  never a crash), and the stats record them.
+
+Per-``(Q, D)`` bucket state: each padded batch shape keeps its own survivor
+peaks and EMA, so a sparse trickle does not shrink a bulk bucket.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.cascade import CascadeRanker, bucket_capacity
+from repro_torch.core.lear import LearClassifier, augment_features
+from repro_torch.core.stage import DenseStage, EngineConfig, TreeStage, _not_ported
+from repro_torch.core.strategies import QueryExitConfig
+from repro_torch.forest.ensemble import TreeEnsemble
+from repro_torch.kernels.ops import ENGINE_BLOCK_B
+from repro_torch.metrics.speedup import (
+    progressive_cost_model,
+    trees_traversed_progressive,
+)
+from repro_torch.serve.calibration import calibrate_launch_overhead_trees
+from repro_torch.utils import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    """Frozen bundle of every :class:`RankingService` tuning knob.
+
+    ``query_exit`` and ``dense_stage`` exist so that a configuration
+    written for the reference fails loudly here: both are queued items of
+    ``ROADMAP.md`` and raise ``NotImplementedError`` when set.
+    """
+
+    threshold: float = 0.5
+    capacity_headroom: float = 1.25
+    top_k: int = 10
+    execution_mode: str = "auto"
+    launch_overhead_trees: float | str = "auto"
+    survivor_ema: float = 0.3
+    query_exit: QueryExitConfig | None = None
+    dense_stage: DenseStage | None = None
+
+    def __post_init__(self) -> None:
+        if self.query_exit is not None:
+            raise _not_ported("query-exit gated tail")
+        if self.dense_stage is not None:
+            raise _not_ported("dense/hybrid stage")
+        if self.execution_mode not in ("auto", "fused", "staged"):
+            raise ValueError(self.execution_mode)
+        # Capacity can only ratchet up when peak × headroom passes the
+        # current power-of-two bucket: headroom must exceed 1.
+        if not (
+            self.capacity_headroom > 1.0 and self.top_k >= 1
+            and 0.0 < self.survivor_ema <= 1.0
+        ):
+            raise ValueError(f"invalid ServiceConfig {self}")
+
+
+@dataclasses.dataclass
+class _BucketAdaptState:
+    """Adaptive state for ONE padded batch shape ``(Q, D)``."""
+
+    peaks: list[int] | None = None  # running max survivors per stage
+    ema: list[float] | None = None  # smoothed survivors per stage
+
+
+@dataclasses.dataclass
+class ServiceStats:
+    batches: int = 0
+    queries: int = 0
+    docs: int = 0
+    docs_continued: int = 0
+    overflow_docs: int = 0
+    trees_traversed: float = 0.0
+    trees_full_equiv: float = 0.0
+    batches_fused: int = 0
+    batches_staged: int = 0
+
+    @property
+    def speedup(self) -> float:
+        return self.trees_full_equiv / max(self.trees_traversed, 1.0)
+
+    @property
+    def continue_rate(self) -> float:
+        return self.docs_continued / max(self.docs, 1)
+
+
+class RankingService:
+    """LEAR-cascade ranking over padded ``[Q, D, F]`` request blocks.
+
+    ``extra_classifiers`` make it a multi-sentinel cascade: stages are
+    ordered by sentinel and each stage's classifier gates the survivors of
+    the previous one. ``device`` (``None`` → the card) is where the forests
+    live and the batches are scored; the ensembles are moved there.
+    """
+
+    def __init__(
+        self,
+        ensemble: TreeEnsemble,
+        classifier: LearClassifier,
+        config: ServiceConfig | None = None,
+        extra_classifiers: Sequence[LearClassifier] = (),
+        *,
+        device: str | torch.device | None = None,
+    ) -> None:
+        config = config if config is not None else ServiceConfig()
+        self.device = resolve_device(device)
+        self.ensemble = ensemble.to(self.device)
+        self.threshold = config.threshold
+        self.headroom = config.capacity_headroom
+        self.top_k = config.top_k
+        self.execution_mode = config.execution_mode
+        loh = config.launch_overhead_trees
+        if loh == "auto":
+            loh = calibrate_launch_overhead_trees(self.device)
+        self.launch_overhead_trees = float(loh)
+        self.survivor_ema = config.survivor_ema
+        self.stats = ServiceStats()
+        self._adapt: dict[tuple[int, int] | None, _BucketAdaptState] = {}
+        self._active_key: tuple[int, int] | None = None
+
+        stages = sorted(
+            (
+                LearClassifier(forest=c.forest.to(self.device), sentinel=c.sentinel)
+                for c in (classifier, *extra_classifiers)
+            ),
+            key=lambda c: c.sentinel,
+        )
+        self.stage_classifiers = stages
+        self.sentinels = tuple(c.sentinel for c in stages)
+        if len(set(self.sentinels)) != len(stages):
+            raise ValueError(f"stage sentinels must be distinct: {self.sentinels}")
+        self.stage_strategies = [self._make_strategy(c) for c in stages]
+        self._acct_classifier_trees = tuple(float(c.n_trees) for c in stages)
+        self.n_stages = len(self.sentinels)
+        self.cascade = CascadeRanker(
+            ensemble=self.ensemble,
+            sentinel=stages[0].sentinel,
+            strategy=self.stage_strategies[0],
+            classifier_trees=stages[0].n_trees,
+        )
+
+    def bucket_state(self, Q: int, D: int) -> _BucketAdaptState:
+        """Adaptive state for batch shape ``(Q, D)``, created on first use."""
+        return self._adapt.setdefault((Q, D), _BucketAdaptState())
+
+    def _active_state(self) -> _BucketAdaptState:
+        return self._adapt.setdefault(self._active_key, _BucketAdaptState())
+
+    def _make_strategy(self, clf: LearClassifier) -> Callable[..., torch.Tensor]:
+        def strategy(partial, mask, features=None):
+            aug = augment_features(features, partial, mask)
+            return clf.continue_mask(aug, mask, self.threshold)
+
+        return strategy
+
+    def _cold_start_estimate(self, n_docs: int) -> int:
+        # Assume a 40% survivor rate at EVERY stage (survivors only shrink;
+        # undersizing a later stage on batch 1 would overflow).
+        return int(0.4 * n_docs * self.headroom)
+
+    def _pick_capacities(self, n_docs: int) -> list[int]:
+        """Per-stage compaction capacities of the ACTIVE bucket: the running
+        survivor peak × headroom, never below the cold-start estimate, in
+        powers of two. A stage that overflowed observed a peak equal to its
+        capacity, so peak × headroom rounds up to the next bucket."""
+        cold = self._cold_start_estimate(n_docs)
+        peaks = self._active_state().peaks
+        if peaks is None:
+            want = [cold] * self.n_stages
+        else:
+            want = [max(cold, int(peak * self.headroom)) for peak in peaks]
+        return [bucket_capacity(w, n_docs) for w in want]
+
+    def _pick_mode(
+        self, n_docs: int, capacities: Sequence[int] | None = None
+    ) -> str:
+        """Fused head vs per-stage tails, picked on the host.
+
+        The reference's host reference pick, unchanged: fused until the
+        bucket has observed survivors (and always with one sentinel), then
+        the cheaper mode under :func:`progressive_cost_model` on the
+        smoothed survivor counts, staged stages priced at block-rounded
+        survivors clipped at capacity (``block_b=ENGINE_BLOCK_B``).
+        """
+        if self.execution_mode != "auto":
+            return self.execution_mode
+        ema = self._active_state().ema
+        if ema is None or len(self.sentinels) == 1:
+            return "fused"
+        if capacities is None:
+            capacities = self._pick_capacities(n_docs)
+        cost = {
+            m: progressive_cost_model(
+                n_docs, ema, self.sentinels, self.ensemble.n_trees, m,
+                launch_overhead_trees=self.launch_overhead_trees,
+                stage_capacities=capacities,
+                block_b=ENGINE_BLOCK_B,
+            )
+            for m in ("fused", "staged")
+        }
+        return "staged" if cost["staged"] < cost["fused"] else "fused"
+
+    def rank_batch(
+        self, X: torch.Tensor | np.ndarray, mask: torch.Tensor | np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """``X: [Q, D, F]`` → (top-k doc indices ``[Q, k]``, scores ``[Q, D]``).
+
+        Everything from submit to the response stays on the device; the
+        only device→host transfer is one copy of one packed tensor.
+        """
+        X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
+        mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+        Q, D, _ = X.shape
+        self._active_key = (Q, D)
+        n_docs = Q * D
+        capacities = self._pick_capacities(n_docs)
+        mode = self._pick_mode(n_docs, capacities)
+        result = self.cascade.rank_progressive(
+            X, mask,
+            EngineConfig(
+                stages=tuple(
+                    TreeStage(c.sentinel, strat, classifier_trees=float(c.n_trees))
+                    for c, strat in zip(self.stage_classifiers, self.stage_strategies)
+                ),
+                mode=mode,
+                capacities=tuple(capacities),
+            ),
+            features=X,
+        )
+        # Top-k (clamped to D) with the reference's lax.top_k tie-break:
+        # the lower index first, which a stable descending sort gives.
+        masked = torch.where(mask, result.scores, torch.full_like(result.scores, -torch.inf))
+        k = min(self.top_k, D)
+        top_idx = torch.sort(masked, dim=-1, descending=True, stable=True).indices[:, :k]
+
+        # ONE device read: response and stats packed into one f64 tensor
+        # (every value is exact in f64: indices, counts, f32 scores).
+        T = self.ensemble.n_trees
+        stats = torch.stack([t.double() for t in (
+            *(m.sum() for m in result.stage_masks),
+            trees_traversed_progressive(
+                mask, result.stage_masks, self.sentinels, T,
+                list(self._acct_classifier_trees),
+            ),
+            result.overflow,
+            mask.sum(),
+        )])
+        packed = torch.cat(
+            [top_idx.reshape(-1).double(), result.scores.reshape(-1).double(), stats]
+        ).cpu().numpy()
+        top_idx = packed[: Q * k].astype(np.int64).reshape(Q, k)
+        scores = packed[Q * k: Q * k + Q * D].astype(np.float32).reshape(Q, D)
+        S = self.n_stages
+        survivors = packed[Q * (k + D): Q * (k + D) + S].astype(np.int64)
+        traversed, overflow, batch_docs = packed[Q * (k + D) + S:]
+
+        a = self.survivor_ema
+        state = self._active_state()
+        if state.peaks is None:
+            state.peaks = [int(n) for n in survivors]
+        else:
+            state.peaks = [max(p, int(n)) for p, n in zip(state.peaks, survivors)]
+        if state.ema is None:
+            state.ema = [float(n) for n in survivors]
+        else:
+            state.ema = [(1 - a) * e + a * float(n) for e, n in zip(state.ema, survivors)]
+
+        s = self.stats
+        s.batches += 1
+        s.batches_staged += mode == "staged"
+        s.batches_fused += mode != "staged"
+        s.queries += Q
+        s.docs += int(batch_docs)
+        s.docs_continued += int(survivors[-1])
+        s.overflow_docs += int(overflow)
+        s.trees_traversed += float(traversed)
+        s.trees_full_equiv += int(batch_docs) * T
+        return top_idx, scores

@@ -1,0 +1,68 @@
+"""The port stands alone: no JAX and nothing of ``repro`` behind it.
+
+In a fresh interpreter, import every module of ``repro_torch`` and the
+``chip_smoke`` script (without running it) and check that no ``jax*`` or
+``repro.*`` module was loaded. Without a card, ``chip_smoke.py`` must fail
+and print no result, also when it is alone in a directory.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
+    or m == "repro"
+)
+print(len(names), leaked)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(ROOT, "src"), ROOT])
+    return env
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], capture_output=True, text=True,
+        env=_env(), cwd=ROOT, timeout=300, check=True,
+    )
+    n_modules, leaked = out.stdout.strip().split(" ", 1)
+    assert int(n_modules) >= 20, out.stdout
+    assert leaked == "[]", leaked
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs for real here")
+    runs = [(ROOT, _env())]
+    lone = tmp_path / "alone"
+    lone.mkdir()
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), lone)
+    runs.append((str(lone), {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}))
+    for cwd, env in runs:
+        out = subprocess.run(
+            [sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+            env=env, cwd=cwd, timeout=300, check=False,
+        )
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
