@@ -12,23 +12,27 @@ Phases, each of which must pass:
 - ``build``: compile ``src/repro_torch/csrc/forest_score.cu`` with nvcc for
   sm_90a into ``build/repro_torch/`` and print the compiler's register and
   shared-memory report.
-- ``kernels``: at the ``lear-msn1`` shapes (1,047 trees of depth 6, 136
-  features, 8 queries × 256 documents; the 10-tree depth-5 classifier on
-  140 features) call each kernel's wrapper on the card and hold it to its
-  plain PyTorch version on the same inputs — max abs diff must be 0 — and
-  to the numpy traversal oracle on a small input (1e-5). Print each
-  kernel's median time (CUDA events, after warm-up, tables warm in L2 as
-  between serving batches), the plain version's and the least time the
-  card could take.
 - ``serve``: a :class:`repro_torch.RankingService` over a random (seeded)
   ``lear-msn1`` ranker and classifiers, threshold 0.5, serving batches of
   8 × 256 with ragged masks: single sentinel 50, then sentinels (50, 150)
   fused, staged and ``auto`` (the service's default; its line says which
-  mode it picked for each batch). Each run must launch its kernels (the launch counts
-  are zeroed just before it and read just after), give finite scores that
-  equal the same service's on the CPU within 1e-5, and the same top-k
-  except where scores tie within 1e-5. A short torch.profiler window after
-  each run prints the card's busy share and the top ops on card and host.
+  mode it picked for each batch and the per-stage compaction capacities).
+  Each run must launch its kernels (the launch counts are zeroed just
+  before it and read just after), give finite scores that equal the same
+  service's on the CPU within 1e-5, and the same top-k except where scores
+  tie within 1e-5. A short torch.profiler window after each run prints the
+  card's busy share and the top ops on card and host.
+- ``kernels``: at the ``lear-msn1`` shapes (1,047 trees of depth 6, 136
+  features, 8 queries × 256 documents; the 10-tree depth-5 classifier on
+  140 features), and for the ranker's compacted launches also at the
+  capacities the serve runs used, call each kernel's wrapper on the card
+  and hold it to its plain PyTorch version on the same inputs — max abs
+  diff must be 0 — and to the numpy traversal oracle on a small input
+  (1e-5). Print each kernel's time (200 back-to-back launches between one
+  pair of CUDA events, after warm-up, behind a sleep kernel so the host's
+  call time stays out of the window; tables warm in L2 as between serving
+  batches), the plain version's, the least time the card could take and
+  the launch grid.
 
 The last lines are the card's name and power limit, one JSON line with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``. Any failure exits
@@ -79,32 +83,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median wall time of ``fn`` on the card, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def phase_build() -> float:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     path, report = build.build("forest_score")
     seconds = time.perf_counter() - t0
-    log(f"[build] {path.name}: {seconds:.2f} s (nvcc {' '.join(build.NVCC_FLAGS)})")
+    import torch
+
+    log(f"[build] {path.name}: {seconds:.2f} s (nvcc {' '.join(build.NVCC_FLAGS)}; "
+        f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda})")
     for line in report.splitlines():
         if "ptxas info" in line:
             log(f"[build]   {line.strip()}")
@@ -143,7 +131,10 @@ def _bound(B: int, F: int, pf, n_blocks: int, S: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def phase_kernels() -> dict:
+def phase_kernels(tail_cases) -> dict:
+    """Each kernel against its plain version and timed, at B = Q·D and at
+    the compaction capacities of ``tail_cases`` (``(layout, seg_lo,
+    seg_hi, B)`` as the serve runs launched them)."""
     import numpy as np
     import torch
 
@@ -151,6 +142,7 @@ def phase_kernels() -> dict:
     from repro_torch.forest.ensemble import random_ensemble
     from repro_torch.kernels import forest_score as fs
     from repro_torch.kernels.ops import forest_score, padded_forest
+    from repro_torch.utils import device_ms
 
     dev = torch.device(DEVICE)
     cfg, ranker, clfs = _models(dev, SENTINELS_2)
@@ -167,11 +159,16 @@ def phase_kernels() -> dict:
     def tables(pf):
         return pf.feature, pf.threshold, pf.mask, pf.leaf_value
 
+    layouts = {"S=1": pf1, "S=2": pf2}
     cases = []
     for label, pf, xs, seg_lo, seg_hi in (
         ("ranker head [0,1)", pf1, x, 0, 1),
         ("ranker tail [1,2)", pf1, x, 1, 2),
         ("classifier [0,1)", pfc, x_aug, 0, 1),
+        *(
+            (f"ranker {layout} [{lo},{hi}) B={cap}", layouts[layout], x[:cap], lo, hi)
+            for layout, lo, hi, cap in sorted(tail_cases)
+        ),
     ):
         kw = dict(
             block_t=pf.block_t, tree_block_offset=pf.seg_block_starts[seg_lo],
@@ -179,7 +176,9 @@ def phase_kernels() -> dict:
         )
         cases.append((
             "forest_score", label, pf, xs, kw["n_tree_blocks"], 1,
-            lambda xs=xs, pf=pf, kw=kw: fs.forest_score_kernel(xs, *tables(pf), **kw),
+            lambda xs=xs, pf=pf, kw=kw: fs.forest_score_kernel(
+                xs, *tables(pf), packed=pf.packed, **kw
+            ),
             lambda xs=xs, pf=pf, kw=kw: fs.forest_score_plain(
                 xs, *tables(pf), block_t=kw["block_t"],
                 tree_block_offset=kw["tree_block_offset"],
@@ -196,7 +195,7 @@ def phase_kernels() -> dict:
         "forest_score_segments", f"ranker head S={S} {SENTINELS_2}", pf2, x,
         n_seg_blocks, S,
         lambda: fs.forest_score_segments_kernel(
-            x, *tables(pf2), leaf_gather=pf2.leaf_gather, **seg_kw
+            x, *tables(pf2), leaf_gather=pf2.leaf_gather, packed=pf2.packed, **seg_kw
         ),
         lambda: fs.forest_score_segments_plain(x, *tables(pf2), **seg_kw),
     ))
@@ -208,22 +207,30 @@ def phase_kernels() -> dict:
         if got.shape != want.shape or not torch.isfinite(got).all():
             raise AssertionError(f"{name} {label}: shape {tuple(got.shape)} or non-finite")
         err = float((got - want).abs().max())
-        k_ms = cuda_ms(kernel, reps=30)
-        p_ms = cuda_ms(plain, reps=5, warmup=1)
+        k_ms = device_ms(kernel, reps=200)
+        p_ms = device_ms(plain, reps=5, warmup=1)
         b_ms, b_by = _bound(xs.shape[0], xs.shape[1], pf, n_blocks, S_out)
+        plan = fs.launch_plan(
+            xs.shape[0], xs.shape[1], pf.feature.shape[1], pf.leaf_value.shape[1],
+            pf.block_t, n_blocks, segmented=name == "forest_score_segments",
+        )
         log(
             f"[kernels] {name} {label}: B={xs.shape[0]} F={xs.shape[1]} "
             f"trees={n_blocks * pf.block_t} N={pf.feature.shape[1]} "
             f"L={pf.leaf_value.shape[1]} max_abs_err={err:.3g} kernel={k_ms:.4f} ms "
-            f"plain={p_ms:.3f} ms bound={b_ms:.5f} ms ({b_by})"
+            f"plain={p_ms:.3f} ms bound={b_ms:.5f} ms ({b_by}) "
+            f"x{k_ms / b_ms:.1f} bound; grid {plan['tiles']}x{plan['chunks']} "
+            f"(tile {plan['tile']} docs, {plan['warps_d']}x{plan['warps_t']} warps "
+            f"on docs x trees, chunk {plan['chunk']} blocks, "
+            f"{plan['ctas_per_sm']} CTAs/SM)"
         )
         if err != 0.0:
             raise AssertionError(f"{name} {label}: kernel differs from plain by {err}")
         r = results.setdefault(name, {"max_abs_err": 0.0, "cases": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["cases"].append({
-            "case": label, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by,
+            "case": label, "B": xs.shape[0], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "grid": plan,
         })
 
     # An independent oracle on a small input: per-document traversal.
@@ -318,10 +325,26 @@ def serve_run(label: str, sentinels, mode: str) -> dict:
         f"p50 latency={p50:.3f} ms (first {lat[0]:.3f} ms) "
         f"docs/s={docs_per_batch / (p50 / 1e3):.0f} continue_rate={st.continue_rate:.4f} "
         f"speedup={st.speedup:.3f}x overflow={st.overflow_docs} "
+        f"capacities={dict(st.capacities)} "
         f"kernel_launches={launches} dispatches={dispatches} "
         f"max|score-cpu|={max_err:.3g}"
     )
     return {"launches": launches, "service": svc, "batches": batches}
+
+
+def _launched_ranges(sentinels, stats) -> set[tuple[str, int, int, int]]:
+    """The ranker's compacted launches of one serve run, as ``(layout,
+    seg_lo, seg_hi, B)``: the tail after the last sentinel at the last
+    stage's capacity, and, where a batch ran staged, each middle segment
+    at its stage's capacity."""
+    S = len(sentinels)
+    layout = f"S={S}"
+    out = set()
+    for caps in stats.capacities:
+        out.add((layout, S, S + 1, caps[-1]))
+        if stats.batches_staged:
+            out.update((layout, k + 1, k + 2, caps[k]) for k in range(S - 1))
+    return out
 
 
 def profile_window(label: str, svc, batches) -> None:
@@ -362,7 +385,7 @@ def profile_window(label: str, svc, batches) -> None:
     )
 
 
-def phase_serve() -> dict[str, int]:
+def phase_serve() -> tuple[dict[str, int], set]:
     runs = (
         ("single-sentinel", (50,), "auto", ("forest_score",)),
         ("fused-2", SENTINELS_2, "fused", ("forest_score", "forest_score_segments")),
@@ -370,15 +393,17 @@ def phase_serve() -> dict[str, int]:
         ("auto-2", SENTINELS_2, "auto", ("forest_score",)),
     )
     total = {"forest_score": 0, "forest_score_segments": 0}
+    tail_cases = set()
     for label, sentinels, mode, needed in runs:
         r = serve_run(label, sentinels, mode)
+        tail_cases |= _launched_ranges(sentinels, r["service"].stats)
         for name in needed:
             if r["launches"][name] == 0:
                 raise AssertionError(f"{label}: kernel {name} was never launched")
         profile_window(label, r["service"], r["batches"][1:4])
         for name, n in r["launches"].items():
             total[name] += n
-    return total
+    return total, tail_cases
 
 
 def main() -> int:
@@ -399,8 +424,8 @@ def main() -> int:
 
     try:
         phase_build()
-        kernels = phase_kernels()
-        launches = phase_serve()
+        launches, tail_cases = phase_serve()
+        kernels = phase_kernels(tail_cases)
         card = card_line()
     except Exception:  # report the failing phase, then fail the run
         traceback.print_exc()

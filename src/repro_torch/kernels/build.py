@@ -4,8 +4,9 @@ The kernels in ``repro_torch/csrc`` expose a plain C interface, so they are
 compiled by ``nvcc`` alone (seconds) rather than against PyTorch's headers
 (minutes), and loaded with :mod:`ctypes`. The library is built at first use
 into ``build/repro_torch/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source builds anew and an unchanged
-one is reused. Nothing here runs at import time.
+every source and header under ``csrc/`` and the flags, so an edit to any
+file the build may read builds anew and an unchanged tree is reused.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -39,13 +40,17 @@ def nvcc_path() -> str:
     return found
 
 
+SOURCE_SUFFIXES = (".cu", ".cuh", ".h", ".hpp")
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by the name, the path and
+    bytes of every source and header under ``csrc/``, and the flags."""
+    h = hashlib.sha256()
+    for path in sorted(p for p in CSRC.rglob("*") if p.suffix in SOURCE_SUFFIXES):
+        h.update(str(path.relative_to(CSRC)).encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:

@@ -10,9 +10,12 @@ with a launch counter and a plain PyTorch version beside it:
   each block's partial into the column of its segment → ``[B, S]``.
 
 The CUDA source is ``repro_torch/csrc/forest_score.cu``; its header says
-what bounds the kernels on an H100 and how the design answers it. A wrapper
-given CPU tensors runs the plain version; given CUDA tensors it launches the
-kernel or raises. It never falls back.
+what bounds the kernels on an H100 and how the design answers it. The
+kernels read the tables as packed records (:func:`pack_nodes`,
+:func:`pack_leaves`), which :func:`repro_torch.kernels.ops.padded_forest`
+builds once per buffer set and passes as ``packed``; a call without them
+packs on the fly. A wrapper given CPU tensors runs the plain version; given
+CUDA tensors it launches the kernel or raises. It never falls back.
 
 Both versions keep the reference kernel's order of summation, so they are
 bit-exact with it and with each other on finite inputs: per tree block the
@@ -30,6 +33,7 @@ feature affects only the nodes that test it. Masks are int64 bit patterns
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -39,8 +43,15 @@ from repro_torch.kernels import build
 
 ALL_ONES = -1
 LEAF_GATHERS = ("onehot", "select", "mxu")
+CUDA_BLOCK_TS = (1, 2, 4, 8, 16, 32)  # the kernel's block_t instantiations
 CUDA_MAX_SEGMENTS = 16    # kMaxSegments in forest_score.cu
-SMEM_LIMIT = 48 * 1024    # static-launch shared memory of one CTA
+NODE_BYTES = 16           # one packed node record {feature, threshold, mask}
+
+# The decomposition forced on the CUDA launches, as (warps on documents,
+# warps on the trees of a block, tree blocks per CTA); 0 lets the launcher
+# choose from B and n_blocks. For tests that pin a decomposition, and for
+# tuning.
+GRID_PLAN = (0, 0, 0)
 
 # Launches of each CUDA kernel, bumped by its wrapper where it launches the
 # kernel and nowhere else (the plain CPU path does not count).
@@ -51,6 +62,15 @@ _PLAIN_CHUNK_ELEMS = 1 << 22
 
 _LIB: ctypes.CDLL | None = None
 _LIB_LOCK = threading.Lock()
+
+# Scratch of the kernels' last-CTA reduction, per (device, stream), grown
+# as needed: the per-block partial sums (f32) and the arrival counters
+# (int32, which the kernel leaves zeroed). Launches in order on one stream
+# share them.
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+# cuda_max_features per (device, N, L, block_t), as the library reports it.
+_MAX_FEATURES: dict[tuple[int, int, int, int], int] = {}
 
 
 def reset_kernel_launches() -> None:
@@ -66,24 +86,102 @@ def _next_pow2(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
 
+def bind_library(path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C functions' types."""
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.forest_score_range.argtypes = [
+        p, i, i, p, p, i, i, i, i, i, i, p, p, p, i, i, i, p,
+    ]
+    lib.forest_score_segments.argtypes = [
+        p, i, i, p, p, i, i, i, i, i, p, i, p, p, p, i, i, i, p,
+    ]
+    lib.forest_score_plan.argtypes = [i, i, i, i, i, i, i, i, i, i, i, p]
+    lib.forest_score_max_features.argtypes = [i, i, i, p]
+    for fn in (
+        lib.forest_score_range, lib.forest_score_segments, lib.forest_score_plan,
+        lib.forest_score_max_features,
+    ):
+        fn.restype = i
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The built kernel library (compiled at first use, then cached)."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
             path, _ = build.build("forest_score")
-            lib = ctypes.CDLL(str(path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.forest_score_range.argtypes = [
-                p, i, i, p, p, p, p, i, i, i, i, i, p, p,
-            ]
-            lib.forest_score_range.restype = i
-            lib.forest_score_segments.argtypes = [
-                p, i, i, p, p, p, p, i, i, i, i, p, i, p, p,
-            ]
-            lib.forest_score_segments.restype = i
-            _LIB = lib
+            _LIB = bind_library(path)
         return _LIB
+
+
+def pack_nodes(
+    feature: torch.Tensor,    # [T, N] i32
+    threshold: torch.Tensor,  # [T, N] f32
+    mask: torch.Tensor,       # [T, N] i64
+) -> torch.Tensor:
+    """The kernel's node records ``[T, N, 4]`` i32: per node 16 bytes,
+    ``{feature, threshold bits, mask low word, mask high word}`` — the
+    kernel's ``Node`` (an ``int4``) in ``forest_score.cu`` (little-endian)."""
+    words = mask.contiguous().view(torch.int32).reshape(*mask.shape, 2)
+    return torch.stack(
+        [feature, threshold.contiguous().view(torch.int32), words[..., 0], words[..., 1]],
+        dim=-1,
+    ).contiguous()
+
+
+def pack_leaves(leaf_value: torch.Tensor) -> torch.Tensor:
+    """Leaf rows ``[T, L4]`` f32, the leaf axis zero-padded to a multiple of
+    4 so a tree block's row is whole 16-byte units (one bulk copy)."""
+    T, L = leaf_value.shape
+    pad = (-L) % 4
+    if pad == 0:
+        return leaf_value.contiguous()
+    zeros = torch.zeros(T, pad, dtype=leaf_value.dtype, device=leaf_value.device)
+    return torch.cat([leaf_value, zeros], dim=1).contiguous()
+
+
+def cuda_max_features(N: int, L: int, block_t: int, device: int | None = None) -> int:
+    """The widest ``x`` (features) the CUDA kernels take for these tables on
+    ``device`` (default: the current card), as the library reports it: the
+    shared-memory document tile of the narrowest CTA beside the tree-block
+    ring (``forest_score_max_features`` in the source)."""
+    dev = torch.cuda.current_device() if device is None else device
+    key = (dev, N, L, block_t)
+    max_f = _MAX_FEATURES.get(key)
+    if max_f is None:
+        out = ctypes.c_int()
+        with torch.cuda.device(dev):
+            _launch(
+                library().forest_score_max_features, N, L + (-L) % 4, block_t,
+                ctypes.cast(ctypes.pointer(out), ctypes.c_void_p),
+            )
+        max_f = _MAX_FEATURES[key] = out.value
+    return max_f
+
+
+def check_cuda_shapes(
+    F: int, N: int, L: int, block_t: int, n_seg: int = 1, device: int | None = None
+) -> None:
+    """Raise ``ValueError`` for what the CUDA kernels cannot take: a
+    ``block_t`` without an instantiation, more than 16 segments, an ``x``
+    wider than the shared document tile holds (:func:`cuda_max_features`)."""
+    if block_t not in CUDA_BLOCK_TS:
+        raise ValueError(
+            f"CUDA forest kernel: block_t={block_t} must be one of {CUDA_BLOCK_TS}"
+        )
+    if not 1 <= n_seg <= CUDA_MAX_SEGMENTS:
+        raise ValueError(
+            f"CUDA segmented kernel: {n_seg} segments, at most {CUDA_MAX_SEGMENTS}"
+        )
+    max_f = cuda_max_features(N, L, block_t, device)
+    if not 1 <= F <= max_f:
+        raise ValueError(
+            f"CUDA forest kernel: F={F} features outside [1, {max_f}], what the "
+            f"shared-memory document tile holds beside block_t={block_t} x N={N} "
+            f"x L={L} tables"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -248,19 +346,71 @@ def _check(
             f"leaf_gather='select' needs a power-of-two leaf axis, got {L} — "
             "use repro_torch.kernels.ops.padded_forest (it pads the leaf axis)"
         )
-    if x.device.type == "cuda":
-        smem = block_t * N * 16 + block_t * L * 4
-        if block_t & (block_t - 1) or block_t > 32 or smem > SMEM_LIMIT:
-            raise ValueError(
-                f"CUDA forest kernel: block_t={block_t} must be a power of two "
-                f"<= 32 and its tables ({smem} B) fit {SMEM_LIMIT} B"
-            )
+
+
+def _on_device(x: torch.Tensor):
+    """Make ``x``'s card the current one for a launch (a no-op when it is)."""
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
+
+
+def _cuda_operands(x, feature, threshold, mask, leaf_value, packed, n_blocks):
+    """The kernels' operands beyond ``x``: packed tables (given or packed
+    now), the stream's scratch (partials and arrival counters) and the
+    stream."""
+    T, N = feature.shape
+    L = leaf_value.shape[1]
+    if packed is None:
+        packed = (pack_nodes(feature, threshold, mask), pack_leaves(leaf_value))
+    nodes, leaves = packed
+    L4 = L + (-L) % 4
+    if (
+        nodes.dtype is not torch.int32 or leaves.dtype is not torch.float32
+        or nodes.shape != (T, N, NODE_BYTES // 4) or leaves.shape != (T, L4)
+        or nodes.device != x.device or leaves.device != x.device
+        or not (nodes.is_contiguous() and leaves.is_contiguous())
+    ):
+        raise ValueError(
+            f"forest kernel: packed tables {nodes.dtype} {tuple(nodes.shape)} and "
+            f"{leaves.dtype} {tuple(leaves.shape)} on {nodes.device}/{leaves.device}, "
+            f"expected contiguous int32 {(T, N, NODE_BYTES // 4)} and float32 "
+            f"{(T, L4)} on {x.device}"
+        )
+    B = x.shape[0]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    key = (x.device.index, stream)
+    partials, arrivals = _SCRATCH.get(key, (None, None))
+    tiles = -(-B // 32)  # at least the most tiles any plan launches
+    if partials is None or partials.numel() < n_blocks * B:
+        partials = torch.empty(n_blocks * B, dtype=torch.float32, device=x.device)
+    if arrivals is None or arrivals.numel() < tiles:
+        arrivals = torch.zeros(max(tiles, 64), dtype=torch.int32, device=x.device)
+    _SCRATCH[key] = (partials, arrivals)
+    return (nodes, leaves, L4, partials, arrivals, stream)
 
 
 def _launch(fn: ctypes._CFuncPtr, *args: int) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"forest kernel launch failed: cudaError_t {err}")
+
+
+def launch_plan(
+    B: int, F: int, N: int, L: int, block_t: int, n_blocks: int,
+    segmented: bool = False,
+) -> dict[str, int]:
+    """The grid the CUDA launcher picks for these sizes (under
+    :data:`GRID_PLAN`): warps on documents and on trees, documents per
+    tile, tree blocks per chunk, grid x (tiles) and y (chunks), resident
+    CTAs per SM."""
+    out = (ctypes.c_int * 7)()
+    _launch(
+        library().forest_score_plan, B, F, N, L, L + (-L) % 4, block_t, n_blocks,
+        int(segmented), *GRID_PLAN, ctypes.cast(out, ctypes.c_void_p),
+    )
+    keys = ("warps_d", "warps_t", "tile", "chunk", "tiles", "chunks", "ctas_per_sm")
+    return dict(zip(keys, out))
 
 
 def forest_score_kernel(
@@ -274,8 +424,13 @@ def forest_score_kernel(
     tree_block_offset: int = 0,
     n_tree_blocks: int | None = None,
     leaf_gather: str = "onehot",
+    packed: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """Score ``x`` through tree blocks ``[offset, offset + n)`` → ``[B]``."""
+    """Score ``x`` through tree blocks ``[offset, offset + n)`` → ``[B]``.
+
+    ``packed``: the same tables as (:func:`pack_nodes`, :func:`pack_leaves`),
+    which the CUDA kernel reads; packed per call when omitted.
+    """
     T = feature.shape[0]
     if n_tree_blocks is None:
         n_tree_blocks = T // block_t - tree_block_offset
@@ -287,16 +442,21 @@ def forest_score_kernel(
             tree_block_offset=tree_block_offset, n_tree_blocks=n_tree_blocks,
         )
     B, F = x.shape
-    out = torch.empty(B, dtype=torch.float32, device=x.device)
-    if B == 0:
-        return out
-    _launch(
-        library().forest_score_range,
-        x.data_ptr(), B, F, feature.data_ptr(), threshold.data_ptr(),
-        mask.data_ptr(), leaf_value.data_ptr(), feature.shape[1],
-        leaf_value.shape[1], block_t, tree_block_offset, n_tree_blocks,
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    N, L = feature.shape[1], leaf_value.shape[1]
+    with _on_device(x):
+        check_cuda_shapes(F, N, L, block_t, device=x.device.index)
+        out = torch.empty(B, dtype=torch.float32, device=x.device)
+        if B == 0:
+            return out
+        nodes, leaves, L4, partials, arrivals, stream = _cuda_operands(
+            x, feature, threshold, mask, leaf_value, packed, n_tree_blocks
+        )
+        _launch(
+            library().forest_score_range,
+            x.data_ptr(), B, F, nodes.data_ptr(), leaves.data_ptr(), N, L, L4,
+            block_t, tree_block_offset, n_tree_blocks, partials.data_ptr(),
+            arrivals.data_ptr(), out.data_ptr(), *GRID_PLAN, stream,
+        )
     KERNEL_LAUNCHES["forest_score"] += 1
     return out
 
@@ -312,12 +472,14 @@ def forest_score_segments_kernel(
     n_tree_blocks: int,                 # launch covers blocks [0, n)
     block_t: int = 16,
     leaf_gather: str = "onehot",
+    packed: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Per-segment partial scores ``[B, S]`` in one launch.
 
     Segment ``k`` covers tree blocks ``[seg_block_starts[k],
     seg_block_starts[k+1])`` (the last runs to ``n_tree_blocks``); prefix
     scores at sentinel ``k`` are the left-to-right sum of columns ``0..k``.
+    ``packed`` as for :func:`forest_score_kernel`.
     """
     _check(x, feature, threshold, mask, leaf_value, block_t, 0,
            n_tree_blocks, leaf_gather)
@@ -334,21 +496,24 @@ def forest_score_segments_kernel(
             x, feature, threshold, mask, leaf_value, block_t=block_t,
             seg_block_starts=starts, n_tree_blocks=n_tree_blocks,
         )
-    if len(starts) > CUDA_MAX_SEGMENTS:
-        raise ValueError(f"CUDA segmented kernel: at most {CUDA_MAX_SEGMENTS} segments")
     B, F = x.shape
     S = len(starts)
-    out = torch.empty((B, S), dtype=torch.float32, device=x.device)
-    if B == 0:
-        return out
-    c_starts = (ctypes.c_int * S)(*starts)
-    _launch(
-        library().forest_score_segments,
-        x.data_ptr(), B, F, feature.data_ptr(), threshold.data_ptr(),
-        mask.data_ptr(), leaf_value.data_ptr(), feature.shape[1],
-        leaf_value.shape[1], block_t, n_tree_blocks,
-        ctypes.cast(c_starts, ctypes.c_void_p), S,
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    N, L = feature.shape[1], leaf_value.shape[1]
+    with _on_device(x):
+        check_cuda_shapes(F, N, L, block_t, S, device=x.device.index)
+        out = torch.empty((B, S), dtype=torch.float32, device=x.device)
+        if B == 0:
+            return out
+        nodes, leaves, L4, partials, arrivals, stream = _cuda_operands(
+            x, feature, threshold, mask, leaf_value, packed, n_tree_blocks
+        )
+        c_starts = (ctypes.c_int * S)(*starts)
+        _launch(
+            library().forest_score_segments,
+            x.data_ptr(), B, F, nodes.data_ptr(), leaves.data_ptr(), N, L, L4,
+            block_t, n_tree_blocks, ctypes.cast(c_starts, ctypes.c_void_p), S,
+            partials.data_ptr(), arrivals.data_ptr(), out.data_ptr(), *GRID_PLAN,
+            stream,
+        )
     KERNEL_LAUNCHES["forest_score_segments"] += 1
     return out

@@ -38,6 +38,8 @@ from repro_torch.kernels.forest_score import (
     _next_pow2,
     forest_score_kernel,
     forest_score_segments_kernel,
+    pack_leaves,
+    pack_nodes,
 )
 
 if typing.TYPE_CHECKING:
@@ -61,7 +63,7 @@ def env_int(name: str, default: int, *, minimum: int = 1) -> int:
 
 
 # The reference's doc-block size. The CUDA kernel has no doc blocks of this
-# size (a CTA holds 128 / block_t documents), but decision-time pricing
+# size (a CTA holds a tile of 32-128 documents), but decision-time pricing
 # (repro_torch.metrics.speedup.progressive_cost_model) quotes the same
 # block-rounded survivor counts as the reference, so the mode picks agree.
 ENGINE_BLOCK_B = 256
@@ -121,6 +123,15 @@ class PaddedForest:
     block_t: int
     leaf_gather: str = "onehot"
     leaf_layout: str = "native"
+    # The CUDA kernels' copies of the same tables: 16-byte node records
+    # [T_pad, N_pad, 4] i32 (kernels.forest_score.pack_nodes) and leaf rows
+    # padded to a multiple of 4 [T_pad, L4] f32 (pack_leaves).
+    nodes: torch.Tensor | None = None
+    leaves: torch.Tensor | None = None
+
+    @property
+    def packed(self) -> tuple[torch.Tensor, torch.Tensor] | None:
+        return None if self.nodes is None else (self.nodes, self.leaves)
 
     @property
     def n_segments(self) -> int:
@@ -197,11 +208,15 @@ def padded_forest(
         offset += nb
         start = end
 
+    feature = torch.cat(parts["feat"]).contiguous()
+    threshold = torch.cat(parts["thr"]).contiguous()
+    mask = torch.cat(parts["mask"]).contiguous()
+    leaf_value = torch.cat(parts["leaf"]).contiguous()
     pf = PaddedForest(
-        feature=torch.cat(parts["feat"]).contiguous(),
-        threshold=torch.cat(parts["thr"]).contiguous(),
-        mask=torch.cat(parts["mask"]).contiguous(),
-        leaf_value=torch.cat(parts["leaf"]).contiguous(),
+        feature=feature,
+        threshold=threshold,
+        mask=mask,
+        leaf_value=leaf_value,
         base_score=ens.base_score,
         boundaries=boundaries,
         seg_block_starts=tuple(seg_block_starts),
@@ -209,6 +224,8 @@ def padded_forest(
         block_t=block_t,
         leaf_gather=leaf_gather,
         leaf_layout=leaf_layout,
+        nodes=pack_nodes(feature, threshold, mask),
+        leaves=pack_leaves(leaf_value),
     )
     cache[key] = pf
     while len(cache) > PADDED_CACHE_MAX:
@@ -241,6 +258,7 @@ def forest_score_range(
         tree_block_offset=pf.seg_block_starts[seg_lo],
         n_tree_blocks=sum(pf.seg_blocks[seg_lo:seg_hi]),
         leaf_gather=pf.leaf_gather,
+        packed=pf.packed,
     )
     base = pf.base_score if seg_lo == 0 else torch.zeros_like(pf.base_score)
     return scores + base
@@ -262,6 +280,7 @@ def forest_score_segments(
         n_tree_blocks=pf.seg_block_starts[S - 1] + pf.seg_blocks[S - 1],
         block_t=pf.block_t,
         leaf_gather=pf.leaf_gather,
+        packed=pf.packed,
     )
 
 

@@ -103,6 +103,9 @@ class ServiceStats:
     trees_full_equiv: float = 0.0
     batches_fused: int = 0
     batches_staged: int = 0
+    # Batches per tuple of per-stage compaction capacities (stage k's
+    # survivors are compacted into capacities[k] rows; the last is the tail's).
+    capacities: dict[tuple[int, ...], int] = dataclasses.field(default_factory=dict)
 
     @property
     def speedup(self) -> float:
@@ -298,6 +301,7 @@ class RankingService:
         s.batches += 1
         s.batches_staged += mode == "staged"
         s.batches_fused += mode != "staged"
+        s.capacities[tuple(capacities)] = s.capacities.get(tuple(capacities), 0) + 1
         s.queries += Q
         s.docs += int(batch_docs)
         s.docs_continued += int(survivors[-1])

@@ -118,3 +118,187 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fs.forest_score_kernel(x.double(), *tables, block_t=pf.block_t)
     with pytest.raises(ValueError):
         fs.forest_score_kernel(x.t().contiguous().t(), *tables, block_t=pf.block_t)
+
+
+# ---------------------------------------------------------------------------
+# The launch decomposition: document tiles x chunks of tree blocks, the
+# trees of a block split across warps, the per-block partials and the last
+# CTA's in-order sum. GRID_PLAN forces the warps on documents (the tile
+# width), the warps on trees and the chunk (tree blocks per CTA); 0 is the
+# launcher's own choice.
+# ---------------------------------------------------------------------------
+
+PLANS = [(0, 0, 0), (1, 1, 5), (4, 1, 2), (2, 2, 1), (1, 4, 3), (4, 2, 0)]
+
+
+def _tables(pf):
+    return pf.feature, pf.threshold, pf.mask, pf.leaf_value
+
+
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("n_blocks", [1, 63, 67])
+@pytest.mark.parametrize("B", [1, 31, 33, 513, 1000])
+def test_range_kernel_decompositions(dev, monkeypatch, B, n_blocks, plan):
+    """B around the tile widths (32·warps) and not a multiple of any tile;
+    n_blocks that the forced chunks 5, 2 and 3 do not divide; tree blocks
+    split across 1, 2 and 4 warps."""
+    monkeypatch.setattr(fs, "GRID_PLAN", plan)
+    block_t = 4
+    ens = random_ensemble(B + n_blocks, n_blocks * block_t, 4, 13, device=dev)
+    pf = ops.padded_forest(ens, block_t=block_t)
+    x = _x(np.random.default_rng(B), B, 13, dev)
+    kw = dict(block_t=block_t, tree_block_offset=0, n_tree_blocks=n_blocks)
+    got = fs.forest_score_kernel(x, *_tables(pf), packed=pf.packed, **kw)
+    want = fs.forest_score_plain(x, *_tables(pf), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("offset,n", [(1, 66), (5, 60), (66, 1), (30, 7)])
+def test_range_kernel_with_a_tree_block_offset(dev, monkeypatch, offset, n, plan):
+    monkeypatch.setattr(fs, "GRID_PLAN", plan)
+    ens = random_ensemble(11, 67 * 4, 5, 17, device=dev)
+    pf = ops.padded_forest(ens, block_t=4)
+    x = _x(np.random.default_rng(offset), 300, 17, dev)
+    kw = dict(block_t=4, tree_block_offset=offset, n_tree_blocks=n)
+    got = fs.forest_score_kernel(x, *_tables(pf), packed=pf.packed, **kw)
+    want = fs.forest_score_plain(x, *_tables(pf), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _seg_starts(S, n_blocks, chunk, where, rng):
+    """S ascending starts from 0: on chunk edges (multiples of ``chunk``)
+    or strictly inside chunks."""
+    if where == "edge":
+        pool = np.arange(chunk, n_blocks, chunk)
+    else:
+        pool = np.array([j for j in range(1, n_blocks) if j % chunk])
+    return (0, *sorted(int(j) for j in rng.choice(pool, S - 1, replace=False)))
+
+
+@pytest.mark.parametrize("where", ["edge", "inside"])
+@pytest.mark.parametrize("S", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("plan", [(0, 0, 0), (1, 1, 4), (4, 2, 3), (2, 1, 0)])
+def test_segments_kernel_decompositions(dev, monkeypatch, S, where, plan):
+    """Segment starts on a chunk edge and inside a chunk, S = 1..16; each
+    column also equals the range kernel launched over the same blocks."""
+    monkeypatch.setattr(fs, "GRID_PLAN", plan)
+    chunk = plan[2] or 4
+    n_blocks = 70
+    rng = np.random.default_rng(S * 7 + len(where))
+    ens = random_ensemble(S, n_blocks * 2, 4, 21, device=dev)
+    pf = ops.padded_forest(ens, block_t=2)
+    starts = _seg_starts(S, n_blocks, chunk, where, rng)
+    x = _x(rng, 517, 21, dev)
+    kw = dict(seg_block_starts=starts, n_tree_blocks=n_blocks, block_t=2)
+    got = fs.forest_score_segments_kernel(x, *_tables(pf), packed=pf.packed, **kw)
+    want = fs.forest_score_segments_plain(x, *_tables(pf), **kw)
+    ends = (*starts[1:], n_blocks)
+    cols = [
+        fs.forest_score_kernel(
+            x, *_tables(pf), packed=pf.packed, block_t=2,
+            tree_block_offset=lo, n_tree_blocks=hi - lo,
+        )
+        for lo, hi in zip(starts, ends)
+    ]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, torch.stack(cols, dim=1))
+
+
+@pytest.mark.parametrize("block_t", fs.CUDA_BLOCK_TS)
+@pytest.mark.parametrize("plan", [(0, 0, 0), (1, 1, 3), (2, 0, 2)])
+def test_every_block_t_instantiation(dev, monkeypatch, block_t, plan):
+    """Both kernels at every block_t the library instantiates."""
+    monkeypatch.setattr(fs, "GRID_PLAN", plan)
+    n_trees = 9 * block_t
+    ens = random_ensemble(block_t, n_trees, 6, 19, device=dev)
+    pf = ops.padded_forest(
+        ens, boundaries=(2 * block_t, 5 * block_t + 1, n_trees), block_t=block_t
+    )
+    x = _x(np.random.default_rng(block_t), 200, 19, dev)
+    got, want = _both(pf, x, 0, pf.n_segments)
+    S = pf.n_segments
+    kw = dict(
+        seg_block_starts=pf.seg_block_starts, n_tree_blocks=sum(pf.seg_blocks),
+        block_t=block_t,
+    )
+    got_s = fs.forest_score_segments_kernel(x, *_tables(pf), packed=pf.packed, **kw)
+    want_s = fs.forest_score_segments_plain(x, *_tables(pf), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got_s.shape == (200, S) and torch.equal(got_s, want_s)
+
+
+def test_widest_x_the_wrapper_accepts_and_one_more(dev):
+    N_trees, depth, block_t = 40, 6, 16
+    ens = random_ensemble(3, N_trees, depth, 8, device=dev)
+    pf = ops.padded_forest(ens, block_t=block_t)
+    N, L = pf.feature.shape[1], pf.leaf_value.shape[1]
+    f_max = fs.cuda_max_features(N, L, block_t)
+    rng = np.random.default_rng(0)
+    for F in (f_max, f_max + 1):
+        # Trees test features spread over the whole row, the last one included.
+        wide = random_ensemble(5, N_trees, depth, F, device=dev)
+        wpf = ops.padded_forest(wide, block_t=block_t)
+        x = _x(rng, 100, F, dev)
+        kw = dict(block_t=block_t, tree_block_offset=0, n_tree_blocks=wpf.seg_blocks[0])
+        if F == f_max:
+            got = fs.forest_score_kernel(x, *_tables(wpf), packed=wpf.packed, **kw)
+            want = fs.forest_score_plain(x, *_tables(wpf), **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        else:
+            with pytest.raises(ValueError, match="features"):
+                fs.forest_score_kernel(x, *_tables(wpf), packed=wpf.packed, **kw)
+
+
+def test_unpacked_call_and_repeated_launches_agree(dev):
+    """A call without ``packed`` packs on the fly; back-to-back launches on
+    one stream and a launch on a side stream reuse the arrival counters."""
+    ens = random_ensemble(2, 300, 6, 30, device=dev)
+    pf = ops.padded_forest(ens, boundaries=(50, 300))
+    x = _x(np.random.default_rng(3), 700, 30, dev)
+    kw = dict(block_t=pf.block_t, tree_block_offset=pf.seg_block_starts[1],
+              n_tree_blocks=pf.seg_blocks[1])
+    want = fs.forest_score_plain(x, *_tables(pf), **kw)
+    outs = [fs.forest_score_kernel(x, *_tables(pf), packed=pf.packed, **kw) for _ in range(5)]
+    outs.append(fs.forest_score_kernel(x, *_tables(pf), **kw))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs.append(fs.forest_score_kernel(x, *_tables(pf), packed=pf.packed, **kw))
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got, want)
+
+
+def test_wrapper_rejects_a_block_t_without_an_instantiation(dev):
+    ens = random_ensemble(1, 24, 3, 8, device=dev)
+    pf = ops.padded_forest(ens, block_t=12)   # the plain version takes 12
+    x = _x(np.random.default_rng(4), 16, 8, dev)
+    with pytest.raises(ValueError, match="block_t"):
+        fs.forest_score_kernel(x, *_tables(pf), block_t=12)
+
+
+def test_launch_plan_fills_the_card_at_the_tail_sizes(dev):
+    """At the serving tail's sizes the launcher's grid covers every SM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B in (512, 1024, 2048):
+        plan = fs.launch_plan(B, 136, 64, 64, 16, 63)
+        assert plan["tiles"] * plan["chunks"] >= sms, (B, plan)
+        assert plan["tiles"] * plan["tile"] >= B
+
+
+def test_lear_msn1_shapes_fit_the_widest_tile(dev, monkeypatch):
+    """The serving path's tables leave room for the 4-warp document tile
+    (with 2 tree warps) at its F: the ranker's (N 64, F 136) and the
+    classifier's (N 32, F 140)."""
+    monkeypatch.setattr(fs, "GRID_PLAN", (4, 2, 0))
+    for N, L, F in ((64, 64, 136), (32, 32, 140)):
+        assert fs.cuda_max_features(N, L, 16) >= F
+        fs.check_cuda_shapes(F, N, L, 16)
+        plan = fs.launch_plan(2048, F, N, L, 16, 63)
+        assert (plan["warps_d"], plan["warps_t"]) == (4, 2) and plan["ctas_per_sm"] >= 1
