@@ -22,6 +22,23 @@ Phases, each of which must pass:
   service's on the CPU within 1e-5, and the same top-k except where scores
   tie within 1e-5. A short torch.profiler window after each run prints the
   card's busy share and the top ops on card and host.
+- ``tier``: :class:`repro_torch.serve.ServingTier` over the same
+  ``lear-msn1`` ranker (single sentinel 50, threshold 0.4) with the
+  reference bench's degradation ladder (``benchmarks/bench_serve.py``
+  ``DEGRADE_RUNGS``: threshold 0.6, then 0.8 with a query-exit margin of
+  2.0), doc counts (64, 128, 256) and ``BucketPolicy(max_queries=8,
+  max_wait_ms=2.0, min_docs=8)``: 12 ``(Q, D)`` buckets × 3 rungs warmed.
+  Two threads submit 200 single queries of 64–256 candidates (open loop,
+  exponential gaps of mean 2 ms per thread). Every response must equal the
+  same query ranked alone by the CPU service at the rung that served it
+  (1e-5; top-k equal except ties), the warmed tier must make no first
+  touch (``repro_torch.kernels.forest_score.first_touches``) and overflow
+  nothing, and no future may be left unresolved after ``stop()``. Then
+  rungs 1 and 2 each serve two 8 × 256 batches against the CPU service at
+  the same rung, and rung 2 two more batches in which half of the queries
+  carry documents that pass its threshold: those queries do not converge,
+  the rest exit, and the gated tail runs with a survivor count between 0
+  and its rows (checked: 0 < query_exit_rate < 1, survivors > 0).
 - ``kernels``: at the ``lear-msn1`` shapes (1,047 trees of depth 6, 136
   features, 8 queries × 256 documents; the 10-tree depth-5 classifier on
   140 features), and for the ranker's compacted launches also at the
@@ -32,16 +49,20 @@ Phases, each of which must pass:
   pair of CUDA events, after warm-up, behind a sleep kernel so the host's
   call time stays out of the window; tables warm in L2 as between serving
   batches), the plain version's, the least time the card could take and
-  the launch grid.
+  the launch grid. The gated tail (the range kernel given a survivor
+  count) is held to its plain version at B = 1024 and 2048 with counts 0,
+  1, 33, B/2 and B, and timed at counts 0 and B.
 
-The last lines are the card's name and power limit, one JSON line with the
-kernels' numbers, and ``{"ok": true, "device": {...}}``. Any failure exits
+The last lines are a one-line summary of the tier and the gated tail, the
+card's name and power limit, one JSON line with the kernels' numbers, and
+``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
 directory without the repository's ``src/repro_torch``.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -69,6 +90,14 @@ THRESHOLD = 0.5
 SEED = 0
 TOL = 1e-5
 DEVICE = "cuda"
+
+# The [tier] phase: the reference bench's serving setup
+# (benchmarks/bench_serve.py: baseline threshold 0.4, DEGRADE_RUNGS).
+TIER_THRESHOLD = 0.4
+TIER_DOC_COUNTS = (64, 128, 256)
+TIER_QUERIES = 200
+TIER_GAP_MS = 2.0        # mean exponential gap between one thread's submits
+GATED_BS = (1024, 2048)  # the tail's serving capacity, and the full batch
 
 
 def log(msg: str) -> None:
@@ -406,6 +435,356 @@ def phase_serve() -> tuple[dict[str, int], set]:
     return total, tail_cases
 
 
+def _tier_rungs():
+    from repro_torch.core.strategies import QueryExitConfig
+    from repro_torch.serve.degradation import ExitRung
+
+    # benchmarks/bench_serve.py:211-217
+    return (
+        ExitRung("tight", threshold=0.6),
+        ExitRung("tightest", threshold=0.8, query_exit=QueryExitConfig(k=10, margin=2.0)),
+    )
+
+
+def _tier_service(device, launch_overhead_trees="auto"):
+    from repro_torch.configs.lear_msn1 import config
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+
+    cfg, ranker, clfs = _models(device, (config().sentinel,))
+    svc = RankingService(
+        ranker, clfs[0],
+        ServiceConfig(threshold=TIER_THRESHOLD, launch_overhead_trees=launch_overhead_trees),
+        device=device,
+    )
+    return cfg, svc
+
+
+def _cpu_rank(svc_cpu, X, mask):
+    """The CPU service's response with the bucket's peaks seeded at Q·D,
+    as the tier's warmup seeds them (no cold-start overflow)."""
+    Qb, Db = mask.shape
+    state = svc_cpu.bucket_state(Qb, Db)
+    if state.peaks is None:
+        state.peaks = [Qb * Db] * svc_cpu.n_stages
+    return svc_cpu.rank_batch(X, mask)
+
+
+def phase_tier(card: str) -> dict:
+    """The serving tier at full width on the card against the CPU service."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (
+        BatcherHooks,
+        BucketPolicy,
+        DegradationPolicy,
+        ServiceStats,
+        ServingTier,
+        TierConfig,
+    )
+
+    cfg, svc = _tier_service(DEVICE)
+    # On the worker thread: the rung that served each future, and each
+    # flush's time from the pop of its bucket to its first response.
+    served_at, flush_ms, flush_t0 = {}, [], []
+
+    def on_flush(db, n_reqs):
+        flush_t0.append(time.perf_counter())
+
+    def on_result(fut):
+        served_at[id(fut)] = svc.rung_level
+        if flush_t0:
+            flush_ms.append((time.perf_counter() - flush_t0.pop()) * 1e3)
+
+    tier = ServingTier(
+        svc, cfg.n_features,
+        TierConfig(
+            doc_counts=TIER_DOC_COUNTS, degradation=DegradationPolicy(rungs=_tier_rungs())
+        ),
+        policy=BucketPolicy(max_queries=8, max_wait_ms=2.0, min_docs=8),
+        hooks=BatcherHooks(on_flush=on_flush, on_result=on_result),
+    )
+    tier.start()
+    rep = tier.warmup_report
+    log(
+        f"[tier] warmup: {len(rep.buckets)} buckets x {rep.rungs_warmed} rungs in "
+        f"{rep.total_seconds:.3f} s; seconds per bucket: "
+        + ", ".join(f"{q}x{d} {t:.3f}" for (q, d), t in rep.seconds_per_bucket.items())
+    )
+
+    rng = np.random.default_rng(SEED + 200)
+    sizes = rng.integers(64, 257, size=TIER_QUERIES)
+    queries = [rng.normal(size=(int(n), cfg.n_features)).astype(np.float32) for n in sizes]
+    gaps = rng.exponential(TIER_GAP_MS / 1e3, size=TIER_QUERIES)
+    futs = [None] * TIER_QUERIES
+
+    def submit(idx):
+        for i in idx:
+            time.sleep(gaps[i])
+            futs[i] = tier.submit(queries[i])
+
+    touches = fs.first_touches()
+    ops.reset_launch_counts()
+    fs.reset_kernel_launches()
+    threads = [threading.Thread(target=submit, args=(range(k, TIER_QUERIES, 2),)) for k in (0, 1)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError("tier: a submitting thread did not finish")
+    offered = TIER_QUERIES / (time.perf_counter() - t0)
+    results = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    tier.stop()
+    launches, dispatches = fs.kernel_launches(), ops.launch_counts()
+    new_touches = {k: v - touches[k] for k, v in fs.first_touches().items() if v != touches[k]}
+    health, stats = tier.health(), tier.stats()
+    if not all(f.done() for f in futs):
+        raise AssertionError("tier: a future is unresolved after stop()")
+    if new_touches:
+        raise AssertionError(f"tier: first touches after warmup: {new_touches}")
+    if stats["service"]["overflow_docs"] != 0:
+        raise AssertionError(f"tier: overflow {stats['service']['overflow_docs']}")
+    if launches["forest_score"] == 0:
+        raise AssertionError("tier: kernel forest_score was never launched")
+
+    # Each response against the query ranked alone on the CPU, at its rung.
+    _, svc_cpu = _tier_service("cpu", svc.launch_overhead_trees)
+    svc_cpu.install_rungs(_tier_rungs())
+    rungs = [served_at[id(f)] for f in futs]
+    max_err = 0.0
+    for q, (top, scores), rung in zip(queries, results, rungs):
+        svc_cpu.set_rung(rung)
+        top_c, scores_c = _cpu_rank(svc_cpu, q[None], np.ones((1, len(q)), bool))
+        if scores.shape != (len(q),) or not np.isfinite(scores).all():
+            raise AssertionError(f"tier: scores {scores.shape} or non-finite")
+        max_err = max(max_err, float(np.abs(scores - scores_c[0]).max()))
+        if not _topk_agree(top[None], top_c, scores_c):
+            raise AssertionError("tier: top-k differs from the CPU service")
+    if max_err > TOL:
+        raise AssertionError(f"tier: scores differ from the CPU service by {max_err}")
+    b = stats["batcher"]
+    flushes = b["flushes_full"] + b["flushes_deadline"] + b["flushes_drain"]
+    log(
+        f"[tier] {cfg.name} {cfg.n_trees} trees depth {cfg.depth} F {cfg.n_features}, "
+        f"sentinel {cfg.sentinel}: {b['completed']} queries of 64-256 docs from 2 threads in "
+        f"{wall:.3f} s (offered {offered:.0f} queries/s); p50 latency={health['p50_ms']:.3f} ms "
+        f"p99={health['p99_ms']:.3f} ms ({card}); flushes={flushes} (full {b['flushes_full']}, "
+        f"deadline {b['flushes_deadline']}, drain {b['flushes_drain']}) mean padded Q="
+        f"{(b['completed'] + b['padded_query_slots']) / max(flushes, 1):.3f}; "
+        f"flush to first response median={statistics.median(flush_ms):.3f} ms "
+        f"p90={float(np.percentile(flush_ms, 90)):.3f} ms; "
+        f"served at rungs {dict(sorted(collections.Counter(rungs).items()))} "
+        f"(degradation {health['degradation']}); "
+        f"first touches after warmup=0 overflow=0 failed={b['failed']}; "
+        f"kernel_launches={launches} dispatches={dispatches}; "
+        f"max|score-cpu|={max_err:.3g}"
+    )
+
+    # Rungs 1 and 2 on 8 x 256 batches against the CPU service at the rung.
+    # Rung 2 also serves batches in which only some queries converge, so
+    # its gated tail runs with 0 < n_valid < B on the card.
+    gated, rung_err = 0, 0.0
+    mixed = _mixed_batches(cfg.n_features, svc.stage_classifiers[0].forest)
+    for level in (1, 2):
+        svc.set_rung(level)
+        svc_cpu.set_rung(level)
+        fs.reset_kernel_launches()
+        err, n_gated, parts = 0.0, 0, []
+        sets = [("random", _batches(cfg.n_features)[:2])]
+        if level == 2:
+            sets.append(("mixed", mixed))
+        for part, batches in sets:
+            svc.stats = ServiceStats()
+            for X, mask in batches:
+                ops.reset_launch_counts()
+                top, scores = svc.rank_batch(X, mask)
+                n_gated += ops.launch_counts()["gated"]  # the card's, not the CPU's
+                top_c, scores_c = _cpu_rank(svc_cpu, X, mask)
+                err = max(err, float(np.abs(scores - scores_c).max()))
+                if not np.isfinite(scores).all() or not _topk_agree(top, top_c, scores_c):
+                    raise AssertionError(f"tier rung {level}: differs from the CPU service")
+            st = svc.stats
+            if part == "mixed":
+                mixed_rate, mixed_survivors = st.query_exit_rate, st.docs_continued
+            parts.append(
+                f"{part}: query_exit_rate={st.query_exit_rate:.4f} "
+                f"continue_rate={st.continue_rate:.4f} survivors={st.docs_continued}"
+            )
+            if part == "mixed" and not (0.0 < st.query_exit_rate < 1.0 and st.docs_continued > 0):
+                raise AssertionError(
+                    f"tier rung 2: mixed batches exited {st.query_exit_rate} of the queries "
+                    f"with {st.docs_continued} survivors; the gated tail saw no partial count"
+                )
+        if err > TOL:
+            raise AssertionError(f"tier rung {level}: scores differ from the CPU by {err}")
+        n_batches = sum(len(batches) for _, batches in sets)
+        if n_gated != (n_batches if level == 2 else 0):
+            raise AssertionError(f"tier rung {level}: {n_gated} gated dispatches")
+        gated += n_gated
+        rung_err = max(rung_err, err)
+        log(
+            f"[tier] rung {level} ({svc.rung_names[level]}): {n_batches} batches of {Q}x{D}, "
+            + "; ".join(parts)
+            + f"; gated dispatches={n_gated} kernel_launches={fs.kernel_launches()} "
+            f"max|score-cpu|={err:.3g}"
+        )
+    svc.set_rung(0)
+    summary = (
+        f"tier {b['completed']} queries p50={health['p50_ms']:.3f} ms "
+        f"p99={health['p99_ms']:.3f} ms, first touches 0, overflow 0, "
+        f"max|score-cpu|={max_err:.3g}; rungs 1-2 max|score-cpu|={rung_err:.3g}, "
+        f"rung 2 mixed query_exit_rate={mixed_rate:.4f} survivors={mixed_survivors}"
+    )
+    return {"launches": launches, "gated": dispatches["gated"] + gated, "summary": summary}
+
+
+def _leaf_paths(feature, threshold, depth: int) -> list[list[tuple[int, float, bool]]]:
+    """Each leaf of one complete heap-ordered tree, left to right, as its
+    path of ``(feature, threshold, goes_left)``; left is ``x <= threshold``."""
+    paths = []
+    for leaf in range(1 << depth):
+        n, path = 0, []
+        for d in range(depth):
+            bit = (leaf >> (depth - 1 - d)) & 1
+            path.append((int(feature[n]), float(threshold[n]), bit == 0))
+            n = 2 * n + 1 + bit
+        paths.append(path)
+    return paths
+
+
+def _hot_documents(forest, n_features: int, rng, n: int):
+    """``n`` documents that the LEAR classifier ``forest`` scores high.
+
+    Rung 2's threshold of 0.8 lets no normal random document through the
+    seeded classifier, so every query would exit at once and the gated tail
+    would only ever see a count of 0. Per tree, greedily, this takes the
+    highest leaf whose path agrees with the bounds already taken (the four
+    sentinel features assumed at a middle rank of 256 candidates), and
+    draws documents inside the bounds.
+    """
+    import numpy as np
+
+    feature = forest.feature.cpu().numpy()
+    threshold = forest.threshold.cpu().numpy()
+    leaves = forest.leaf_value.cpu().numpy()
+    depth = int(np.log2(feature.shape[1] + 1))
+    aug_guess = (0.0, 100.0, 0.5, 256.0)  # partial, rank, normalized partial, candidates
+    lo = np.full(n_features, -np.inf)
+    hi = np.full(n_features, np.inf)
+
+    def agrees(path) -> bool:
+        for f, t, left in path:
+            if f >= n_features:
+                if (aug_guess[f - n_features] <= t) != left:
+                    return False
+            elif (left and lo[f] >= t) or (not left and hi[f] <= t):
+                return False
+        return True
+
+    for tree in np.argsort(-leaves.max(axis=1)):
+        paths = _leaf_paths(feature[tree], threshold[tree], depth)
+        for leaf in np.argsort(-leaves[tree]):
+            if agrees(paths[leaf]):
+                for f, t, left in paths[leaf]:
+                    if f < n_features:
+                        if left:
+                            hi[f] = min(hi[f], t)
+                        else:
+                            lo[f] = max(lo[f], t)
+                break
+    x = rng.normal(size=(n, n_features))
+    both = np.isfinite(lo) & np.isfinite(hi)
+    x[:, both] = (lo[both] + hi[both]) / 2
+    x = np.where(np.isfinite(lo) & ~both, np.maximum(x, lo + 0.5), x)
+    x = np.where(np.isfinite(hi) & ~both, np.minimum(x, hi - 0.5), x)
+    return x.astype(np.float32)
+
+
+def _mixed_batches(n_features: int, clf_forest, n_hot: int = 20):
+    """Two 8 x 256 batches whose first half of queries each carry ``n_hot``
+    documents that pass rung 2's threshold (more than its query-exit k of
+    10, so those queries do not converge) and whose second half carry none
+    (those exit)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 400)
+    out = []
+    for X, mask in _batches(n_features)[2:4]:
+        X = X.copy()
+        for q in range(Q // 2):
+            X[q, :n_hot] = _hot_documents(clf_forest, n_features, rng, n_hot)
+        out.append((X, mask))
+    return out
+
+
+def _gated_bound(B: int, n_valid: int, F: int, pf, n_blocks: int) -> tuple[float, str]:
+    """The gated tail's least time: the valid rows' work, and B outputs."""
+    trees = n_blocks * pf.block_t
+    N, L = pf.feature.shape[1], pf.leaf_value.shape[1]
+    tables = trees * N * (4 + 4 + 8) + trees * L * 4 if n_valid else 0
+    nbytes = 4 + n_valid * F * 4 + tables + B * 4
+    ops = OPS_PER_NODE_TEST * n_valid * trees * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def phase_gated() -> dict:
+    """The gated tail against its plain version, and timed at counts 0, B."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.lear_msn1 import config
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels.ops import padded_forest
+    from repro_torch.utils import device_ms
+
+    dev = torch.device(DEVICE)
+    cfg, ranker, _ = _models(dev, (config().sentinel,))
+    pf = padded_forest(ranker, boundaries=(cfg.sentinel, cfg.n_trees))
+    tables = (pf.feature, pf.threshold, pf.mask, pf.leaf_value)
+    kw = dict(block_t=pf.block_t, tree_block_offset=pf.seg_block_starts[1],
+              n_tree_blocks=pf.seg_blocks[1])
+    rng = np.random.default_rng(SEED + 300)
+    out = {"max_abs_err": 0.0, "cases": []}
+    for B in GATED_BS:
+        x = torch.as_tensor(rng.normal(size=(B, cfg.n_features)).astype(np.float32), device=dev)
+        for count in (0, 1, 33, B // 2, B):
+            n = torch.tensor(count, dtype=torch.int32, device=dev)
+            kernel = lambda x=x, n=n: fs.forest_score_kernel(
+                x, *tables, packed=pf.packed, leaf_gather=pf.leaf_gather, n_valid=n, **kw
+            )
+            plain = lambda x=x, n=n: fs.forest_score_plain(x, *tables, n_valid=n, **kw)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if err != 0.0 or got[count:].any():
+                raise AssertionError(f"gated tail B={B} n_valid={count}: differs by {err}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            if count not in (0, B):
+                continue
+            k_ms = device_ms(kernel, reps=200)
+            p_ms = device_ms(plain, reps=5, warmup=1)
+            b_ms, b_by = _gated_bound(B, count, cfg.n_features, pf, kw["n_tree_blocks"])
+            log(
+                f"[kernels] forest_score gated tail B={B} n_valid={count}: "
+                f"trees={kw['n_tree_blocks'] * pf.block_t} max_abs_err={err:.3g} "
+                f"kernel={k_ms:.4f} ms plain={p_ms:.3f} ms bound={b_ms:.3g} ms ({b_by})"
+            )
+            out["cases"].append({
+                "case": f"gated tail B={B} n_valid={count}", "B": B, "n_valid": count,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            })
+    log(f"[kernels] gated tail equals its plain version at B in {GATED_BS}, "
+        f"n_valid in (0, 1, 33, B/2, B): max_abs_err={out['max_abs_err']:.3g}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -424,9 +803,13 @@ def main() -> int:
 
     try:
         phase_build()
-        launches, tail_cases = phase_serve()
-        kernels = phase_kernels(tail_cases)
         card = card_line()
+        launches, tail_cases = phase_serve()
+        tier = phase_tier(card)
+        for name, n in tier["launches"].items():
+            launches[name] += n
+        kernels = phase_kernels(tail_cases)
+        gated = phase_gated()
     except Exception:  # report the failing phase, then fail the run
         traceback.print_exc()
         return 1
@@ -448,9 +831,20 @@ def main() -> int:
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-            "bound_by": case["bound_by"], "library_ms": None,
-            "case": case["case"], "cases": r["cases"],
+            "bound_by": case["bound_by"], "library_ms": None, "case": case["case"],
         })
+    case = next(c for c in gated["cases"] if c["n_valid"] == c["B"] == GATED_BS[0])
+    line.append({
+        "name": "forest_score (gated tail)", "route": "cuda",
+        "source": sources["forest_score"][0], "replaces": sources["forest_score"][1],
+        "launches": tier["gated"], "max_abs_err": gated["max_abs_err"],
+        "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"], "library_ms": None, "case": case["case"],
+    })
+    # A short summary close to the end, where a truncated log still shows it.
+    full = {c["B"]: c["ms"] for c in gated["cases"] if c["n_valid"] == c["B"]}
+    log(f"[summary] {tier['summary']}; gated tail at a full count "
+        + ", ".join(f"B={B} {ms:.4f} ms" for B, ms in sorted(full.items())))
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,15 @@ same ranking semantics:
   (``seg0 + base``, then ``+ seg_k``), so they are bit-exact with each
   other off overflow, and with the reference.
 
+  With ``config.query_exit`` each stage's document decision is followed by
+  :func:`~repro_torch.core.strategies.query_converged`, folded into the
+  alive mask (exit flags accumulate; a converged query's documents skip
+  every later stage and the tail). The reference moves its tail launch
+  under a ``lax.cond`` on the survivor count; here the tail kernel reads
+  that count on the device (``n_valid``) and does no tree work past it,
+  so a batch whose queries all converged launches a kernel that only
+  writes zeros, and the host never waits. The launch counts ``gated``.
+
 Capacities are sizes known on the host, so the compacted blocks have fixed
 shapes and nothing on this path waits for the device: survivors beyond a
 capacity keep their stage prefix and are counted in ``overflow``, a 0-dim
@@ -44,6 +53,7 @@ from repro_torch.core.compaction import (
     compact_indices_cumsum_masked,
 )
 from repro_torch.core.stage import EngineConfig
+from repro_torch.core.strategies import QueryExitConfig, query_converged
 from repro_torch.forest.ensemble import TreeEnsemble, slice_trees
 from repro_torch.forest.scoring import score_bitvector
 from repro_torch.kernels.ops import (
@@ -74,6 +84,8 @@ class CascadeResult:
     #   each stage's policy saw (fused: exact prefixes for every doc;
     #   staged: docs already exited hold their exit-stage score)
     mode: str | None = None
+    query_exited: torch.Tensor | None = None  # query exit on: [Q] bool, the
+    #   queries whose remaining documents query-level exit removed; else None
 
 
 @dataclasses.dataclass
@@ -187,11 +199,14 @@ class CascadeRanker:
         )
         flat = X.reshape(Q * D, F)
         body = _fused if config.mode == "fused" else _staged
-        scores, alive, stage_masks, partials, overflow = body(
-            pf, flat, mask, strategies, caps, strategy_kwargs
+        qe = config.query_exit
+        scores, alive, stage_masks, partials, overflow, exited = body(
+            pf, flat, mask, strategies, caps, strategy_kwargs, qe
         )
         if has_tail:
-            scores, overflow = _final_tail(pf, S, flat, scores, alive, overflow, caps[-1])
+            scores, overflow = _final_tail(
+                pf, S, flat, scores, alive, overflow, caps[-1], gated=qe is not None
+            )
         return CascadeResult(
             scores=scores,
             continue_mask=alive,
@@ -200,10 +215,23 @@ class CascadeRanker:
             stage_masks=stage_masks,
             partials=partials,
             mode=config.mode,
+            query_exited=exited if qe is not None else None,
         )
 
 
-def _fused(pf, flat, mask, strategies, caps, skw):
+def _apply_query_exit(
+    qe: QueryExitConfig | None, k: int, prefix: torch.Tensor,
+    alive: torch.Tensor, exited: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold stage ``k``'s per-query convergence into the alive mask; exit
+    flags accumulate, so a converged query never re-enters."""
+    if qe is None or k < qe.from_stage:
+        return alive, exited
+    exited = exited | query_converged(prefix, alive, k=qe.k, margin=qe.margin)
+    return alive & ~exited[:, None], exited
+
+
+def _fused(pf, flat, mask, strategies, caps, skw, qe):
     """All prefixes from one head launch; stage decisions as vector work."""
     Q, D = mask.shape
     S = len(strategies)
@@ -217,28 +245,32 @@ def _fused(pf, flat, mask, strategies, caps, skw):
             acc = acc + seg[..., k]
             prefixes.append(acc)
     alive = mask
+    exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
     stage_masks = []
     scores = prefixes[0]
     for k in range(S):
         alive = alive & strategies[k](prefixes[k], alive, **skw)
+        alive, exited = _apply_query_exit(qe, k, prefixes[k], alive, exited)
         stage_masks.append(alive)
         if k + 1 < S:
             scores = torch.where(alive, prefixes[k + 1], scores)
     overflow = torch.zeros((), dtype=torch.long, device=flat.device)
-    return scores, alive, stage_masks, torch.stack(prefixes, dim=-1), overflow
+    return scores, alive, stage_masks, torch.stack(prefixes, dim=-1), overflow, exited
 
 
-def _staged(pf, flat, mask, strategies, caps, skw):
+def _staged(pf, flat, mask, strategies, caps, skw, qe):
     """Segment k scored only on the compacted stage-(k−1) survivors."""
     Q, D = mask.shape
     S = len(strategies)
     alive = mask
+    exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
     overflow = torch.zeros((), dtype=torch.long, device=flat.device)
     prefix = forest_score_range(pf, flat, 0, 1).reshape(Q, D)
     prefixes = [prefix]
     stage_masks = []
     for k in range(S):
         alive = alive & strategies[k](prefix, alive, **skw)
+        alive, exited = _apply_query_exit(qe, k, prefix, alive, exited)
         if k + 1 < S:
             sel, n_cont, within = compact_indices_cumsum_masked(
                 alive.reshape(Q * D), caps[k]
@@ -251,13 +283,20 @@ def _staged(pf, flat, mask, strategies, caps, skw):
             )
             prefixes.append(prefix)
         stage_masks.append(alive)
-    return prefix, alive, stage_masks, torch.stack(prefixes, dim=-1), overflow
+    return prefix, alive, stage_masks, torch.stack(prefixes, dim=-1), overflow, exited
 
 
-def _final_tail(pf, S, flat, scores, alive, overflow, cap):
-    """One tail launch on the compacted survivors of the last stage."""
+def _final_tail(pf, S, flat, scores, alive, overflow, cap, gated=False):
+    """One tail launch on the compacted survivors of the last stage;
+    ``gated``: the kernel reads the survivor count and skips the tree work
+    past it (all of it when every query exited)."""
     sel, n_cont = compact_indices_cumsum(alive.reshape(-1), cap)
-    tail_sel = forest_score_range(pf, flat[sel], seg_lo=S)
+    if gated:
+        tail_sel = forest_score_range(
+            pf, flat[sel], seg_lo=S, count_as="gated", n_valid=n_cont.to(torch.int32)
+        )
+    else:
+        tail_sel = forest_score_range(pf, flat[sel], seg_lo=S)
     scores = _scatter_tail(scores, sel, tail_sel, n_cont)
     return scores, overflow + torch.clamp_min(n_cont - cap, 0)
 

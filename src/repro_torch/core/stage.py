@@ -7,12 +7,13 @@ knobs of one progressive step. (The reference's ``launch_overhead_trees``
 field prices its in-engine ``mode="auto"`` pick; here the service prices
 the pick itself, so the engine has no such field.)
 
-Not ported yet, each a queued item of ``ROADMAP.md``: the dense/hybrid
-stage (:class:`DenseStage` exists as a type, and a config holding one
-raises ``NotImplementedError``) and query-level exit (a config with
-``query_exit`` raises likewise). ``mode="auto"`` is not an engine mode
-here: eager PyTorch cannot branch on device data without a sync, so the
-port picks fused vs staged on the host
+``query_exit`` (a :class:`~repro_torch.core.strategies.QueryExitConfig`)
+turns on query-level exit and the gated tail
+(:mod:`repro_torch.core.cascade`). Not ported yet, a queued item of
+``ROADMAP.md``: the dense/hybrid stage (:class:`DenseStage` exists as a
+type, and a config holding one raises ``NotImplementedError``).
+``mode="auto"`` is not an engine mode here: eager PyTorch cannot branch on
+device data without a sync, so the port picks fused vs staged on the host
 (:meth:`repro_torch.serve.ranking_service.RankingService._pick_mode`).
 """
 
@@ -105,8 +106,6 @@ class EngineConfig:
         object.__setattr__(self, "capacities", _as_capacities(self.capacities))
         if any(isinstance(st, DenseStage) for st in self.stages):
             raise _not_ported("dense/hybrid stage")
-        if self.query_exit is not None:
-            raise _not_ported("query-exit gated tail")
         if self.mode not in MODES:
             raise ValueError(
                 f"mode {self.mode!r} not in {MODES}; the port picks between "
@@ -135,6 +134,7 @@ class EngineConfig:
         mode: str = "fused",
         leaf_gather: str = "auto",
         block_t: int = 16,
+        query_exit: QueryExitConfig | None = None,
     ) -> EngineConfig:
         """All-trees cascade from parallel sequences."""
         sents = tuple(int(s) for s in sentinels)
@@ -157,5 +157,5 @@ class EngineConfig:
         )
         return cls(
             stages=stages, mode=mode, leaf_gather=leaf_gather, block_t=block_t,
-            capacities=capacities,
+            capacities=capacities, query_exit=query_exit,
         )

@@ -26,8 +26,9 @@ class QueryExitConfig:
     """Static configuration of query-level early exit (arXiv 2004.14641):
     a query exits once its top-``k`` is margin-stable, checked after each
     stage from ``from_stage`` on. ``margin=inf`` exits only queries with no
-    alive documents left (score-preserving). The engine of this port does
-    not run it yet (see ROADMAP.md); :func:`query_converged` is ported."""
+    alive documents left (score-preserving). The engine folds it into the
+    alive mask after each stage and gates the tail launch on the survivor
+    count (:mod:`repro_torch.core.cascade`)."""
 
     k: int = 10
     margin: float = math.inf

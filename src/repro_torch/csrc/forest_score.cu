@@ -73,14 +73,35 @@
 //   tile that the last CTA resets to 0, so they need no clearing between
 //   launches on one stream. No atomics on values: deterministic.
 //
+// The gated tail. With query-level exit the survivor count of the last
+// compaction decides whether the tail has any work, and the host may not
+// read it. forest_score_range therefore takes an optional device pointer
+// n_valid: rows at or past *n_valid are written 0.0f. A launch given one
+// runs its own instantiation (kGated), so the ungated kernel compiles
+// without the count (one body for both ran the ungated launches 3-4%
+// slower on an H100). In the gated one a CTA whose document
+// tile starts at or past the count writes its zeros and returns before it
+// stages anything, touches the partials or the arrival counter; the count
+// is read per tile, so every CTA of a tile takes the same branch and the
+// last-CTA reduction stays consistent. Rows below the count are computed
+// exactly as in the ungated launch (the count only selects what is
+// written), so they are bit-identical to it. A batch whose queries all
+// converged costs one launch of zero-writing CTAs and no tree work. The
+// gated launch takes the ungated launch's plan (made from the ungated
+// kernel's occupancy). It loads the count before the barrier setup, which
+// hides the load's latency, and again where it writes its rows: kept live
+// across the tree loop, the count changed that loop's code and cost 4-6%
+// on an H100 at a full count.
+//
 // The host side keeps the launch cheap: the plan of each shape is made once
 // (its occupancy queries included) and cached per device, and the
-// shared-memory opt-in is raised once per kernel and device. The layout of
+// shared-memory opt-in is raised once per kernel pair and device. The layout of
 // a CTA's shared memory lives here alone: the wrapper asks
 // forest_score_max_features for the widest x it may pass.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <map>
 #include <mutex>
@@ -97,6 +118,12 @@ constexpr int kMaxDocWarps = 4;   // warps side by side on documents
 constexpr int kMaxTreeWarps = 8;  // warps side by side on the trees of a block
 constexpr int kMaxWarps = 8;      // per CTA: doc warps x tree warps
 constexpr int kThreads = 32 * kMaxWarps;
+
+// Launch plans made so far, over every kernel and device (a gated launch
+// shares the ungated plan of its shape): each is a first-touch cost
+// (occupancy queries, and the shared-memory opt-in of a kernel and its gated
+// twin with their first plan on a device) that warmup pays ahead of traffic.
+std::atomic<int> g_plans_made{0};
 
 // One node: {feature, threshold bits, false-node mask low word, high word},
 // read as one 16-byte shared-memory load.
@@ -167,6 +194,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
+// The gated tail's survivor count, read past L1. Volatile, so that the
+// compiler neither merges two reads nor moves one across the tree loop.
+__device__ __forceinline__ int load_count(const int* p) {
+  int v;
+  asm volatile("ld.global.cg.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
 // ---------------------------------------------------------------------------
 // The kernel.
 // ---------------------------------------------------------------------------
@@ -182,14 +217,14 @@ __host__ __device__ inline uint32_t stage_bytes(int block_t, int N, int L4) {
 // grid = (document tiles, tree-block chunks); blockDim = 32 * warps_d *
 // warps_t. Warp w works on documents (w % warps_d) and on the trees t of
 // each block with t % warps_t == w / warps_d. A tile holds 32 * warps_d *
-// kDocsPerLane documents.
-template <int BT, bool kSegmented>
+// kDocsPerLane documents. kGated: rows at or past *n_valid are 0.
+template <int BT, bool kSegmented, bool kGated>
 __global__ void __launch_bounds__(kThreads) forest_score_kernel(
     const float* __restrict__ x, int B, int F, const Node* __restrict__ nodes,
     const float* __restrict__ leaves, int N, int L, int L4, int block_lo,
     int n_blocks, int chunk, int warps_d, SegStarts seg, int n_seg,
     float* __restrict__ partials, unsigned int* __restrict__ arrivals,
-    float* __restrict__ out) {
+    float* __restrict__ out, const int* __restrict__ n_valid) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ int last_arrival;
@@ -203,6 +238,11 @@ __global__ void __launch_bounds__(kThreads) forest_score_kernel(
   const int tile = 32 * warps_d * kDocsPerLane;
   const int xstride = tile + 1;  // odd: conflict-free transposed writes and reads
   const int doc0 = blockIdx.x * tile;
+  static_assert(!(kGated && kSegmented), "only the range kernel is gated");
+  // The count's load is issued here and first used after the barrier
+  // setup below, so its latency overlaps that setup.
+  int count = 0;
+  if constexpr (kGated) count = load_count(n_valid);
   const uint32_t sbytes = stage_bytes(BT, N, L4);
   float* xs = reinterpret_cast<float*>(smem + kStages * sbytes);
   float* red = xs + F * xstride;  // [2][warps_t][tile] when warps_t > 1
@@ -226,6 +266,14 @@ __global__ void __launch_bounds__(kThreads) forest_score_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  if constexpr (kGated) {
+    if (doc0 >= max(0, min(count, B))) {  // the whole tile is past the count: zeros, no tree work
+      if (blockIdx.y == 0) {
+        for (int d = tid; d < tile && doc0 + d < B; d += blockDim.x) out[doc0 + d] = 0.0f;
+      }
+      return;
+    }
+  }
   if (tid == 0) {
     for (int i = 0; i < min(kStages, nj); ++i) issue(i);
   }
@@ -353,13 +401,20 @@ __global__ void __launch_bounds__(kThreads) forest_score_kernel(
     }
   }
 
+  // Rows at or past the count are written 0.0f; ungated, it is B and the
+  // selects below fold away. The gated kernel loads the count again where
+  // it writes rather than keep it live across the tree loop, whose code
+  // then matches the ungated kernel's.
+  auto valid_rows = [&] { return kGated ? max(0, min(load_count(n_valid), B)) : B; };
   if (one_chunk) {
     if (wt == 0) {
+      const int nv = valid_rows();
 #pragma unroll
       for (int k = 0; k < kDocsPerLane; ++k) {
         const int doc = doc0 + d_lane + 32 * k;
         if (doc < B) {
-          out[kSegmented ? static_cast<size_t>(doc) * n_seg + col : doc] = acc[k];
+          out[kSegmented ? static_cast<size_t>(doc) * n_seg + col : doc] =
+              doc < nv ? acc[k] : 0.0f;
         }
       }
     }
@@ -376,6 +431,7 @@ __global__ void __launch_bounds__(kThreads) forest_score_kernel(
   __syncthreads();
   if (!last_arrival) return;
   __threadfence();
+  const int nv = valid_rows();
   for (int d = tid; d < tile; d += blockDim.x) {
     const int doc = doc0 + d;
     if (doc >= B) break;
@@ -391,7 +447,8 @@ __global__ void __launch_bounds__(kThreads) forest_score_kernel(
       }
       sum = sum + __ldcg(partials + static_cast<size_t>(j) * B + doc);
     }
-    out[kSegmented ? static_cast<size_t>(doc) * n_seg + c : doc] = sum;
+    out[kSegmented ? static_cast<size_t>(doc) * n_seg + c : doc] =
+        doc < nv ? sum : 0.0f;
   }
   if (tid == 0) arrivals[blockIdx.x] = 0;  // ready for the next launch
 }
@@ -417,9 +474,21 @@ size_t smem_for(int warps_d, int warps_t, int F, int N, int L4, int block_t) {
          (warps_t > 1 ? 2 * warps_t * tile * sizeof(float) : 0);
 }
 
-// The current device, once `kernel`'s dynamic shared-memory limit on it is
-// raised to the device's opt-in maximum (227 KB on an H100) less the
-// kernel's static shared memory: once per kernel and device.
+// Raises `kernel`'s dynamic shared-memory limit on device `dev` to the
+// device's opt-in maximum (227 KB on an H100) less its static shared memory.
+template <typename Kernel>
+void raise_smem_limit(Kernel kernel, int dev) {
+  int optin = 0;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, kernel);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       optin - static_cast<int>(attr.sharedSizeBytes));
+}
+
+// The current device, once the shared-memory limits of the kernel and of
+// its gated twin (the range kernel's) are raised on it: once per kernel and
+// device, with the first plan or limit query.
 template <int BT, bool kSegmented>
 int current_device(int* dev) {
   static std::once_flag raised[kMaxDevices];
@@ -428,14 +497,8 @@ int current_device(int* dev) {
     return static_cast<int>(cudaErrorInvalidDevice);
   }
   std::call_once(raised[*dev], [dev] {
-    auto kernel = forest_score_kernel<BT, kSegmented>;
-    int optin = 0;
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           *dev);
-    cudaFuncAttributes attr;
-    cudaFuncGetAttributes(&attr, kernel);
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         optin - static_cast<int>(attr.sharedSizeBytes));
+    raise_smem_limit(forest_score_kernel<BT, kSegmented, false>, *dev);
+    if (!kSegmented) raise_smem_limit(forest_score_kernel<BT, false, true>, *dev);
   });
   return 0;
 }
@@ -514,41 +577,49 @@ struct Args {
   float* partials;
   unsigned int* arrivals;
   float* out;
+  const int* n_valid;  // device pointer, or null: every row is valid
   int warps_d_req, warps_t_req, chunk_req;
 };
 
+// The plan of each (device, shape, forced plan), made at its first launch
+// from the ungated kernel. The gated kernel shares it: the gate changes no
+// plan, so a gated launch runs on the grid of the ungated one at its shape.
 template <int BT, bool kSegmented>
-int launch_bt(const Args& a, cudaStream_t stream, Plan* plan, bool run) {
-  auto kernel = forest_score_kernel<BT, kSegmented>;
+int plan_for(const Args& a, Plan* p) {
   int dev = 0;
   if (const int err = current_device<BT, kSegmented>(&dev)) return err;
-  // The plan of each (device, shape, forced plan), made at its first launch.
   using Key = std::tuple<int, int, int, int, int, int, int, int, int>;
   static std::mutex mu;
   static std::map<Key, Plan> plans;
   const Key key{dev, a.B, a.F, a.N, a.L4, a.n_blocks,
                 a.warps_d_req, a.warps_t_req, a.chunk_req};
-  Plan p;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    const auto it = plans.find(key);
-    if (it != plans.end()) {
-      p = it->second;
-    } else {
-      const int err =
-          make_plan(kernel, dev, a.B, a.F, a.N, a.L4, BT, a.n_blocks,
-                    a.warps_d_req, a.warps_t_req, a.chunk_req, &p);
-      if (err) return err;
-      if (plans.size() >= kMaxPlans) plans.clear();
-      plans.emplace(key, p);
-    }
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = plans.find(key);
+  if (it != plans.end()) {
+    *p = it->second;
+    return 0;
   }
+  const int err = make_plan(forest_score_kernel<BT, kSegmented, false>, dev,
+                            a.B, a.F, a.N, a.L4, BT, a.n_blocks, a.warps_d_req,
+                            a.warps_t_req, a.chunk_req, p);
+  if (err) return err;
+  if (plans.size() >= kMaxPlans) plans.clear();
+  plans.emplace(key, *p);
+  g_plans_made.fetch_add(1);
+  return 0;
+}
+
+template <int BT, bool kSegmented, bool kGated>
+int launch_bt(const Args& a, cudaStream_t stream, Plan* plan, bool run) {
+  Plan p;
+  if (const int err = plan_for<BT, kSegmented>(a, &p)) return err;
   if (plan) *plan = p;
   if (!run) return 0;
-  kernel<<<dim3(p.n_tiles, p.n_chunks), 32 * p.warps_d * p.warps_t, p.smem,
-           stream>>>(a.x, a.B, a.F, a.nodes, a.leaves, a.N, a.L, a.L4,
-                     a.block_lo, a.n_blocks, p.chunk, p.warps_d, a.seg,
-                     a.n_seg, a.partials, a.arrivals, a.out);
+  forest_score_kernel<BT, kSegmented, kGated>
+      <<<dim3(p.n_tiles, p.n_chunks), 32 * p.warps_d * p.warps_t, p.smem,
+         stream>>>(a.x, a.B, a.F, a.nodes, a.leaves, a.N, a.L, a.L4,
+                   a.block_lo, a.n_blocks, p.chunk, p.warps_d, a.seg,
+                   a.n_seg, a.partials, a.arrivals, a.out, a.n_valid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -557,7 +628,8 @@ int launch_bt(const Args& a, cudaStream_t stream, Plan* plan, bool run) {
 // CTA that fits at such an F (make_plan shrinks the tree warps).
 template <int BT, bool kSegmented>
 int max_features_bt(int N, int L4, int* max_f) {
-  auto kernel = forest_score_kernel<BT, kSegmented>;
+  // The gated instantiation has the same shared-memory layout.
+  auto kernel = forest_score_kernel<BT, kSegmented, false>;
   int dev = 0;
   if (const int err = current_device<BT, kSegmented>(&dev)) return err;
   cudaFuncAttributes attr;
@@ -590,7 +662,7 @@ int max_features(int N, int L4, int block_t, int* max_f) {
   }
 }
 
-template <bool kSegmented>
+template <bool kSegmented, bool kGated = false>
 int launch(const Args& a, void* stream, Plan* plan, bool run) {
   if (a.B < 1 || a.F < 1 || a.n_blocks < 1 || a.L < 1 || a.L4 % 4 ||
       a.n_seg < 1 || a.n_seg > kMaxSegments) {
@@ -598,12 +670,12 @@ int launch(const Args& a, void* stream, Plan* plan, bool run) {
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.block_t) {
-    case 1: return launch_bt<1, kSegmented>(a, s, plan, run);
-    case 2: return launch_bt<2, kSegmented>(a, s, plan, run);
-    case 4: return launch_bt<4, kSegmented>(a, s, plan, run);
-    case 8: return launch_bt<8, kSegmented>(a, s, plan, run);
-    case 16: return launch_bt<16, kSegmented>(a, s, plan, run);
-    case 32: return launch_bt<32, kSegmented>(a, s, plan, run);
+    case 1: return launch_bt<1, kSegmented, kGated>(a, s, plan, run);
+    case 2: return launch_bt<2, kSegmented, kGated>(a, s, plan, run);
+    case 4: return launch_bt<4, kSegmented, kGated>(a, s, plan, run);
+    case 8: return launch_bt<8, kSegmented, kGated>(a, s, plan, run);
+    case 16: return launch_bt<16, kSegmented, kGated>(a, s, plan, run);
+    case 32: return launch_bt<32, kSegmented, kGated>(a, s, plan, run);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -614,21 +686,23 @@ int launch(const Args& a, void* stream, Plan* plan, bool run) {
 // packed tables (nodes [T, N] 16-byte records, leaves [T, L4] with L4 a
 // multiple of 4 and L real leaves) into out [B]. partials is scratch of
 // n_blocks * B floats; arrivals holds at least ceil(B / 32) zeros and is
-// left zeroed. warps_d / warps_t / chunk > 0 force the tile's warps, the
-// tree warps and the tree blocks per CTA (0: chosen from B and n_blocks).
-// Shapes are checked by the Python wrapper. Returns the cudaError_t of the
-// launch.
+// left zeroed. n_valid, when not null, is a device int read by the kernel:
+// rows at or past it are written 0 (the gated tail; see the header).
+// warps_d / warps_t / chunk > 0 force the tile's warps, the tree warps and
+// the tree blocks per CTA (0: chosen from B and n_blocks). Shapes are
+// checked by the Python wrapper. Returns the cudaError_t of the launch.
 extern "C" int forest_score_range(const float* x, int B, int F,
                                   const void* nodes, const float* leaves,
                                   int N, int L, int L4, int block_t,
                                   int block_lo, int n_blocks, float* partials,
                                   unsigned int* arrivals, float* out,
-                                  int warps_d, int warps_t, int chunk,
-                                  void* stream) {
+                                  const int* n_valid, int warps_d, int warps_t,
+                                  int chunk, void* stream) {
   Args a = {x, B, F, static_cast<const Node*>(nodes), leaves, N, L, L4,
             block_t, block_lo, n_blocks, SegStarts{}, 1, partials, arrivals,
-            out, warps_d, warps_t, chunk};
-  return launch<false>(a, stream, nullptr, true);
+            out, n_valid, warps_d, warps_t, chunk};
+  return n_valid ? launch<false, true>(a, stream, nullptr, true)
+                 : launch<false>(a, stream, nullptr, true);
 }
 
 // Scores x [B, F] through tree blocks [0, n_blocks) into out [B, n_seg]:
@@ -646,7 +720,7 @@ extern "C" int forest_score_segments(
   }
   Args a = {x, B, F, static_cast<const Node*>(nodes), leaves, N, L, L4,
             block_t, 0, n_blocks, SegStarts{}, n_seg, partials, arrivals,
-            out, warps_d, warps_t, chunk};
+            out, nullptr, warps_d, warps_t, chunk};
   for (int k = 0; k < n_seg; ++k) a.seg.start[k] = seg_block_starts[k];
   return launch<true>(a, stream, nullptr, true);
 }
@@ -660,7 +734,8 @@ extern "C" int forest_score_plan(int B, int F, int N, int L, int L4,
                                  int warps_d, int warps_t, int chunk,
                                  int* plan) {
   Args a = {nullptr, B, F, nullptr, nullptr, N, L, L4, block_t, 0, n_blocks,
-            SegStarts{}, 1, nullptr, nullptr, nullptr, warps_d, warps_t, chunk};
+            SegStarts{}, 1, nullptr, nullptr, nullptr, nullptr, warps_d, warps_t,
+            chunk};
   Plan p;
   const int err = segmented ? launch<true>(a, nullptr, &p, false)
                             : launch<false>(a, nullptr, &p, false);
@@ -687,3 +762,8 @@ extern "C" int forest_score_max_features(int N, int L4, int block_t,
   *max_f = range_f < seg_f ? range_f : seg_f;
   return 0;
 }
+
+// Launch plans made since the library was loaded (plan-cache insertions of
+// every kernel on every device, forest_score_plan's included). A warmed
+// service adds none while it serves.
+extern "C" int forest_score_plan_count(void) { return g_plans_made.load(); }

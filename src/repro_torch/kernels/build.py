@@ -3,9 +3,11 @@
 The kernels in ``repro_torch/csrc`` expose a plain C interface, so they are
 compiled by ``nvcc`` alone (seconds) rather than against PyTorch's headers
 (minutes), and loaded with :mod:`ctypes`. The library is built at first use
-into ``build/repro_torch/`` at the root of the checkout, named by a hash of
-every source and header under ``csrc/`` and the flags, so an edit to any
-file the build may read builds anew and an unchanged tree is reused.
+into ``build/repro_torch/`` at the root of the checkout (or the directory
+given to :func:`repro_torch.serve.warmup.enable_persistent_cache`), named
+by a hash of every source and header under ``csrc/`` and the flags, so an
+edit to any file the build may read builds anew and an unchanged tree is
+reused.
 Nothing here runs at import time.
 """
 
@@ -18,7 +20,10 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# Where libraries are built and found; moved by
+# repro_torch.serve.warmup.enable_persistent_cache before the first build.
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

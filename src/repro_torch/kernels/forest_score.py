@@ -4,7 +4,10 @@ The port of :mod:`repro.kernels.forest_score`. Two kernels, each a wrapper
 with a launch counter and a plain PyTorch version beside it:
 
 - :func:`forest_score_kernel` (replaces ``forest_score_pallas``): scores
-  ``x [B, F]`` through one contiguous range of tree blocks → ``[B]``.
+  ``x [B, F]`` through one contiguous range of tree blocks → ``[B]``. With
+  ``n_valid`` (a one-element int32 tensor on the device, the survivor count
+  of the query-exit gated tail) rows at or past the count are 0 and cost no
+  tree work; the kernel reads the count itself, so the host never waits.
 - :func:`forest_score_segments_kernel` (replaces
   ``forest_score_segments_pallas``): scores tree blocks ``[0, n)`` and adds
   each block's partial into the column of its segment → ``[B, S]``.
@@ -36,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
+from pathlib import Path
 
 import torch
 
@@ -57,10 +61,20 @@ GRID_PLAN = (0, 0, 0)
 # kernel and nowhere else (the plain CPU path does not count).
 KERNEL_LAUNCHES = {"forest_score": 0, "forest_score_segments": 0}
 
+# First-touch costs that would land on a request if warmup did not pay them
+# first, counted where they happen: loads of the kernel library, growths of
+# the per-stream scratch, the library's shared-memory limit asked for a new
+# table shape, and padded_forest cache misses (kernels.ops). The launcher's
+# plans are counted in the library (forest_score_plan_count); the
+# shared-memory opt-in is raised with a kernel's first plan or limit query
+# on a device, so these counts cover it. See first_touches().
+FIRST_TOUCHES = {"library": 0, "scratch": 0, "max_features": 0, "padded_forest": 0}
+
 # Bound on the [B, trees, N] working set of one step of the plain version.
 _PLAIN_CHUNK_ELEMS = 1 << 22
 
 _LIB: ctypes.CDLL | None = None
+_LIB_PATH = None
 _LIB_LOCK = threading.Lock()
 
 # Scratch of the kernels' last-CTA reduction, per (device, stream), grown
@@ -82,6 +96,16 @@ def kernel_launches() -> dict[str, int]:
     return dict(KERNEL_LAUNCHES)
 
 
+def first_touches() -> dict[str, int]:
+    """First-touch counts since the process started: :data:`FIRST_TOUCHES`
+    and ``plans``, the launch plans the library has made (0 before it is
+    loaded). Serving a warmed shape moves none of them."""
+    counts = dict(FIRST_TOUCHES)
+    with _LIB_LOCK:
+        counts["plans"] = 0 if _LIB is None else _LIB.forest_score_plan_count()
+    return counts
+
+
 def _next_pow2(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
@@ -91,16 +115,17 @@ def bind_library(path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.forest_score_range.argtypes = [
-        p, i, i, p, p, i, i, i, i, i, i, p, p, p, i, i, i, p,
+        p, i, i, p, p, i, i, i, i, i, i, p, p, p, p, i, i, i, p,
     ]
     lib.forest_score_segments.argtypes = [
         p, i, i, p, p, i, i, i, i, i, p, i, p, p, p, i, i, i, p,
     ]
     lib.forest_score_plan.argtypes = [i, i, i, i, i, i, i, i, i, i, i, p]
     lib.forest_score_max_features.argtypes = [i, i, i, p]
+    lib.forest_score_plan_count.argtypes = []
     for fn in (
         lib.forest_score_range, lib.forest_score_segments, lib.forest_score_plan,
-        lib.forest_score_max_features,
+        lib.forest_score_max_features, lib.forest_score_plan_count,
     ):
         fn.restype = i
     return lib
@@ -108,12 +133,28 @@ def bind_library(path) -> ctypes.CDLL:
 
 def library() -> ctypes.CDLL:
     """The built kernel library (compiled at first use, then cached)."""
-    global _LIB
+    global _LIB, _LIB_PATH
     with _LIB_LOCK:
         if _LIB is None:
             path, _ = build.build("forest_score")
             _LIB = bind_library(path)
+            _LIB_PATH = path
+            FIRST_TOUCHES["library"] += 1
         return _LIB
+
+
+def set_build_dir(path) -> None:
+    """Build (or reuse) the kernel library under ``path`` from now on.
+    Raises ``RuntimeError`` once the library is loaded from another
+    directory: a process holds one copy of the kernels."""
+    path = Path(path).resolve()
+    with _LIB_LOCK:
+        if _LIB is not None and _LIB_PATH.parent != path:
+            raise RuntimeError(
+                f"repro_torch: the kernel library is already loaded from "
+                f"{_LIB_PATH.parent}; set the build directory before the first build"
+            )
+        build.BUILD_DIR = path
 
 
 def pack_nodes(
@@ -158,6 +199,7 @@ def cuda_max_features(N: int, L: int, block_t: int, device: int | None = None) -
                 ctypes.cast(ctypes.pointer(out), ctypes.c_void_p),
             )
         max_f = _MAX_FEATURES[key] = out.value
+        FIRST_TOUCHES["max_features"] += 1
     return max_f
 
 
@@ -274,13 +316,19 @@ def _accumulate(partials: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
 def forest_score_plain(
     x, feature, threshold, mask, leaf_value, *,
     block_t: int, tree_block_offset: int, n_tree_blocks: int,
+    n_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain version of :func:`forest_score_kernel` → ``[B]``."""
+    """Plain version of :func:`forest_score_kernel` → ``[B]``; rows at or
+    past ``n_valid`` are 0."""
     partials = _block_partials(
         x, feature, threshold, mask, leaf_value,
         block_t, tree_block_offset, n_tree_blocks,
     )
-    return _accumulate(partials, 0, n_tree_blocks)
+    out = _accumulate(partials, 0, n_tree_blocks)
+    if n_valid is None:
+        return out
+    rows = torch.arange(out.shape[0], device=out.device)
+    return torch.where(rows < n_valid.reshape(()), out, torch.zeros_like(out))
 
 
 def forest_score_segments_plain(
@@ -384,8 +432,10 @@ def _cuda_operands(x, feature, threshold, mask, leaf_value, packed, n_blocks):
     tiles = -(-B // 32)  # at least the most tiles any plan launches
     if partials is None or partials.numel() < n_blocks * B:
         partials = torch.empty(n_blocks * B, dtype=torch.float32, device=x.device)
+        FIRST_TOUCHES["scratch"] += 1
     if arrivals is None or arrivals.numel() < tiles:
         arrivals = torch.zeros(max(tiles, 64), dtype=torch.int32, device=x.device)
+        FIRST_TOUCHES["scratch"] += 1
     _SCRATCH[key] = (partials, arrivals)
     return (nodes, leaves, L4, partials, arrivals, stream)
 
@@ -425,21 +475,34 @@ def forest_score_kernel(
     n_tree_blocks: int | None = None,
     leaf_gather: str = "onehot",
     packed: tuple[torch.Tensor, torch.Tensor] | None = None,
+    n_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Score ``x`` through tree blocks ``[offset, offset + n)`` → ``[B]``.
 
     ``packed``: the same tables as (:func:`pack_nodes`, :func:`pack_leaves`),
-    which the CUDA kernel reads; packed per call when omitted.
+    which the CUDA kernel reads; packed per call when omitted. ``n_valid``:
+    a one-element int32 tensor on ``x``'s device; rows at or past its value
+    are 0, the rows below it equal the ungated call's. The kernel reads it
+    on the device, in stream order.
     """
     T = feature.shape[0]
     if n_tree_blocks is None:
         n_tree_blocks = T // block_t - tree_block_offset
     _check(x, feature, threshold, mask, leaf_value, block_t,
            tree_block_offset, n_tree_blocks, leaf_gather)
+    if n_valid is not None and (
+        n_valid.dtype is not torch.int32 or n_valid.numel() != 1
+        or n_valid.device != x.device
+    ):
+        raise ValueError(
+            f"forest kernel: n_valid must be one int32 on {x.device}, got "
+            f"{n_valid.dtype} {tuple(n_valid.shape)} on {n_valid.device}"
+        )
     if x.device.type == "cpu":
         return forest_score_plain(
             x, feature, threshold, mask, leaf_value, block_t=block_t,
             tree_block_offset=tree_block_offset, n_tree_blocks=n_tree_blocks,
+            n_valid=n_valid,
         )
     B, F = x.shape
     N, L = feature.shape[1], leaf_value.shape[1]
@@ -455,7 +518,8 @@ def forest_score_kernel(
             library().forest_score_range,
             x.data_ptr(), B, F, nodes.data_ptr(), leaves.data_ptr(), N, L, L4,
             block_t, tree_block_offset, n_tree_blocks, partials.data_ptr(),
-            arrivals.data_ptr(), out.data_ptr(), *GRID_PLAN, stream,
+            arrivals.data_ptr(), out.data_ptr(),
+            None if n_valid is None else n_valid.data_ptr(), *GRID_PLAN, stream,
         )
     KERNEL_LAUNCHES["forest_score"] += 1
     return out

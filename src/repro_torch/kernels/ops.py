@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.kernels.forest_score import (
     ALL_ONES,
+    FIRST_TOUCHES,
     _next_pow2,
     forest_score_kernel,
     forest_score_segments_kernel,
@@ -92,8 +93,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """Kernel dispatches since the last reset, keyed ``plain`` /
-    ``segmented`` / ``gated`` (the last stays 0 until the query-exit gated
-    tail is ported)."""
+    ``segmented`` / ``gated`` (the query-exit tail, one per step with query
+    exit on, whatever its survivor count)."""
     return dict(_LAUNCH_COUNTS)
 
 
@@ -180,6 +181,7 @@ def padded_forest(
     if key in cache:
         cache.move_to_end(key)
         return cache[key]
+    FIRST_TOUCHES["padded_forest"] += 1
 
     n_pad = _next_pow2(max(N, 2))
     inf = float("inf")
@@ -240,11 +242,17 @@ def forest_score_range(
     seg_hi: int | None = None,
     *,
     count_as: str = "plain",
+    n_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Score ``X: [B, F]`` through segments ``[seg_lo, seg_hi)`` — 1 launch.
 
     ``base_score`` is added when the range starts at segment 0, and an
-    explicit ``0.0`` otherwise, as the reference does.
+    explicit ``0.0`` otherwise, as the reference does. ``n_valid`` (a
+    one-element int32 tensor on ``X``'s device) gates the launch on the
+    device: the kernel writes 0 for rows at or past it and does no tree
+    work for them — the
+    query-exit tail passes its compaction's survivor count and counts the
+    launch ``gated``.
     """
     seg_hi = pf.n_segments if seg_hi is None else seg_hi
     if not 0 <= seg_lo < seg_hi <= pf.n_segments:
@@ -259,6 +267,7 @@ def forest_score_range(
         n_tree_blocks=sum(pf.seg_blocks[seg_lo:seg_hi]),
         leaf_gather=pf.leaf_gather,
         packed=pf.packed,
+        n_valid=n_valid,
     )
     base = pf.base_score if seg_lo == 0 else torch.zeros_like(pf.base_score)
     return scores + base

@@ -13,6 +13,8 @@ block (launch-dominated) and over the whole forest — and solves::
 Times are CUDA-event times on the card and ``perf_counter`` times on the
 CPU (the plain PyTorch path, whose value says nothing about the card). The
 result is cached per process, per device type and probe shape.
+:func:`expected_engine_seconds` extrapolates the last probe to a whole
+batch: the batcher's prior for when to flush a request with a deadline.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def calibrate_launch_overhead_trees(
     dev = resolve_device(device)
     key = (dev.type, n_docs, n_trees, block_t)
     if key in _CALIBRATION_CACHE:
-        return _CALIBRATION_CACHE[key]
+        return _CALIBRATION_CACHE[key]["launch_overhead_trees"]
 
     ens = random_ensemble(0, n_trees=n_trees, depth=3, n_features=16, device=dev)
     pf = padded_forest(ens, boundaries=(block_t, n_trees), block_t=block_t)
@@ -80,5 +82,18 @@ def calibrate_launch_overhead_trees(
         overhead = DEFAULT_LAUNCH_OVERHEAD_TREES
     else:
         overhead = max(t_small - per_doctree * n_docs * block_t, 0.0) / per_doctree
-    _CALIBRATION_CACHE[key] = overhead
+    _CALIBRATION_CACHE[key] = {
+        "per_doctree_us": per_doctree, "launch_overhead_trees": overhead,
+    }
     return overhead
+
+
+def expected_engine_seconds(n_docs: int, n_trees: int) -> float:
+    """Prior estimate of one engine call's wall time: the last probe's
+    per-doc·tree slope over ``n_docs × n_trees`` plus one launch overhead
+    (0 when no probe has run in this process)."""
+    cal = next(reversed(_CALIBRATION_CACHE.values()), None)
+    if cal is None:
+        return 0.0
+    work = n_docs * n_trees + cal["launch_overhead_trees"]
+    return max(cal["per_doctree_us"] * work, 0.0) * 1e-6

@@ -19,18 +19,26 @@ early exit and returns the top-k:
 - compaction capacities from a running per-stage survivor peak with
   headroom, never below the cold-start estimate, in powers of two;
 - ONE device→host copy per batch: the response (top-k, scores) and the
-  stats (per-stage survivors, trees traversed, overflow, doc count) are
-  packed into one tensor and read together;
+  stats (per-stage survivors, trees traversed, overflow, doc count, exited
+  queries) are packed into one tensor and read together;
 - overflowing survivors keep their sentinel scores (bounded quality loss,
-  never a crash), and the stats record them.
+  never a crash), and the stats record them;
+- query-level exit (``ServiceConfig.query_exit``) with the device-gated
+  tail, and its smoothed tail-skip rate discounting the tail launch in the
+  mode pick;
+- a degradation ladder of exit rungs (:meth:`RankingService.install_rungs`
+  / :meth:`RankingService.set_rung`), each materialized once, so stepping
+  it swaps objects and allocates nothing.
 
 Per-``(Q, D)`` bucket state: each padded batch shape keeps its own survivor
-peaks and EMA, so a sparse trickle does not shrink a bulk bucket.
+peaks, EMA and tail-skip rate, so a sparse trickle does not shrink a bulk
+bucket.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import typing
 from collections.abc import Callable, Sequence
 
 import numpy as np
@@ -47,16 +55,20 @@ from repro_torch.metrics.speedup import (
     trees_traversed_progressive,
 )
 from repro_torch.serve.calibration import calibrate_launch_overhead_trees
+from repro_torch.serve.placement import ServePlacement, single_device
 from repro_torch.utils import resolve_device
+
+if typing.TYPE_CHECKING:  # annotation-only: avoids a serve-package cycle
+    from repro_torch.serve.degradation import ExitRung
 
 
 @dataclasses.dataclass(frozen=True)
 class ServiceConfig:
     """Frozen bundle of every :class:`RankingService` tuning knob.
 
-    ``query_exit`` and ``dense_stage`` exist so that a configuration
-    written for the reference fails loudly here: both are queued items of
-    ``ROADMAP.md`` and raise ``NotImplementedError`` when set.
+    ``query_exit`` turns on query-level exit. ``dense_stage`` exists so
+    that a configuration written for the reference fails loudly here: it is
+    a queued item of ``ROADMAP.md`` and raises ``NotImplementedError``.
     """
 
     threshold: float = 0.5
@@ -69,8 +81,6 @@ class ServiceConfig:
     dense_stage: DenseStage | None = None
 
     def __post_init__(self) -> None:
-        if self.query_exit is not None:
-            raise _not_ported("query-exit gated tail")
         if self.dense_stage is not None:
             raise _not_ported("dense/hybrid stage")
         if self.execution_mode not in ("auto", "fused", "staged"):
@@ -90,6 +100,20 @@ class _BucketAdaptState:
 
     peaks: list[int] | None = None  # running max survivors per stage
     ema: list[float] | None = None  # smoothed survivors per stage
+    tail_skip: float | None = None  # smoothed P(the gated tail had no
+    #   survivors) — discounts the tail launch in the mode pick
+
+
+@dataclasses.dataclass(frozen=True)
+class _RungState:
+    """One installed degradation rung, built once at install time: its
+    strategy closures (with the rung's threshold) and query-exit config, so
+    :meth:`RankingService.set_rung` swaps these objects and nothing else."""
+
+    name: str
+    threshold: float
+    strategies: tuple[Callable[..., torch.Tensor], ...]
+    query_exit: QueryExitConfig | None
 
 
 @dataclasses.dataclass
@@ -103,6 +127,7 @@ class ServiceStats:
     trees_full_equiv: float = 0.0
     batches_fused: int = 0
     batches_staged: int = 0
+    queries_exited: int = 0  # queries query-level exit removed (knob on)
     # Batches per tuple of per-stage compaction capacities (stage k's
     # survivors are compacted into capacities[k] rows; the last is the tail's).
     capacities: dict[tuple[int, ...], int] = dataclasses.field(default_factory=dict)
@@ -115,6 +140,10 @@ class ServiceStats:
     def continue_rate(self) -> float:
         return self.docs_continued / max(self.docs, 1)
 
+    @property
+    def query_exit_rate(self) -> float:
+        return self.queries_exited / max(self.queries, 1)
+
 
 class RankingService:
     """LEAR-cascade ranking over padded ``[Q, D, F]`` request blocks.
@@ -123,6 +152,10 @@ class RankingService:
     ordered by sentinel and each stage's classifier gates the survivors of
     the previous one. ``device`` (``None`` → the card) is where the forests
     live and the batches are scored; the ensembles are moved there.
+
+    Not thread-safe: one thread makes every call that touches the engine
+    or its adaptive state (:class:`~repro_torch.serve.batching.ContinuousBatcher`
+    keeps to that).
     """
 
     def __init__(
@@ -146,6 +179,7 @@ class RankingService:
             loh = calibrate_launch_overhead_trees(self.device)
         self.launch_overhead_trees = float(loh)
         self.survivor_ema = config.survivor_ema
+        self.query_exit = config.query_exit
         self.stats = ServiceStats()
         self._adapt: dict[tuple[int, int] | None, _BucketAdaptState] = {}
         self._active_key: tuple[int, int] | None = None
@@ -164,6 +198,10 @@ class RankingService:
         self.stage_strategies = [self._make_strategy(c) for c in stages]
         self._acct_classifier_trees = tuple(float(c.n_trees) for c in stages)
         self.n_stages = len(self.sentinels)
+        # The degradation ladder: None until install_rungs; level 0 is the
+        # baseline configuration.
+        self._rungs: tuple[_RungState, ...] | None = None
+        self._rung_level = 0
         self.cascade = CascadeRanker(
             ensemble=self.ensemble,
             sentinel=stages[0].sentinel,
@@ -178,12 +216,78 @@ class RankingService:
     def _active_state(self) -> _BucketAdaptState:
         return self._adapt.setdefault(self._active_key, _BucketAdaptState())
 
-    def _make_strategy(self, clf: LearClassifier) -> Callable[..., torch.Tensor]:
+    def _make_strategy(
+        self, clf: LearClassifier, threshold: float | None = None
+    ) -> Callable[..., torch.Tensor]:
+        # ``None`` reads self.threshold per call (the baseline); a rung
+        # passes its own threshold and gets its own closure.
         def strategy(partial, mask, features=None):
             aug = augment_features(features, partial, mask)
-            return clf.continue_mask(aug, mask, self.threshold)
+            th = self.threshold if threshold is None else threshold
+            return clf.continue_mask(aug, mask, th)
 
         return strategy
+
+    # -- degradation rungs -------------------------------------------------
+
+    @property
+    def n_rungs(self) -> int:
+        """Installed rung count (baseline included); 0 = no ladder."""
+        return 0 if self._rungs is None else len(self._rungs)
+
+    @property
+    def rung_level(self) -> int:
+        return self._rung_level
+
+    @property
+    def rung_names(self) -> tuple[str, ...]:
+        return tuple(r.name for r in self._rungs or ())
+
+    def install_rungs(self, rungs: Sequence[ExitRung]) -> None:
+        """Materialize the ladder: level 0 is the current configuration,
+        level ``i`` applies ``rungs[i-1]``'s overrides (``None`` fields
+        inherit the baseline). Each rung's strategy closures are built here,
+        once. Install before warmup, which then warms every rung.
+
+        A rung changes thresholds and query exit, never the sentinels, so
+        the whole ladder uses one ``padded_forest`` buffer set per forest:
+        it fits the LRU (``PADDED_CACHE_MAX`` ≥ 1), and stepping rungs
+        evicts nothing. A rung with ``dense_keep_frac`` raises: the dense
+        stage is not ported.
+        """
+        if self._rungs is not None:
+            raise RuntimeError("rungs already installed")
+        if any(r.dense_keep_frac is not None for r in rungs):
+            raise _not_ported("dense/hybrid stage")
+        ladder = [_RungState(
+            "baseline", self.threshold, tuple(self.stage_strategies), self.query_exit,
+        )]
+        for rung in rungs:
+            if rung.threshold is None:
+                th, strategies = self.threshold, ladder[0].strategies
+            else:
+                th = rung.threshold
+                strategies = tuple(
+                    self._make_strategy(c, th) for c in self.stage_classifiers
+                )
+            qe = rung.query_exit if rung.query_exit is not None else self.query_exit
+            ladder.append(_RungState(rung.name, th, strategies, qe))
+        self._rungs = tuple(ladder)
+
+    def set_rung(self, level: int) -> None:
+        """Swap the active exit configuration to ``level`` of the ladder
+        (prebuilt objects only, nothing is built). Call it from the thread
+        that owns the engine (the batcher's worker); the next
+        ``rank_batch`` serves the rung."""
+        if self._rungs is None:
+            raise RuntimeError("install_rungs first")
+        if not 0 <= level < len(self._rungs):
+            raise ValueError(f"rung {level} of {len(self._rungs)}")
+        r = self._rungs[level]
+        self._rung_level = level
+        self.threshold = r.threshold
+        self.stage_strategies = list(r.strategies)
+        self.query_exit = r.query_exit
 
     def _cold_start_estimate(self, n_docs: int) -> int:
         # Assume a 40% survivor rate at EVERY stage (survivors only shrink;
@@ -227,21 +331,33 @@ class RankingService:
                 launch_overhead_trees=self.launch_overhead_trees,
                 stage_capacities=capacities,
                 block_b=ENGINE_BLOCK_B,
+                query_exit_rate=self._query_exit_rate_estimate(),
             )
             for m in ("fused", "staged")
         }
         return "staged" if cost["staged"] < cost["fused"] else "fused"
 
+    def _query_exit_rate_estimate(self) -> float:
+        """Smoothed tail-skip rate of the ACTIVE bucket: 0 with query exit
+        off or before the bucket's first batch."""
+        if self.query_exit is None:
+            return 0.0
+        return self._active_state().tail_skip or 0.0
+
     def rank_batch(
-        self, X: torch.Tensor | np.ndarray, mask: torch.Tensor | np.ndarray
+        self,
+        X: torch.Tensor | np.ndarray,
+        mask: torch.Tensor | np.ndarray,
+        placement: ServePlacement | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
         """``X: [Q, D, F]`` → (top-k doc indices ``[Q, k]``, scores ``[Q, D]``).
 
         Everything from submit to the response stays on the device; the
         only device→host transfer is one copy of one packed tensor.
+        ``placement`` puts the operands on the service's device; ``None``
+        is :func:`~repro_torch.serve.placement.single_device`.
         """
-        X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
-        mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+        X, mask = (placement or single_device()).put(X, mask, self.device)
         Q, D, _ = X.shape
         self._active_key = (Q, D)
         n_docs = Q * D
@@ -256,6 +372,7 @@ class RankingService:
                 ),
                 mode=mode,
                 capacities=tuple(capacities),
+                query_exit=self.query_exit,
             ),
             features=X,
         )
@@ -268,6 +385,7 @@ class RankingService:
         # ONE device read: response and stats packed into one f64 tensor
         # (every value is exact in f64: indices, counts, f32 scores).
         T = self.ensemble.n_trees
+        exited = result.query_exited
         stats = torch.stack([t.double() for t in (
             *(m.sum() for m in result.stage_masks),
             trees_traversed_progressive(
@@ -276,6 +394,7 @@ class RankingService:
             ),
             result.overflow,
             mask.sum(),
+            exited.sum() if exited is not None else torch.zeros((), device=self.device),
         )])
         packed = torch.cat(
             [top_idx.reshape(-1).double(), result.scores.reshape(-1).double(), stats]
@@ -284,7 +403,7 @@ class RankingService:
         scores = packed[Q * k: Q * k + Q * D].astype(np.float32).reshape(Q, D)
         S = self.n_stages
         survivors = packed[Q * (k + D): Q * (k + D) + S].astype(np.int64)
-        traversed, overflow, batch_docs = packed[Q * (k + D) + S:]
+        traversed, overflow, batch_docs, q_exited = packed[Q * (k + D) + S:]
 
         a = self.survivor_ema
         state = self._active_state()
@@ -296,6 +415,13 @@ class RankingService:
             state.ema = [float(n) for n in survivors]
         else:
             state.ema = [(1 - a) * e + a * float(n) for e, n in zip(state.ema, survivors)]
+        if self.query_exit is not None:
+            # No final-stage survivor ⟺ the gated tail did no tree work.
+            skipped = float(survivors[-1] == 0)
+            state.tail_skip = (
+                skipped if state.tail_skip is None
+                else (1 - a) * state.tail_skip + a * skipped
+            )
 
         s = self.stats
         s.batches += 1
@@ -306,6 +432,7 @@ class RankingService:
         s.docs += int(batch_docs)
         s.docs_continued += int(survivors[-1])
         s.overflow_docs += int(overflow)
+        s.queries_exited += int(q_exited)
         s.trees_traversed += float(traversed)
         s.trees_full_equiv += int(batch_docs) * T
         return top_idx, scores

@@ -150,10 +150,10 @@ def test_rank_and_rank_compacted_match_reference():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="query-exit"):
-        stage.EngineConfig(
-            stages=(stage.TreeStage(5),), query_exit=strategies.QueryExitConfig()
-        )
+    # Query exit is ported (tests/test_torch_query_exit.py); the dense
+    # stage and an engine-side "auto" are not.
+    qe = strategies.QueryExitConfig()
+    assert stage.EngineConfig(stages=(stage.TreeStage(5),), query_exit=qe).query_exit == qe
     dense = stage.DenseStage(scorer=lambda x: x[:, 0], policy=lambda s, m: m)
     with pytest.raises(NotImplementedError, match="dense"):
         stage.EngineConfig(stages=(dense, stage.TreeStage(5)))

@@ -302,3 +302,109 @@ def test_lear_msn1_shapes_fit_the_widest_tile(dev, monkeypatch):
         fs.check_cuda_shapes(F, N, L, 16)
         plan = fs.launch_plan(2048, F, N, L, 16, 63)
         assert (plan["warps_d"], plan["warps_t"]) == (4, 2) and plan["ctas_per_sm"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# The gated tail: the kernel reads the survivor count (n_valid) on the
+# device; rows at or past it are 0, rows below it equal the ungated launch.
+# ---------------------------------------------------------------------------
+
+
+def _tail(dev, B, seed=7):
+    ens = random_ensemble(seed, 300, 6, 136, device=dev)
+    pf = ops.padded_forest(ens, boundaries=(50, 300))
+    x = _x(np.random.default_rng(B), B, 136, dev)
+    kw = dict(block_t=pf.block_t, tree_block_offset=pf.seg_block_starts[1],
+              n_tree_blocks=pf.seg_blocks[1])
+    return pf, x, kw
+
+
+@pytest.mark.parametrize("plan", [(0, 0, 0), (1, 1, 5), (4, 2, 1), (2, 2, 1000)])
+@pytest.mark.parametrize("B", [33, 1024, 2048])
+def test_gated_kernel_equals_plain(dev, monkeypatch, B, plan):
+    """Counts 0, 1, 31, 33, B−1 and B, under one-chunk grids (every block
+    in one CTA) and many-chunk grids (the last CTA's in-order sum)."""
+    monkeypatch.setattr(fs, "GRID_PLAN", plan)
+    pf, x, kw = _tail(dev, B)
+    ungated = fs.forest_score_kernel(x, *_tables(pf), packed=pf.packed, **kw)
+    for count in sorted({0, 1, 31, 33, B - 1, B}):
+        n = torch.tensor(count, dtype=torch.int32, device=dev)
+        got = fs.forest_score_kernel(x, *_tables(pf), packed=pf.packed, n_valid=n, **kw)
+        want = fs.forest_score_plain(x, *_tables(pf), n_valid=n, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), count
+        assert torch.equal(got[:count], ungated[:count]), count
+        assert not got[count:].any(), count
+
+
+def test_gated_launch_counts_once_even_with_no_survivors(dev):
+    pf, x, _ = _tail(dev, 64)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    fs.reset_kernel_launches()
+    out = ops.forest_score_range(pf, x, seg_lo=1, count_as="gated", n_valid=zero)
+    torch.cuda.synchronize()
+    assert not out.any()
+    assert ops.launch_counts() == {"plain": 0, "segmented": 0, "gated": 1}
+    assert fs.kernel_launches() == {"forest_score": 1, "forest_score_segments": 0}
+
+
+def test_gated_launch_on_a_side_stream(dev):
+    """The compaction writes the count on a side stream and the gated launch
+    reads it there, in stream order, with no host read between."""
+    from repro_torch.core.compaction import compact_indices_cumsum
+
+    pf, x, kw = _tail(dev, 1024)
+    alive = torch.as_tensor(np.random.default_rng(2).random(1024) < 0.3, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sel, n_cont = compact_indices_cumsum(alive, 512)
+        n = n_cont.to(torch.int32)
+        got = ops.forest_score_range(pf, x[sel], seg_lo=1, count_as="gated", n_valid=n)
+    torch.cuda.synchronize()
+    want = fs.forest_score_plain(x[sel], *_tables(pf), n_valid=n, **kw)
+    assert torch.equal(got, want)
+    assert int(n) == int(alive.sum()) and got[int(n):].eq(0).all()
+
+
+def test_plans_count_new_shapes_only(dev):
+    """A new B makes one plan, which the gated launch shares (the gate
+    changes no plan); the same B again makes none, whatever the count."""
+    pf, x, kw = _tail(dev, 777)
+    before = fs.first_touches()["plans"]
+    fs.forest_score_kernel(x, *_tables(pf), packed=pf.packed, **kw)
+    assert fs.first_touches()["plans"] == before + 1
+    for count in (100, 0, 777):
+        n = torch.tensor(count, dtype=torch.int32, device=dev)
+        fs.forest_score_kernel(x, *_tables(pf), packed=pf.packed, n_valid=n, **kw)
+    fs.forest_score_kernel(x, *_tables(pf), packed=pf.packed, **kw)
+    torch.cuda.synchronize()
+    assert fs.first_touches()["plans"] == before + 1
+
+
+def test_engine_with_query_exit_equals_the_cpu(dev):
+    """The engine's gated tail on the card against the same engine on the
+    CPU (plain versions): scores, masks and exited queries equal."""
+    from repro_torch.core.cascade import CascadeRanker
+    from repro_torch.core.stage import EngineConfig
+    from repro_torch.core.strategies import QueryExitConfig, ept_continue
+
+    rng = np.random.default_rng(12)
+    X = rng.normal(size=(8, 64, 20)).astype(np.float32)
+    mask = rng.random((8, 64)) < 0.9
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        ens = random_ensemble(12, 120, 5, 20, device=d)
+        for margin in (0.1, 0.0):
+            cfg = EngineConfig.trees(
+                (10, 30), mode="fused", query_exit=QueryExitConfig(k=3, margin=margin)
+            )
+            r = CascadeRanker(ens, 10, ept_continue).rank_progressive(
+                torch.as_tensor(X, device=d), torch.as_tensor(mask, device=d), cfg,
+                k_s=5, p=0.5,
+            )
+            outs[(d.type, margin)] = (r.scores.cpu(), r.query_exited.cpu())
+    for margin in (0.1, 0.0):
+        assert torch.equal(outs[("cuda", margin)][0], outs[("cpu", margin)][0])
+        assert torch.equal(outs[("cuda", margin)][1], outs[("cpu", margin)][1])

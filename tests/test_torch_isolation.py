@@ -1,8 +1,8 @@
 """The port stands alone: no JAX and nothing of ``repro`` behind it.
 
-In a fresh interpreter, import every module of ``repro_torch`` and the
-``chip_smoke`` script (without running it) and check that no ``jax*`` or
-``repro.*`` module was loaded. Without a card, ``chip_smoke.py`` must fail
+In a fresh interpreter, import every module of ``repro_torch`` (the serving
+tier's among them) and the ``chip_smoke`` script (without running it) and
+check that no ``jax*`` or ``repro.*`` module was loaded. Without a card, ``chip_smoke.py`` must fail
 and print no result, also when it is alone in a directory.
 """
 
@@ -24,6 +24,14 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from repro_torch.serve import batching, degradation, supervisor, tier, warmup
+tier.ServingTier, batching.ContinuousBatcher, warmup.warmup_service
+degradation.DegradationController, supervisor.WorkerSupervisor
+serving = {"repro_torch.serve." + m for m in (
+    "tier", "batching", "warmup", "degradation", "supervisor", "placement",
+    "errors", "clock",
+)}
+assert serving <= set(names), sorted(serving - set(names))
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))

@@ -26,13 +26,23 @@ and 512 under forced launch decompositions (``forest_score.GRID_PLAN``:
 warps on documents, warps on the trees of a block, tree blocks per CTA;
 0 is the launcher's choice), each result held bit-exact to the plain
 version.
+
+With ``--gated`` (a tree whose wrapper takes ``n_valid``) it times the
+tail at B 1024 and 2048 ungated and gated with every row valid, in the
+order ungated, gated, gated, ungated, and the gated launch with no row
+valid. With ``--sass`` it prints, for each instantiation of the kernel in
+the built library, the registers, stack bytes and SASS instructions that
+``cuobjdump`` reports.
 """
 
 from __future__ import annotations
 
 import argparse
 import inspect
+import os
+import re
 import statistics
+import subprocess
 import sys
 import time
 
@@ -92,10 +102,69 @@ def wrapper_call(pf, x, seg_lo, seg_hi):
     return lambda: fs.forest_score_kernel(x, *tables, **kw)
 
 
+def gated_rows(pf, x, label: str) -> None:
+    """The tail ungated and gated (every row valid, then none), one card."""
+    tables = (pf.feature, pf.threshold, pf.mask, pf.leaf_value)
+    kw = dict(block_t=pf.block_t, tree_block_offset=pf.seg_block_starts[1],
+              n_tree_blocks=pf.seg_blocks[1], leaf_gather=pf.leaf_gather, packed=pf.packed)
+    for B in (1024, 2048):
+        xs = x[:B].contiguous()
+        counts = {c: torch.tensor(c, dtype=torch.int32, device=xs.device) for c in (0, B)}
+        ungated = lambda xs=xs: fs.forest_score_kernel(xs, *tables, **kw)
+        gated = {
+            c: lambda xs=xs, n=n: fs.forest_score_kernel(xs, *tables, n_valid=n, **kw)
+            for c, n in counts.items()
+        }
+        if not torch.equal(gated[B](), ungated()):
+            raise AssertionError(f"B={B}: the gated launch differs from the ungated one")
+        u1, g1, g2, u2 = (device_ms(f) for f in (ungated, gated[B], gated[B], ungated))
+        g0 = device_ms(gated[0])
+        u, g = (u1 + u2) / 2, (g1 + g2) / 2
+        print(
+            f"[gated] {label} tail B={B}: ungated={u1:.4f},{u2:.4f} ms "
+            f"gated n_valid=B={g1:.4f},{g2:.4f} ms ({100 * (g / u - 1):+.2f}%) "
+            f"gated n_valid=0={g0:.4f} ms", flush=True,
+        )
+
+
+def sass_rows(label: str) -> None:
+    """Registers, stack and SASS instruction count per kernel instantiation."""
+    from repro_torch.kernels import build
+
+    path, _ = build.build("forest_score")
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    res = subprocess.run([tool, "-res-usage", str(path)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    name_re = re.compile(r"forest_score_kernelILi(\d+)ELb([01])ELb([01])E")
+    usage = {}
+    for fn, rest in re.findall(r"Function (\S+):\n(.*)", res):
+        m = name_re.search(fn)
+        if m:
+            usage[m.groups()] = rest.strip()
+    counts: dict[tuple, int] = {}
+    key = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = name_re.search(line)
+            key = m.groups() if m else None
+        elif key and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[key] = counts.get(key, 0) + 1
+    for (bt, seg, gated) in sorted(usage, key=lambda k: (int(k[0]), k[1], k[2])):
+        print(
+            f"[sass] {label} block_t={bt} segmented={seg} gated={gated}: "
+            f"{usage[(bt, seg, gated)]}; instructions={counts.get((bt, seg, gated), 0)}",
+            flush=True,
+        )
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--label", default="tree")
     parser.add_argument("--plans", action="store_true")
+    parser.add_argument("--gated", action="store_true")
+    parser.add_argument("--sass", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_forest_timing: needs a CUDA card", file=sys.stderr)
@@ -130,6 +199,10 @@ def main() -> int:
                 f"least={least:.2f} device_ms={device_ms(fn):.4f}", flush=True,
             )
 
+    if args.gated:
+        gated_rows(pf, x, args.label)
+    if args.sass:
+        sass_rows(args.label)
     if args.plans:
         for B in (2048, 1024, 512):
             xs = x[:B].contiguous()
