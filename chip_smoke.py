@@ -53,7 +53,33 @@ Phases, each of which must pass:
   count) is held to its plain version at B = 1024 and 2048 with counts 0,
   1, 33, B/2 and B, and timed at counts 0 and B.
 
-The last lines are a one-line summary of the tier and the gated tail, the
+- ``hybrid``: the hybrid cascade (a dense stage-0 gate, keep fraction 0.35
+  as the reference bench chose, ``BENCH_kernels.json`` → ``hybrid``).
+  The dense scorer (``n_vec`` 4, ``vec_dim`` 16, ``hidden`` 32) is
+  distilled on the card against the ``lear-msn1`` ranker on a 32 × 256
+  N(0, 1) block (seed 300; 400 steps, lr 3e-3, seed 7, as
+  ``benchmarks/bench_kernels.py`` ``_bench_hybrid``), and its loss must
+  fall. Its parameters go to the card's and the CPU's services as numpy
+  arrays. fp32 matmuls must run in full fp32 (no TF32). The hybrid service
+  serves the ``serve`` batches: sentinel 50 fused, sentinels (50, 150)
+  fused and staged, each held to the CPU service by the boundary rule —
+  dense scores within 1e-5; every document except those within that
+  tolerance of its query's keep boundary (counted and printed; none
+  expected) scored within 1e-5; top-k equal except ties and those
+  documents — and beside the all-trees service on the same batches
+  (latency, trees traversed), with the dense scorer's device time and a
+  ``[profile]`` window. Then ``ServingTier`` on a hybrid service (sentinel
+  50, threshold 0.4) whose rung 1 narrows the gate to 0.2 and whose rung 2
+  adds the ``tier`` ladder's rung 2: 12 buckets × 3 rungs warmed, 100
+  queries from two threads, each held to the CPU service at its rung by
+  the same rule, 0 first touches (the dense scorer's included), 0
+  overflow, no future unresolved; then one 8 × 256 batch at each rung.
+  ``kernels`` then also holds both kernels to their plain versions at the
+  capacities the hybrid runs used, on blocks compacted as the dense gate
+  compacts them (survivors, then padding rows).
+
+The last lines are a one-line summary of the tier, the gated tail and the
+hybrid runs, the
 card's name and power limit, one JSON line with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
@@ -98,6 +124,14 @@ TIER_DOC_COUNTS = (64, 128, 256)
 TIER_QUERIES = 200
 TIER_GAP_MS = 2.0        # mean exponential gap between one thread's submits
 GATED_BS = (1024, 2048)  # the tail's serving capacity, and the full batch
+
+# The [hybrid] phase: the reference bench's hybrid setup
+# (benchmarks/bench_kernels.py _bench_hybrid: distillation at lr 3e-3, seed
+# 7, 400 steps; BENCH_kernels.json → hybrid.dense_stage0: keep_frac 0.35).
+HYBRID_KEEP = 0.35
+HYBRID_RUNG_KEEP = 0.2   # the hybrid tier's rungs 1 and 2
+HYBRID_DISTILL_QD = (32, 256)
+HYBRID_TIER_QUERIES = 100
 
 
 def log(msg: str) -> None:
@@ -160,13 +194,17 @@ def _bound(B: int, F: int, pf, n_blocks: int, S: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def phase_kernels(tail_cases) -> dict:
+def phase_kernels(tail_cases, hybrid_cases=()) -> dict:
     """Each kernel against its plain version and timed, at B = Q·D and at
     the compaction capacities of ``tail_cases`` (``(layout, seg_lo,
-    seg_hi, B)`` as the serve runs launched them)."""
+    seg_hi, B)`` as the serve runs launched them), and of ``hybrid_cases``
+    (``(kernel, layout, seg_lo, seg_hi, B)`` as the hybrid runs launched
+    them) on a block compacted as the dense gate compacts it: the rows of a
+    keep fraction of the batch, then padding rows that repeat row 0."""
     import numpy as np
     import torch
 
+    from repro_torch.core.compaction import compact_indices_cumsum
     from repro_torch.forest.scoring import score_numpy_oracle
     from repro_torch.forest.ensemble import random_ensemble
     from repro_torch.kernels import forest_score as fs
@@ -188,46 +226,55 @@ def phase_kernels(tail_cases) -> dict:
     def tables(pf):
         return pf.feature, pf.threshold, pf.mask, pf.leaf_value
 
-    layouts = {"S=1": pf1, "S=2": pf2}
-    cases = []
-    for label, pf, xs, seg_lo, seg_hi in (
-        ("ranker head [0,1)", pf1, x, 0, 1),
-        ("ranker tail [1,2)", pf1, x, 1, 2),
-        ("classifier [0,1)", pfc, x_aug, 0, 1),
-        *(
-            (f"ranker {layout} [{lo},{hi}) B={cap}", layouts[layout], x[:cap], lo, hi)
-            for layout, lo, hi, cap in sorted(tail_cases)
-        ),
-    ):
+    def range_case(label, pf, xs, seg_lo, seg_hi):
         kw = dict(
             block_t=pf.block_t, tree_block_offset=pf.seg_block_starts[seg_lo],
             n_tree_blocks=sum(pf.seg_blocks[seg_lo:seg_hi]), leaf_gather=pf.leaf_gather,
         )
-        cases.append((
+        return (
             "forest_score", label, pf, xs, kw["n_tree_blocks"], 1,
-            lambda xs=xs, pf=pf, kw=kw: fs.forest_score_kernel(
-                xs, *tables(pf), packed=pf.packed, **kw
-            ),
-            lambda xs=xs, pf=pf, kw=kw: fs.forest_score_plain(
+            lambda: fs.forest_score_kernel(xs, *tables(pf), packed=pf.packed, **kw),
+            lambda: fs.forest_score_plain(
                 xs, *tables(pf), block_t=kw["block_t"],
                 tree_block_offset=kw["tree_block_offset"],
                 n_tree_blocks=kw["n_tree_blocks"],
             ),
-        ))
-    S = len(SENTINELS_2)
-    n_seg_blocks = pf2.seg_block_starts[S - 1] + pf2.seg_blocks[S - 1]
-    seg_kw = dict(
-        seg_block_starts=pf2.seg_block_starts[:S], n_tree_blocks=n_seg_blocks,
-        block_t=pf2.block_t,
-    )
-    cases.append((
-        "forest_score_segments", f"ranker head S={S} {SENTINELS_2}", pf2, x,
-        n_seg_blocks, S,
-        lambda: fs.forest_score_segments_kernel(
-            x, *tables(pf2), leaf_gather=pf2.leaf_gather, packed=pf2.packed, **seg_kw
+        )
+
+    def seg_case(label, pf, xs, S):
+        n_seg_blocks = pf.seg_block_starts[S - 1] + pf.seg_blocks[S - 1]
+        seg_kw = dict(
+            seg_block_starts=pf.seg_block_starts[:S], n_tree_blocks=n_seg_blocks,
+            block_t=pf.block_t,
+        )
+        return (
+            "forest_score_segments", label, pf, xs, n_seg_blocks, S,
+            lambda: fs.forest_score_segments_kernel(
+                xs, *tables(pf), leaf_gather=pf.leaf_gather, packed=pf.packed, **seg_kw
+            ),
+            lambda: fs.forest_score_segments_plain(xs, *tables(pf), **seg_kw),
+        )
+
+    layouts = {"S=1": pf1, "S=2": pf2}
+    cases = [
+        range_case("ranker head [0,1)", pf1, x, 0, 1),
+        range_case("ranker tail [1,2)", pf1, x, 1, 2),
+        range_case("classifier [0,1)", pfc, x_aug, 0, 1),
+        *(
+            range_case(f"ranker {layout} [{lo},{hi}) B={cap}", layouts[layout], x[:cap], lo, hi)
+            for layout, lo, hi, cap in sorted(tail_cases)
         ),
-        lambda: fs.forest_score_segments_plain(x, *tables(pf2), **seg_kw),
-    ))
+        seg_case(f"ranker head S={len(SENTINELS_2)} {SENTINELS_2}", pf2, x, len(SENTINELS_2)),
+    ]
+    keep = torch.zeros(B, dtype=torch.bool, device=dev)
+    keep[torch.as_tensor(rng.choice(B, int(HYBRID_KEEP * B), replace=False), device=dev)] = True
+    for name, layout, lo, hi, cap in sorted(hybrid_cases):
+        xs = x[compact_indices_cumsum(keep, cap)[0]]
+        label = f"hybrid ranker {layout} [{lo},{hi}) B={cap} ({int(keep.sum())} kept of {B})"
+        if name == "forest_score":
+            cases.append(range_case(label, layouts[layout], xs, lo, hi))
+        else:
+            cases.append(seg_case(label, layouts[layout], xs, hi))
 
     results: dict[str, dict] = {}
     for name, label, pf, xs, n_blocks, S_out, kernel, plain in cases:
@@ -469,8 +516,12 @@ def _cpu_rank(svc_cpu, X, mask):
     return svc_cpu.rank_batch(X, mask)
 
 
-def phase_tier(card: str) -> dict:
-    """The serving tier at full width on the card against the CPU service."""
+def _drive_tier(label: str, svc, n_features: int, rungs, n_queries: int, seed: int) -> dict:
+    """Stand a ServingTier up on ``svc`` (warmup of every bucket × rung),
+    have two threads submit ``n_queries`` single queries of 64-256
+    candidates, stop it, and fail on a first touch after warmup, an
+    overflow, an unresolved future or a forest kernel never launched. The
+    launch counts are zeroed just before the traffic and read just after."""
     import threading
 
     import numpy as np
@@ -481,12 +532,10 @@ def phase_tier(card: str) -> dict:
         BatcherHooks,
         BucketPolicy,
         DegradationPolicy,
-        ServiceStats,
         ServingTier,
         TierConfig,
     )
 
-    cfg, svc = _tier_service(DEVICE)
     # On the worker thread: the rung that served each future, and each
     # flush's time from the pop of its bucket to its first response.
     served_at, flush_ms, flush_t0 = {}, [], []
@@ -500,26 +549,24 @@ def phase_tier(card: str) -> dict:
             flush_ms.append((time.perf_counter() - flush_t0.pop()) * 1e3)
 
     tier = ServingTier(
-        svc, cfg.n_features,
-        TierConfig(
-            doc_counts=TIER_DOC_COUNTS, degradation=DegradationPolicy(rungs=_tier_rungs())
-        ),
+        svc, n_features,
+        TierConfig(doc_counts=TIER_DOC_COUNTS, degradation=DegradationPolicy(rungs=rungs)),
         policy=BucketPolicy(max_queries=8, max_wait_ms=2.0, min_docs=8),
         hooks=BatcherHooks(on_flush=on_flush, on_result=on_result),
     )
     tier.start()
     rep = tier.warmup_report
     log(
-        f"[tier] warmup: {len(rep.buckets)} buckets x {rep.rungs_warmed} rungs in "
+        f"[{label}] warmup: {len(rep.buckets)} buckets x {rep.rungs_warmed} rungs in "
         f"{rep.total_seconds:.3f} s; seconds per bucket: "
         + ", ".join(f"{q}x{d} {t:.3f}" for (q, d), t in rep.seconds_per_bucket.items())
     )
 
-    rng = np.random.default_rng(SEED + 200)
-    sizes = rng.integers(64, 257, size=TIER_QUERIES)
-    queries = [rng.normal(size=(int(n), cfg.n_features)).astype(np.float32) for n in sizes]
-    gaps = rng.exponential(TIER_GAP_MS / 1e3, size=TIER_QUERIES)
-    futs = [None] * TIER_QUERIES
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(64, 257, size=n_queries)
+    queries = [rng.normal(size=(int(n), n_features)).astype(np.float32) for n in sizes]
+    gaps = rng.exponential(TIER_GAP_MS / 1e3, size=n_queries)
+    futs = [None] * n_queries
 
     def submit(idx):
         for i in idx:
@@ -529,15 +576,15 @@ def phase_tier(card: str) -> dict:
     touches = fs.first_touches()
     ops.reset_launch_counts()
     fs.reset_kernel_launches()
-    threads = [threading.Thread(target=submit, args=(range(k, TIER_QUERIES, 2),)) for k in (0, 1)]
+    threads = [threading.Thread(target=submit, args=(range(k, n_queries, 2),)) for k in (0, 1)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=600)
         if t.is_alive():
-            raise AssertionError("tier: a submitting thread did not finish")
-    offered = TIER_QUERIES / (time.perf_counter() - t0)
+            raise AssertionError(f"{label}: a submitting thread did not finish")
+    offered = n_queries / (time.perf_counter() - t0)
     results = [f.result(timeout=600) for f in futs]
     wall = time.perf_counter() - t0
     tier.stop()
@@ -545,18 +592,60 @@ def phase_tier(card: str) -> dict:
     new_touches = {k: v - touches[k] for k, v in fs.first_touches().items() if v != touches[k]}
     health, stats = tier.health(), tier.stats()
     if not all(f.done() for f in futs):
-        raise AssertionError("tier: a future is unresolved after stop()")
+        raise AssertionError(f"{label}: a future is unresolved after stop()")
     if new_touches:
-        raise AssertionError(f"tier: first touches after warmup: {new_touches}")
+        raise AssertionError(f"{label}: first touches after warmup: {new_touches}")
     if stats["service"]["overflow_docs"] != 0:
-        raise AssertionError(f"tier: overflow {stats['service']['overflow_docs']}")
+        raise AssertionError(f"{label}: overflow {stats['service']['overflow_docs']}")
     if launches["forest_score"] == 0:
-        raise AssertionError("tier: kernel forest_score was never launched")
+        raise AssertionError(f"{label}: kernel forest_score was never launched")
+    return {
+        "queries": queries, "results": results, "rungs": [served_at[id(f)] for f in futs],
+        "launches": launches, "dispatches": dispatches, "health": health,
+        "batcher": stats["batcher"], "wall": wall, "offered": offered, "flush_ms": flush_ms,
+    }
+
+
+def _tier_line(run: dict) -> str:
+    """The tier run's numbers, for its log line."""
+    import numpy as np
+
+    b, health, flush_ms = run["batcher"], run["health"], run["flush_ms"]
+    flushes = b["flushes_full"] + b["flushes_deadline"] + b["flushes_drain"]
+    return (
+        f"{b['completed']} queries of 64-256 docs from 2 threads in "
+        f"{run['wall']:.3f} s (offered {run['offered']:.0f} queries/s); p50 latency="
+        f"{health['p50_ms']:.3f} ms p99={health['p99_ms']:.3f} ms; flushes={flushes} "
+        f"(full {b['flushes_full']}, deadline {b['flushes_deadline']}, drain "
+        f"{b['flushes_drain']}) mean padded Q="
+        f"{(b['completed'] + b['padded_query_slots']) / max(flushes, 1):.3f}; "
+        f"flush to first response median={statistics.median(flush_ms):.3f} ms "
+        f"p90={float(np.percentile(flush_ms, 90)):.3f} ms; "
+        f"served at rungs {dict(sorted(collections.Counter(run['rungs']).items()))} "
+        f"(degradation {health['degradation']}); "
+        f"first touches after warmup=0 overflow=0 failed={b['failed']}; "
+        f"kernel_launches={run['launches']} dispatches={run['dispatches']}"
+    )
+
+
+def phase_tier(card: str) -> dict:
+    """The serving tier at full width on the card against the CPU service."""
+    import numpy as np
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServiceStats
+
+    cfg, svc = _tier_service(DEVICE)
+    run = _drive_tier("tier", svc, cfg.n_features, _tier_rungs(), TIER_QUERIES, SEED + 200)
+    queries, results, rungs = run["queries"], run["results"], run["rungs"]
+    launches, dispatches, health, b = (
+        run["launches"], run["dispatches"], run["health"], run["batcher"]
+    )
 
     # Each response against the query ranked alone on the CPU, at its rung.
     _, svc_cpu = _tier_service("cpu", svc.launch_overhead_trees)
     svc_cpu.install_rungs(_tier_rungs())
-    rungs = [served_at[id(f)] for f in futs]
     max_err = 0.0
     for q, (top, scores), rung in zip(queries, results, rungs):
         svc_cpu.set_rung(rung)
@@ -568,21 +657,9 @@ def phase_tier(card: str) -> dict:
             raise AssertionError("tier: top-k differs from the CPU service")
     if max_err > TOL:
         raise AssertionError(f"tier: scores differ from the CPU service by {max_err}")
-    b = stats["batcher"]
-    flushes = b["flushes_full"] + b["flushes_deadline"] + b["flushes_drain"]
     log(
         f"[tier] {cfg.name} {cfg.n_trees} trees depth {cfg.depth} F {cfg.n_features}, "
-        f"sentinel {cfg.sentinel}: {b['completed']} queries of 64-256 docs from 2 threads in "
-        f"{wall:.3f} s (offered {offered:.0f} queries/s); p50 latency={health['p50_ms']:.3f} ms "
-        f"p99={health['p99_ms']:.3f} ms ({card}); flushes={flushes} (full {b['flushes_full']}, "
-        f"deadline {b['flushes_deadline']}, drain {b['flushes_drain']}) mean padded Q="
-        f"{(b['completed'] + b['padded_query_slots']) / max(flushes, 1):.3f}; "
-        f"flush to first response median={statistics.median(flush_ms):.3f} ms "
-        f"p90={float(np.percentile(flush_ms, 90)):.3f} ms; "
-        f"served at rungs {dict(sorted(collections.Counter(rungs).items()))} "
-        f"(degradation {health['degradation']}); "
-        f"first touches after warmup=0 overflow=0 failed={b['failed']}; "
-        f"kernel_launches={launches} dispatches={dispatches}; "
+        f"sentinel {cfg.sentinel} ({card}): {_tier_line(run)}; "
         f"max|score-cpu|={max_err:.3g}"
     )
 
@@ -642,6 +719,329 @@ def phase_tier(card: str) -> dict:
         f"rung 2 mixed query_exit_rate={mixed_rate:.4f} survivors={mixed_survivors}"
     )
     return {"launches": launches, "gated": dispatches["gated"] + gated, "summary": summary}
+
+
+def _within(got, want) -> bool:
+    """``got`` agrees with ``want`` within TOL, relative and absolute."""
+    import numpy as np
+
+    return bool(np.all(np.abs(got - want) <= TOL + TOL * np.abs(want)))
+
+
+def _keep_boundary_docs(scores, keep, mask):
+    """``[Q, D]`` bool: the valid documents within tolerance of their
+    query's keep boundary — those with a valid document on the other side
+    of the keep decision closer than ``2·(TOL + TOL·max|score|)``: two
+    scores that each move by up to TOL on the card can swap order only then."""
+    import numpy as np
+
+    scores = np.asarray(scores, np.float64)
+    gap = np.abs(scores[:, :, None] - scores[:, None, :])
+    scale = np.maximum(np.abs(scores[:, :, None]), np.abs(scores[:, None, :]))
+    across = (keep[:, :, None] != keep[:, None, :]) & mask[:, :, None] & mask[:, None, :]
+    return mask & ((gap <= 2 * (TOL + TOL * scale)) & across).any(axis=-1)
+
+
+def _hybrid_agree(label, X, mask, out, out_c, scorer, scorer_cpu, keep_frac):
+    """The hybrid's rule against the CPU service: dense scores within TOL;
+    every document but those within TOL of its query's keep boundary (on
+    the CPU's dense scores) scored within TOL; the top-k equal except ties
+    and those documents. Returns (max dense diff, max score diff off the
+    boundary, boundary documents)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.strategies import dense_keep_fraction
+
+    (top, scores), (top_c, scores_c) = out, out_c
+    flat = X.reshape(-1, X.shape[-1])
+    with torch.no_grad():
+        d_cpu = scorer_cpu(torch.as_tensor(flat)).reshape(mask.shape)
+        d_card = scorer(torch.as_tensor(flat, device=DEVICE)).reshape(mask.shape).cpu().numpy()
+    d_np = d_cpu.numpy()
+    if scores.shape != scores_c.shape or top.shape != top_c.shape:
+        raise AssertionError(f"{label}: shapes {scores.shape} {top.shape}")
+    if not np.isfinite(scores).all() or not np.isfinite(d_card).all():
+        raise AssertionError(f"{label}: non-finite scores")
+    if not _within(d_card[mask], d_np[mask]):
+        raise AssertionError(f"{label}: dense scores differ from the CPU beyond {TOL}")
+    keep = dense_keep_fraction(d_cpu, torch.as_tensor(mask), keep_frac).numpy()
+    boundary = _keep_boundary_docs(d_np, keep, mask)
+    ok = mask & ~boundary
+    if not _within(scores[ok], scores_c[ok]):
+        raise AssertionError(f"{label}: scores differ from the CPU service beyond {TOL}")
+    for q in range(top.shape[0]):
+        for a, b in zip(top[q], top_c[q]):
+            if a != b and abs(scores_c[q, a] - scores_c[q, b]) > TOL and not (
+                boundary[q, a] or boundary[q, b]
+            ):
+                raise AssertionError(f"{label}: top-k differs from the CPU service")
+    return (
+        float(np.abs(d_card - d_np)[mask].max()),
+        float(np.abs(scores - scores_c)[ok].max()),
+        int(boundary.sum()),
+    )
+
+
+def _hybrid_service(device, params, sentinels, mode, threshold, launch_overhead_trees="auto"):
+    import functools
+
+    from repro_torch.core.stage import DenseStage
+    from repro_torch.core.strategies import dense_keep_fraction
+    from repro_torch.models.dense_scorer import dense_params_from_numpy
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+
+    cfg, ranker, clfs = _models(device, sentinels)
+    dense = DenseStage(
+        dense_params_from_numpy(params, device),
+        functools.partial(dense_keep_fraction, keep_frac=HYBRID_KEEP),
+    )
+    svc = RankingService(
+        ranker, clfs[0],
+        ServiceConfig(
+            threshold=threshold, execution_mode=mode,
+            launch_overhead_trees=launch_overhead_trees, dense_stage=dense,
+        ),
+        extra_classifiers=clfs[1:], device=device,
+    )
+    return cfg, svc
+
+
+def _distill_on_card() -> dict:
+    """Distil the dense scorer against the lear-msn1 ranker on the card;
+    its folded parameters as numpy arrays."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train.distill import distill_dense_scorer, teacher_scores
+
+    from repro_torch.configs.lear_msn1 import config
+
+    cfg, ranker, _ = _models(DEVICE, (config().sentinel,))
+    Qd, Dd = HYBRID_DISTILL_QD
+    X = np.random.default_rng(300).normal(size=(Qd, Dd, cfg.n_features)).astype(np.float32)
+    mask = np.ones((Qd, Dd), bool)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = distill_dense_scorer(ranker, X, mask, steps=400, lr=3e-3, seed=7, log_every=50)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    teacher = teacher_scores(ranker, torch.as_tensor(X, device=DEVICE))
+    h = out.history
+    log(
+        f"[hybrid] distillation on the card against {cfg.name} ({cfg.n_trees} trees): "
+        f"{Qd}x{Dd} block, 400 steps, lr 3e-3, seed 7 in {seconds:.3f} s; loss "
+        f"{h[0]['loss']:.5f} (step 0) -> {h[-1]['loss']:.5f} (step {h[-1]['step']}); "
+        f"teacher_rmse={out.teacher_rmse:.5f} (teacher std {float(teacher.std()):.5f}) "
+        f"pair_accuracy={out.pair_accuracy:.5f}"
+    )
+    if not h[-1]["loss"] < h[0]["loss"]:
+        raise AssertionError(f"hybrid: distillation loss did not fall: {h}")
+    return out.scorer.to_numpy()
+
+
+def _hybrid_launched(sentinels, mode, stats) -> set[tuple[str, str, int, int, int]]:
+    """The ranker's launches of one hybrid run on compacted blocks, as
+    ``(kernel, layout, seg_lo, seg_hi, B)``: the head on the dense block
+    (segmented when fused with several sentinels), staged middle segments
+    at their stage's capacity, the tail at the last one."""
+    S = len(sentinels)
+    layout = f"S={S}"
+    out = set()
+    for caps in stats.capacities:
+        if mode == "fused" and S > 1:
+            out.add(("forest_score_segments", layout, 0, S, caps[0]))
+        else:
+            out.add(("forest_score", layout, 0, 1, caps[0]))
+        if mode == "staged":
+            out.update(("forest_score", layout, k + 1, k + 2, caps[1 + k]) for k in range(S - 1))
+        out.add(("forest_score", layout, S, S + 1, caps[-1]))
+    return out
+
+
+def hybrid_serve_run(label: str, sentinels, mode: str, params: dict) -> dict:
+    """The hybrid service on the card against the CPU service (the rule of
+    :func:`_hybrid_agree`) and against the all-trees service on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import ops
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+    from repro_torch.utils import device_ms
+
+    cfg, svc = _hybrid_service(DEVICE, params, sentinels, mode, THRESHOLD)
+    batches = _batches(cfg.n_features)
+    ops.reset_launch_counts()
+    fs.reset_kernel_launches()
+    outs, lat = [], []
+    for X, mask in batches:
+        t0 = time.perf_counter()
+        outs.append(svc.rank_batch(X, mask))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches, dispatches = fs.kernel_launches(), ops.launch_counts()
+
+    _, ranker, clfs = _models(DEVICE, sentinels)
+    base = RankingService(
+        ranker, clfs[0],
+        ServiceConfig(
+            threshold=THRESHOLD, execution_mode=mode,
+            launch_overhead_trees=svc.launch_overhead_trees,
+        ),
+        extra_classifiers=clfs[1:], device=DEVICE,
+    )
+    base_lat = []
+    for X, mask in batches:
+        t0 = time.perf_counter()
+        base.rank_batch(X, mask)
+        base_lat.append((time.perf_counter() - t0) * 1e3)
+
+    _, svc_cpu = _hybrid_service("cpu", params, sentinels, mode, THRESHOLD, svc.launch_overhead_trees)
+    dense_err, err, n_boundary = 0.0, 0.0, 0
+    for (X, mask), out in zip(batches, outs):
+        d, e, nb = _hybrid_agree(
+            f"hybrid {label}", X, mask, out, svc_cpu.rank_batch(X, mask),
+            svc.dense_stage.scorer, svc_cpu.dense_stage.scorer, HYBRID_KEEP,
+        )
+        dense_err, err, n_boundary = max(dense_err, d), max(err, e), n_boundary + nb
+    st, st_c = svc.stats, svc_cpu.stats
+    if n_boundary == 0 and (st.trees_traversed, st.overflow_docs, st.capacities) != (
+        st_c.trees_traversed, st_c.overflow_docs, st_c.capacities
+    ):
+        raise AssertionError(f"hybrid {label}: stats differ from the CPU service")
+
+    x = torch.as_tensor(batches[0][0].reshape(Q * D, cfg.n_features), device=DEVICE)
+    with torch.no_grad():
+        dense_ms = device_ms(lambda: svc.dense_stage.scorer(x), reps=200)
+    p50, base_p50 = statistics.median(lat[1:]), statistics.median(base_lat[1:])
+    docs_per_batch = float(np.mean([m.sum() for _, m in batches]))
+    per_batch = {k: v / N_BATCHES for k, v in launches.items()}
+    log(
+        f"[hybrid] {label}: mode={mode} sentinels={tuple(sentinels)} keep={HYBRID_KEEP} "
+        f"batches={st.batches} p50 latency={p50:.3f} ms (first {lat[0]:.3f} ms) "
+        f"docs/s={docs_per_batch / (p50 / 1e3):.0f}; all-trees service, same batches: "
+        f"p50 {base_p50:.3f} ms; dense scorer device time={dense_ms:.4f} ms per {Q}x{D} "
+        f"batch; per batch: kernel_launches={per_batch} "
+        f"dispatches={ {k: v / N_BATCHES for k, v in dispatches.items()} }; "
+        f"capacities={dict(st.capacities)}; trees traversed={st.trees_traversed:.0f} "
+        f"vs all-trees {base.stats.trees_traversed:.0f} "
+        f"(x{st.trees_traversed / base.stats.trees_traversed:.4f}, all-trees overflow "
+        f"{base.stats.overflow_docs}); "
+        f"continue_rate={st.continue_rate:.4f} overflow={st.overflow_docs}; "
+        f"max|dense-cpu|={dense_err:.3g} max|score-cpu| off the boundary={err:.3g} "
+        f"boundary documents={n_boundary}"
+    )
+    return {
+        "launches": launches, "service": svc, "batches": batches, "boundary": n_boundary,
+        "cases": _hybrid_launched(sentinels, mode, st), "p50": p50, "base_p50": base_p50,
+        "dense_ms": dense_ms, "ratio": st.trees_traversed / base.stats.trees_traversed,
+    }
+
+
+def _hybrid_rungs():
+    from repro_torch.core.strategies import QueryExitConfig
+    from repro_torch.serve.degradation import ExitRung
+
+    # Rung 1 narrows the dense gate; rung 2 adds the [tier] ladder's rung 2.
+    return (
+        ExitRung("dense-narrow", dense_keep_frac=HYBRID_RUNG_KEEP),
+        ExitRung(
+            "dense-narrow+tightest", threshold=0.8,
+            query_exit=QueryExitConfig(k=10, margin=2.0), dense_keep_frac=HYBRID_RUNG_KEEP,
+        ),
+    )
+
+
+def phase_hybrid(card: str, params: dict) -> dict:
+    """The hybrid cascade on the card: three serve paths, then the tier."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.lear_msn1 import config
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import ops
+
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("hybrid: fp32 matmuls must run in full fp32 (TF32 is on)")
+    runs = (
+        ("single-sentinel fused", (config().sentinel,), "fused", ("forest_score",)),
+        ("fused-2", SENTINELS_2, "fused", ("forest_score", "forest_score_segments")),
+        ("staged-2", SENTINELS_2, "staged", ("forest_score",)),
+    )
+    launches = {"forest_score": 0, "forest_score_segments": 0}
+    cases, lines, boundary = set(), [], 0
+    for label, sentinels, mode, needed in runs:
+        r = hybrid_serve_run(label, sentinels, mode, params)
+        for name in needed:
+            if r["launches"][name] == 0:
+                raise AssertionError(f"hybrid {label}: kernel {name} was never launched")
+        profile_window(f"hybrid {label}", r["service"], r["batches"][1:4])
+        for name, n in r["launches"].items():
+            launches[name] += n
+        cases |= r["cases"]
+        boundary += r["boundary"]
+        lines.append(
+            f"{label} p50 {r['p50']:.3f} ms (all-trees {r['base_p50']:.3f}), "
+            f"trees x{r['ratio']:.4f}"
+        )
+
+    # The tier on the hybrid service, its ladder narrowing the dense gate.
+    keeps = (HYBRID_KEEP, HYBRID_RUNG_KEEP, HYBRID_RUNG_KEEP)
+    cfg, svc = _hybrid_service(DEVICE, params, (config().sentinel,), "auto", TIER_THRESHOLD)
+    run = _drive_tier(
+        "hybrid tier", svc, cfg.n_features, _hybrid_rungs(), HYBRID_TIER_QUERIES, SEED + 500
+    )
+    for name, n in run["launches"].items():
+        launches[name] += n
+    _, svc_cpu = _hybrid_service(
+        "cpu", params, (cfg.sentinel,), "auto", TIER_THRESHOLD, svc.launch_overhead_trees
+    )
+    svc_cpu.install_rungs(_hybrid_rungs())
+    scorer, scorer_cpu = svc.dense_stage.scorer, svc_cpu.dense_stage.scorer
+    err, n_b = 0.0, 0
+    for q, (top, scores), rung in zip(run["queries"], run["results"], run["rungs"]):
+        svc_cpu.set_rung(rung)
+        mask = np.ones((1, len(q)), bool)
+        _, e, nb = _hybrid_agree(
+            "hybrid tier", q[None], mask, (top[None], scores[None]),
+            _cpu_rank(svc_cpu, q[None], mask), scorer, scorer_cpu, keeps[rung],
+        )
+        err, n_b = max(err, e), n_b + nb
+    log(
+        f"[hybrid] tier {cfg.name} sentinel {cfg.sentinel} keep {HYBRID_KEEP} ({card}): "
+        f"{_tier_line(run)}; max|score-cpu| off the boundary={err:.3g} "
+        f"boundary documents={n_b}"
+    )
+    boundary += n_b
+
+    # One 8 x 256 batch at each rung against the CPU service at the rung.
+    rung_parts, gated = [], run["dispatches"]["gated"]
+    for level, (X, mask) in enumerate(_batches(cfg.n_features)[:3]):
+        svc.set_rung(level)
+        svc_cpu.set_rung(level)
+        fs.reset_kernel_launches()
+        ops.reset_launch_counts()
+        out = svc.rank_batch(X, mask)
+        gated += ops.launch_counts()["gated"]  # the card's, not the CPU's
+        _, e, nb = _hybrid_agree(
+            f"hybrid tier rung {level}", X, mask, out,
+            _cpu_rank(svc_cpu, X, mask), scorer, scorer_cpu, keeps[level],
+        )
+        boundary += nb
+        rung_parts.append(
+            f"rung {level} ({svc.rung_names[level]}, keep {keeps[level]}): "
+            f"max|score-cpu|={e:.3g} boundary={nb} kernel_launches={fs.kernel_launches()}"
+        )
+    svc.set_rung(0)
+    log(f"[hybrid] tier rungs, one {Q}x{D} batch each: " + "; ".join(rung_parts))
+    h = run["health"]
+    summary = (
+        "hybrid " + "; ".join(lines)
+        + f"; tier {run['batcher']['completed']} queries p50={h['p50_ms']:.3f} ms "
+        f"p99={h['p99_ms']:.3f} ms, first touches 0 (dense included), overflow 0; "
+        f"boundary documents {boundary}"
+    )
+    return {"launches": launches, "gated": gated, "cases": cases, "summary": summary}
 
 
 def _leaf_paths(feature, threshold, depth: int) -> list[list[tuple[int, float, bool]]]:
@@ -808,7 +1208,10 @@ def main() -> int:
         tier = phase_tier(card)
         for name, n in tier["launches"].items():
             launches[name] += n
-        kernels = phase_kernels(tail_cases)
+        hybrid = phase_hybrid(card, _distill_on_card())
+        for name, n in hybrid["launches"].items():
+            launches[name] += n
+        kernels = phase_kernels(tail_cases, hybrid["cases"])
         gated = phase_gated()
     except Exception:  # report the failing phase, then fail the run
         traceback.print_exc()
@@ -837,14 +1240,15 @@ def main() -> int:
     line.append({
         "name": "forest_score (gated tail)", "route": "cuda",
         "source": sources["forest_score"][0], "replaces": sources["forest_score"][1],
-        "launches": tier["gated"], "max_abs_err": gated["max_abs_err"],
+        "launches": tier["gated"] + hybrid["gated"], "max_abs_err": gated["max_abs_err"],
         "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
         "bound_by": case["bound_by"], "library_ms": None, "case": case["case"],
     })
     # A short summary close to the end, where a truncated log still shows it.
     full = {c["B"]: c["ms"] for c in gated["cases"] if c["n_valid"] == c["B"]}
     log(f"[summary] {tier['summary']}; gated tail at a full count "
-        + ", ".join(f"B={B} {ms:.4f} ms" for B, ms in sorted(full.items())))
+        + ", ".join(f"B={B} {ms:.4f} ms" for B, ms in sorted(full.items()))
+        + f"; {hybrid['summary']}")
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,10 +19,15 @@ Module map (port ↔ reference):
 ``repro_torch.core.compaction``        ``repro.core.compaction``
 ``repro_torch.core.features``          ``repro.core.features``
 ``repro_torch.core.strategies``        ``repro.core.strategies`` (ERT, EPT,
-                                       query-exit predicate)
+                                       query-exit predicate, dense keep
+                                       fraction, EE_ideal)
 ``repro_torch.core.stage``             ``repro.core.stage``
 ``repro_torch.core.lear``              ``repro.core.lear`` (inference half)
 ``repro_torch.core.cascade``           ``repro.core.cascade``
+``repro_torch.models.dense_scorer``    ``repro.models.dense_scorer`` (+ the
+                                       ``dense_params_from_numpy`` converter)
+``repro_torch.train.optimizer``        ``repro.train.optimizer`` (AdamW)
+``repro_torch.train.distill``          ``repro.train.distill``
 ``repro_torch.metrics.ranking``        ``repro.metrics.ranking``
 ``repro_torch.metrics.speedup``        ``repro.metrics.speedup``
 ``repro_torch.serve.calibration``      ``repro.serve.calibration``
@@ -37,19 +42,27 @@ What is not ported yet is listed in ``ROADMAP.md``.
 
 from repro_torch.core.cascade import CascadeRanker
 from repro_torch.core.lear import LearClassifier
-from repro_torch.core.stage import EngineConfig, TreeStage
+from repro_torch.core.stage import DenseStage, EngineConfig, TreeStage
+from repro_torch.core.strategies import dense_keep_fraction
 from repro_torch.forest.ensemble import TreeEnsemble, from_numpy, random_ensemble
 from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+from repro_torch.models.dense_scorer import DenseScorer, dense_params_from_numpy
 from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+from repro_torch.train.distill import distill_dense_scorer
 
 __all__ = [
     "CascadeRanker",
+    "DenseScorer",
+    "DenseStage",
     "EngineConfig",
     "LearClassifier",
     "RankingService",
     "ServiceConfig",
     "TreeEnsemble",
     "TreeStage",
+    "dense_keep_fraction",
+    "dense_params_from_numpy",
+    "distill_dense_scorer",
     "from_numpy",
     "launch_counts",
     "random_ensemble",

@@ -24,6 +24,16 @@ same ranking semantics:
   (``seg0 + base``, then ``+ seg_k``), so they are bit-exact with each
   other off overflow, and with the reference.
 
+  With a :class:`~repro_torch.core.stage.DenseStage` at position 0 (the
+  hybrid cascade), the dense scorer runs over the whole ``[Q·D, F]`` block,
+  its policy prunes, and the survivors are cumsum-compacted into a block of
+  the dense capacity; both modes score their tree head on THAT block (so
+  they stay bit-exact with each other), stage decisions read the compacted
+  prefixes scattered back onto the ``[Q, D]`` grid, and no tree runs for a
+  dense-exited document, which keeps its dense score. The dense gate is
+  stage 0 of the accounting (a zero sentinel costing ``cost_trees`` per
+  candidate) and of query exit (the first tree stage is stage 1).
+
   With ``config.query_exit`` each stage's document decision is followed by
   :func:`~repro_torch.core.strategies.query_converged`, folded into the
   alive mask (exit flags accumulate; a converged query's documents skip
@@ -52,7 +62,7 @@ from repro_torch.core.compaction import (
     compact_indices_cumsum,
     compact_indices_cumsum_masked,
 )
-from repro_torch.core.stage import EngineConfig
+from repro_torch.core.stage import DenseStage, EngineConfig
 from repro_torch.core.strategies import QueryExitConfig, query_converged
 from repro_torch.forest.ensemble import TreeEnsemble, slice_trees
 from repro_torch.forest.scoring import score_bitvector
@@ -74,15 +84,18 @@ def bucket_capacity(want: int, limit: int, minimum: int = 64) -> int:
 @dataclasses.dataclass
 class CascadeResult:
     scores: torch.Tensor          # [Q, D] final scores (exited docs keep the
-    #                               prefix of the stage that exited them)
+    #                               prefix of the stage that exited them, the
+    #                               dense score for dense-gate exits)
     continue_mask: torch.Tensor   # [Q, D] survivors of the LAST stage
     speedup: float | torch.Tensor  # trees-traversed speedup vs Full (0-dim
     #                                tensor on the progressive path)
     overflow: torch.Tensor | int = 0  # docs beyond capacity (0-dim tensor)
-    stage_masks: list | None = None   # progressive: nested alive mask per stage
-    partials: torch.Tensor | None = None  # progressive: [Q, D, S] score grid
-    #   each stage's policy saw (fused: exact prefixes for every doc;
-    #   staged: docs already exited hold their exit-stage score)
+    stage_masks: list | None = None   # progressive: nested alive mask per
+    #   stage, the dense gate's first when present
+    partials: torch.Tensor | None = None  # progressive: [Q, D, n_stages]
+    #   score grid each stage's policy saw (fused all-trees: exact prefixes
+    #   for every doc; staged and hybrid: docs already exited hold their
+    #   exit-stage score; hybrid slice 0 is the dense score grid)
     mode: str | None = None
     query_exited: torch.Tensor | None = None  # query exit on: [Q] bool, the
     #   queries whose remaining documents query-level exit removed; else None
@@ -162,6 +175,7 @@ class CascadeRanker:
         to every stage's strategy.
         """
         Q, D, F = X.shape
+        dense = config.dense
         sentinels = config.sentinels
         S = len(sentinels)
         T = self.ensemble.n_trees
@@ -169,18 +183,18 @@ class CascadeRanker:
             raise ValueError(f"sentinels {sentinels} outside (0, {T}]")
         strategies = tuple(
             st.strategy if st.strategy is not None else self.strategy
-            for st in config.stages
+            for st in config.tree_stages
         )
         classifier_trees = tuple(
             float(
                 st.classifier_trees if st.classifier_trees is not None
                 else self.classifier_trees
             )
-            for st in config.stages
+            for st in config.tree_stages
         )
         conf_caps = config.capacities
         if conf_caps is None or isinstance(conf_caps, int):
-            conf_caps = (conf_caps,) * S
+            conf_caps = (conf_caps,) * config.n_stages
         default_cap = bucket_capacity(Q * D, Q * D)
         caps = tuple(
             min(
@@ -198,10 +212,16 @@ class CascadeRanker:
             leaf_gather=config.leaf_gather,
         )
         flat = X.reshape(Q * D, F)
-        body = _fused if config.mode == "fused" else _staged
         qe = config.query_exit
+        gate = None
+        acct_sentinels, acct_costs = sentinels, classifier_trees
+        if dense is not None:
+            gate = _dense_gate(dense, flat, mask, caps[0], qe)
+            acct_sentinels = (0, *sentinels)
+            acct_costs = (float(dense.cost_trees), *classifier_trees)
+        body = _fused if config.mode == "fused" else _staged
         scores, alive, stage_masks, partials, overflow, exited = body(
-            pf, flat, mask, strategies, caps, strategy_kwargs, qe
+            pf, flat, mask, strategies, caps[len(caps) - S:], strategy_kwargs, qe, gate
         )
         if has_tail:
             scores, overflow = _final_tail(
@@ -210,13 +230,66 @@ class CascadeRanker:
         return CascadeResult(
             scores=scores,
             continue_mask=alive,
-            speedup=speedup_progressive(mask, stage_masks, sentinels, T, classifier_trees),
+            speedup=speedup_progressive(mask, stage_masks, acct_sentinels, T, acct_costs),
             overflow=overflow,
             stage_masks=stage_masks,
             partials=partials,
             mode=config.mode,
             query_exited=exited if qe is not None else None,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class _Gate:
+    """The dense gate's outcome: its score grid, the alive mask and exit
+    flags after it, its overflow, and the compacted survivor block
+    (``sel`` rows of the flat block, ``n_cont`` survivors)."""
+
+    scores: torch.Tensor
+    alive: torch.Tensor
+    exited: torch.Tensor
+    overflow: torch.Tensor
+    sel: torch.Tensor
+    n_cont: torch.Tensor
+
+
+def _dense_gate(
+    dense: DenseStage, flat: torch.Tensor, mask: torch.Tensor, cap: int,
+    qe: QueryExitConfig | None,
+) -> _Gate:
+    """Stage 0 of a hybrid cascade: score every candidate densely, prune
+    with the stage's policy, fold in query exit at stage 0, and compact the
+    survivors into a block of ``cap`` rows (those beyond it keep the dense
+    score and count as overflow)."""
+    Q, D = mask.shape
+    with torch.no_grad():
+        scores = dense.scorer(flat).reshape(Q, D).float()
+    alive = mask & dense.policy(scores, mask)
+    exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
+    alive, exited = _apply_query_exit(qe, 0, scores, alive, exited)
+    sel, n_cont, within = compact_indices_cumsum_masked(alive.reshape(Q * D), cap)
+    return _Gate(
+        scores=scores,
+        alive=alive & within.reshape(Q, D),
+        exited=exited,
+        overflow=torch.clamp_min(n_cont - cap, 0),
+        sel=sel,
+        n_cont=n_cont,
+    )
+
+
+def _scatter_grid(
+    vec: torch.Tensor, gate: _Gate, alive: torch.Tensor, fallback: torch.Tensor
+) -> torch.Tensor:
+    """Per-row values of the gate's compacted block back onto the ``[Q, D]``
+    grid where ``alive`` (every alive document holds a slot), ``fallback``
+    elsewhere; padding slots go to a discarded extra element."""
+    Q, D = fallback.shape
+    valid = torch.arange(gate.sel.shape[0], device=vec.device) < gate.n_cont
+    idx = torch.where(valid, gate.sel, torch.full_like(gate.sel, Q * D))
+    grid = torch.zeros(Q * D + 1, dtype=torch.float32, device=vec.device)
+    grid.scatter_(0, idx, vec.float())
+    return torch.where(alive, grid[: Q * D].reshape(Q, D), fallback)
 
 
 def _apply_query_exit(
@@ -231,46 +304,69 @@ def _apply_query_exit(
     return alive & ~exited[:, None], exited
 
 
-def _fused(pf, flat, mask, strategies, caps, skw, qe):
-    """All prefixes from one head launch; stage decisions as vector work."""
-    Q, D = mask.shape
-    S = len(strategies)
+def _head_prefixes(pf, rows: torch.Tensor, S: int) -> list[torch.Tensor]:
+    """Prefix scores of ``rows`` at each of the first ``S`` sentinels from
+    one head launch (a plain one for ``S == 1``): ``seg0 + base``, then
+    ``+ seg_k`` left to right."""
     if S == 1:
-        prefixes = [forest_score_range(pf, flat, 0, 1).reshape(Q, D)]
-    else:
-        seg = forest_score_segments(pf, flat, n_segments=S).reshape(Q, D, S)
-        acc = seg[..., 0] + pf.base_score
-        prefixes = [acc]
-        for k in range(1, S):
-            acc = acc + seg[..., k]
-            prefixes.append(acc)
-    alive = mask
-    exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
-    stage_masks = []
-    scores = prefixes[0]
-    for k in range(S):
-        alive = alive & strategies[k](prefixes[k], alive, **skw)
-        alive, exited = _apply_query_exit(qe, k, prefixes[k], alive, exited)
-        stage_masks.append(alive)
-        if k + 1 < S:
-            scores = torch.where(alive, prefixes[k + 1], scores)
-    overflow = torch.zeros((), dtype=torch.long, device=flat.device)
-    return scores, alive, stage_masks, torch.stack(prefixes, dim=-1), overflow, exited
+        return [forest_score_range(pf, rows, 0, 1)]
+    seg = forest_score_segments(pf, rows, n_segments=S)
+    acc = seg[:, 0] + pf.base_score
+    prefixes = [acc]
+    for k in range(1, S):
+        acc = acc + seg[:, k]
+        prefixes.append(acc)
+    return prefixes
 
 
-def _staged(pf, flat, mask, strategies, caps, skw, qe):
-    """Segment k scored only on the compacted stage-(k−1) survivors."""
+def _fused(pf, flat, mask, strategies, caps, skw, qe, gate=None):
+    """All prefixes from one head launch (on the dense gate's block when
+    there is one); stage decisions as vector work."""
     Q, D = mask.shape
     S = len(strategies)
-    alive = mask
-    exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
-    overflow = torch.zeros((), dtype=torch.long, device=flat.device)
-    prefix = forest_score_range(pf, flat, 0, 1).reshape(Q, D)
-    prefixes = [prefix]
-    stage_masks = []
+    if gate is None:
+        vecs = _head_prefixes(pf, flat, S)
+        alive = mask
+        exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
+        overflow = torch.zeros((), dtype=torch.long, device=flat.device)
+        scores, grids, stage_masks, k0 = None, [], [], 0
+    else:
+        vecs = _head_prefixes(pf, flat[gate.sel], S)
+        alive, exited, overflow = gate.alive, gate.exited, gate.overflow
+        scores, grids, stage_masks, k0 = gate.scores, [gate.scores], [gate.alive], 1
+    for k in range(S):
+        if gate is None:
+            grid = vecs[k].reshape(Q, D)
+        else:
+            grid = _scatter_grid(vecs[k], gate, alive, grids[-1])
+        scores = grid if scores is None else torch.where(alive, grid, scores)
+        alive = alive & strategies[k](grid, alive, **skw)
+        alive, exited = _apply_query_exit(qe, k + k0, grid, alive, exited)
+        stage_masks.append(alive)
+        grids.append(grid)
+    return scores, alive, stage_masks, torch.stack(grids, dim=-1), overflow, exited
+
+
+def _staged(pf, flat, mask, strategies, caps, skw, qe, gate=None):
+    """Segment k scored only on the compacted stage-(k−1) survivors; the
+    first segment on the whole block, or on the dense gate's block (the
+    rows the fused head scores, so the modes stay bit-exact)."""
+    Q, D = mask.shape
+    S = len(strategies)
+    if gate is None:
+        alive = mask
+        exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
+        overflow = torch.zeros((), dtype=torch.long, device=flat.device)
+        prefix = forest_score_range(pf, flat, 0, 1).reshape(Q, D)
+        prefixes, stage_masks, k0 = [prefix], [], 0
+    else:
+        alive, exited, overflow = gate.alive, gate.exited, gate.overflow
+        seg0 = forest_score_range(pf, flat[gate.sel], 0, 1)
+        prefix = _scatter_grid(seg0, gate, alive, gate.scores)
+        prefixes, stage_masks, k0 = [gate.scores, prefix], [alive], 1
     for k in range(S):
         alive = alive & strategies[k](prefix, alive, **skw)
-        alive, exited = _apply_query_exit(qe, k, prefix, alive, exited)
+        alive, exited = _apply_query_exit(qe, k + k0, prefix, alive, exited)
         if k + 1 < S:
             sel, n_cont, within = compact_indices_cumsum_masked(
                 alive.reshape(Q * D), caps[k]

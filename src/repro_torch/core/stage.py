@@ -1,7 +1,11 @@
-"""Cascade stages as values: :class:`TreeStage` and :class:`EngineConfig`.
+"""Cascade stages as values: :class:`TreeStage`, :class:`DenseStage` and
+:class:`EngineConfig`.
 
 The port of :mod:`repro.core.stage`. A :class:`TreeStage` is a
-sentinel-segmented tree prefix with its exit policy and survivor capacity;
+sentinel-segmented tree prefix with its exit policy and survivor capacity.
+A :class:`DenseStage` is the hybrid cascade's stage 0: a dense scorer
+(:mod:`repro_torch.models.dense_scorer`) over the whole ``[Q·D, F]``
+block, whose policy prunes the easy majority before any tree runs.
 :class:`EngineConfig` is the frozen, hashable stage list plus the engine
 knobs of one progressive step. (The reference's ``launch_overhead_trees``
 field prices its in-engine ``mode="auto"`` pick; here the service prices
@@ -9,12 +13,12 @@ the pick itself, so the engine has no such field.)
 
 ``query_exit`` (a :class:`~repro_torch.core.strategies.QueryExitConfig`)
 turns on query-level exit and the gated tail
-(:mod:`repro_torch.core.cascade`). Not ported yet, a queued item of
-``ROADMAP.md``: the dense/hybrid stage (:class:`DenseStage` exists as a
-type, and a config holding one raises ``NotImplementedError``).
-``mode="auto"`` is not an engine mode here: eager PyTorch cannot branch on
-device data without a sync, so the port picks fused vs staged on the host
+(:mod:`repro_torch.core.cascade`). ``mode="auto"`` is not an engine mode
+here: eager PyTorch cannot branch on device data without a sync, so the
+port picks fused vs staged on the host
 (:meth:`repro_torch.serve.ranking_service.RankingService._pick_mode`).
+Stages compare their callables by identity, as in the reference: build a
+scorer and a policy closure once per configuration and reuse them.
 """
 
 from __future__ import annotations
@@ -25,24 +29,13 @@ from collections.abc import Callable, Sequence
 import torch
 
 from repro_torch.core.strategies import QueryExitConfig
-from repro_torch.kernels.ops import env_int
+from repro_torch.models.dense_scorer import DENSE_COST_TREES
 
 #: Exit-policy signature: ``(partial [Q, D], alive [Q, D], **kwargs) ->
 #: continue mask [Q, D]``; pure and mask-invariant.
 Strategy = Callable[..., torch.Tensor]
 
-#: Accounting price of one dense evaluation in doc·tree equivalents (the
-#: reference's ``repro.models.dense_scorer.DENSE_COST_TREES``).
-DENSE_COST_TREES = env_int("REPRO_DENSE_COST_TREES", 4)
-
 MODES = ("fused", "staged")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch: {what} is not ported yet (ROADMAP.md, queue A: "
-        f"'{what}')"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,13 +61,29 @@ class TreeStage:
 
 @dataclasses.dataclass(frozen=True)
 class DenseStage:
-    """A dense scorer stage (stage 0 of the reference's hybrid cascade).
-    Ported as a type only: an :class:`EngineConfig` holding one raises."""
+    """A dense (non-tree) scorer stage: stage 0 of the hybrid cascade.
+
+    ``scorer`` maps the flat ``[B, F]`` block to ``[B]`` scores (e.g. a
+    :class:`~repro_torch.models.dense_scorer.DenseScorer`); ``policy`` is
+    called as ``policy(scores [Q, D], mask [Q, D])`` with no strategy
+    kwargs (close knobs over it, e.g.
+    ``functools.partial(dense_keep_fraction, keep_frac=0.35)``). Documents
+    the policy exits keep the dense score as their final score.
+    ``cost_trees`` prices one dense evaluation in doc·tree equivalents;
+    ``capacity`` bounds the compacted survivor block the tree stages run
+    on, a real kernel block bound in both modes.
+    """
 
     scorer: Callable[[torch.Tensor], torch.Tensor]
     policy: Strategy
     capacity: int | None = None
     cost_trees: float = float(DENSE_COST_TREES)
+
+    def __post_init__(self) -> None:
+        if self.capacity is not None and self.capacity <= 0:
+            raise ValueError(f"DenseStage capacity must be positive: {self.capacity}")
+        if self.cost_trees < 0.0:
+            raise ValueError(f"DenseStage cost_trees must be >= 0: {self.cost_trees}")
 
 
 def _as_capacities(
@@ -89,12 +98,14 @@ def _as_capacities(
 class EngineConfig:
     """Frozen, hashable configuration of one progressive-engine step.
 
-    ``stages`` are :class:`TreeStage` entries with strictly increasing
-    sentinels. ``capacities`` (an int for every stage, or one per stage)
-    is the config-level survivor bound; a stage's own ``capacity`` wins.
+    ``stages`` holds at most one :class:`DenseStage`, only at position 0,
+    then :class:`TreeStage` entries with strictly increasing sentinels.
+    ``capacities`` (an int for every stage, or one entry per stage, the
+    dense stage included) is the config-level survivor bound; a stage's own
+    ``capacity`` wins.
     """
 
-    stages: tuple[TreeStage, ...]
+    stages: tuple[TreeStage | DenseStage, ...]
     mode: str = "fused"
     leaf_gather: str = "auto"
     block_t: int = 16
@@ -104,24 +115,42 @@ class EngineConfig:
     def __post_init__(self) -> None:
         object.__setattr__(self, "stages", tuple(self.stages))
         object.__setattr__(self, "capacities", _as_capacities(self.capacities))
-        if any(isinstance(st, DenseStage) for st in self.stages):
-            raise _not_ported("dense/hybrid stage")
         if self.mode not in MODES:
             raise ValueError(
                 f"mode {self.mode!r} not in {MODES}; the port picks between "
                 "them on the host (RankingService._pick_mode)"
             )
-        if not self.stages or not all(isinstance(st, TreeStage) for st in self.stages):
-            raise ValueError("EngineConfig needs TreeStage entries")
+        for i, st in enumerate(self.stages):
+            if isinstance(st, DenseStage):
+                if i != 0:
+                    raise ValueError("DenseStage is only supported as stage 0")
+            elif not isinstance(st, TreeStage):
+                raise ValueError(f"stage {i} is neither a TreeStage nor a DenseStage: {st}")
         sents = self.sentinels
+        if not sents:
+            raise ValueError("EngineConfig needs at least one TreeStage")
         if list(sents) != sorted(set(sents)):
             raise ValueError(f"sentinels must strictly increase: {sents}")
         if isinstance(self.capacities, tuple) and len(self.capacities) != len(self.stages):
             raise ValueError("capacities must have one entry per stage")
 
     @property
+    def dense(self) -> DenseStage | None:
+        """The dense stage-0 gate, or ``None`` for an all-trees cascade."""
+        first = self.stages[0]
+        return first if isinstance(first, DenseStage) else None
+
+    @property
+    def tree_stages(self) -> tuple[TreeStage, ...]:
+        return tuple(st for st in self.stages if isinstance(st, TreeStage))
+
+    @property
     def sentinels(self) -> tuple[int, ...]:
-        return tuple(st.sentinel for st in self.stages)
+        return tuple(st.sentinel for st in self.tree_stages)
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.stages)
 
     @classmethod
     def trees(
@@ -159,3 +188,30 @@ class EngineConfig:
             stages=stages, mode=mode, leaf_gather=leaf_gather, block_t=block_t,
             capacities=capacities, query_exit=query_exit,
         )
+
+    @classmethod
+    def hybrid(
+        cls,
+        dense: DenseStage,
+        sentinels: Sequence[int],
+        strategies: Sequence[Strategy | None] | Strategy | None = None,
+        *,
+        classifier_trees: Sequence[float] | float | None = None,
+        capacities: Sequence[int] | int | None = None,
+        mode: str = "fused",
+        leaf_gather: str = "auto",
+        block_t: int = 16,
+        query_exit: QueryExitConfig | None = None,
+    ) -> EngineConfig:
+        """Dense stage 0 + tree stages from parallel sequences.
+        ``capacities`` covers the TREE stages (as in :meth:`trees`); the
+        dense bound is ``dense.capacity``, else the last tree entry of a
+        sequence (the reference's rule), else the bucket default."""
+        base = cls.trees(
+            sentinels, strategies, classifier_trees=classifier_trees,
+            mode=mode, leaf_gather=leaf_gather, block_t=block_t, query_exit=query_exit,
+        )
+        caps = _as_capacities(capacities)
+        if isinstance(caps, tuple):
+            caps = (dense.capacity if dense.capacity is not None else caps[-1], *caps)
+        return dataclasses.replace(base, stages=(dense, *base.stages), capacities=caps)

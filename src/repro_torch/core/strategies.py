@@ -1,7 +1,9 @@
 """Heuristic early-exit strategies (Cambazoglu et al., WSDM'10) and the
 query-level convergence test.
 
-The port of the tensor functions of :mod:`repro.core.strategies`. A
+The port of the tensor functions of :mod:`repro.core.strategies`, with
+the hybrid cascade's dense gate policy (:func:`dense_keep_fraction`) and
+the per-query oracle cut (:func:`ideal_continue`). A
 strategy acts at a sentinel: given per-document *partial* scores after
 ``s`` trees, it returns the boolean continue mask over a padded ``[Q, D]``
 block. Strategies are *mask-invariant*: they read ``partial`` only where
@@ -16,7 +18,7 @@ import math
 
 import torch
 
-from repro_torch.metrics.ranking import rank_from_scores
+from repro_torch.metrics.ranking import ndcg_at_k, rank_from_scores
 
 NEG = -1e30
 
@@ -82,3 +84,49 @@ def ept_continue(
     k = min(int(k_s), partial.shape[-1])
     kth = _kth_largest(masked, k)[..., -1]
     return mask & (partial >= (kth - p)[..., None])
+
+
+def dense_keep_fraction(
+    partial: torch.Tensor, mask: torch.Tensor, keep_frac: float = 0.25
+) -> torch.Tensor:
+    """Dense-gate policy: keep the top ``⌈keep_frac · n_alive⌉`` per query.
+
+    Rank-based, so the survivor count (and with it the dense capacity)
+    does not depend on the proxy's calibration; scaled by each query's
+    alive count, not the padded ``D``. ``keep_frac`` is clamped to
+    ``[0, 1]``, and a query with an alive document keeps at least its
+    top-1. The product is taken in float32, as in the reference.
+    """
+    frac = min(max(float(keep_frac), 0.0), 1.0)
+    ranks = rank_from_scores(partial, mask)
+    n_alive = mask.sum(dim=-1, keepdim=True).to(torch.float32)
+    keep = torch.ceil(n_alive * frac).to(torch.int64)
+    return mask & (ranks < keep)
+
+
+def ideal_continue(
+    partial: torch.Tensor,
+    full: torch.Tensor,
+    labels: torch.Tensor,
+    mask: torch.Tensor,
+    k: int = 10,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """EE_ideal: the per-query oracle cut k_s^q (paper §2, Table 1).
+
+    The least rank cut at the sentinel such that NDCG@k of the merged
+    ranking (continuing documents take the full score, exited ones keep
+    their partial) equals the full ensemble's. All ``D + 1`` cuts are
+    evaluated as one ``[D+1, Q]`` grid (the reference maps over them); the
+    first cut that reaches the full NDCG wins. Returns
+    ``(continue_mask, cut [Q])``.
+    """
+    D = partial.shape[-1]
+    sent_rank = rank_from_scores(partial, mask)
+    ndcg_full = ndcg_at_k(full, labels, mask, k)                       # [Q]
+    cuts = torch.arange(D + 1, device=partial.device)[:, None, None]
+    cont = mask & (sent_rank < cuts)                                   # [D+1, Q, D]
+    ndcgs = ndcg_at_k(torch.where(cont, full, partial), labels, mask, k)  # [D+1, Q]
+    ok = ndcgs >= ndcg_full - 1e-9
+    first = torch.argmax(ok.to(torch.int32), dim=0)                    # first True
+    cut = torch.where(ok.any(dim=0), first, torch.full_like(first, D))
+    return mask & (sent_rank < cut[:, None]), cut

@@ -67,8 +67,12 @@ KERNEL_LAUNCHES = {"forest_score": 0, "forest_score_segments": 0}
 # table shape, and padded_forest cache misses (kernels.ops). The launcher's
 # plans are counted in the library (forest_score_plan_count); the
 # shared-memory opt-in is raised with a kernel's first plan or limit query
-# on a device, so these counts cover it. See first_touches().
-FIRST_TOUCHES = {"library": 0, "scratch": 0, "max_features": 0, "padded_forest": 0}
+# on a device, so these counts cover it. ``dense`` counts the dense scorer's
+# first run per (device, stream, row count) (models.dense_scorer). See
+# first_touches().
+FIRST_TOUCHES = {
+    "library": 0, "scratch": 0, "max_features": 0, "padded_forest": 0, "dense": 0,
+}
 
 # Bound on the [B, trees, N] working set of one step of the plain version.
 _PLAIN_CHUNK_ELEMS = 1 << 22

@@ -1,8 +1,9 @@
 """Scoring-cost accounting in the paper's own currency: trees traversed.
 
 The port of :mod:`repro.metrics.speedup` (the run-time accounting and the
-host cost model; the reference's traced device mirror of the cost model is
-not needed — the port picks the execution mode on the host). One unit is
+host cost model, with the hybrid cascade's dense terms; the reference's
+traced device mirror of the cost model is not needed — the port picks the
+execution mode on the host). One unit is
 one *document·tree traversal*: a document exiting at sentinel ``s`` costs
 ``s`` trees, a continuing one all ``n_trees``, and every classifier
 evaluation ``classifier_trees``.
@@ -60,7 +61,10 @@ def trees_traversed_progressive(
     ``stage_masks[k]`` is the nested continue mask after stage ``k``'s
     decision at ``sentinels[k]``. A document exiting at stage ``k`` costs
     ``sentinels[k-1]`` trees plus one classifier evaluation per stage it
-    reached; survivors of the last stage cost all ``n_trees``.
+    reached; survivors of the last stage cost all ``n_trees``. A hybrid
+    cascade passes its dense gate as a zero sentinel costing
+    ``dense_cost_trees``: ``sentinels = (0, *tree_sents)``,
+    ``classifier_trees = (dense_cost_trees, *tree_costs)``.
     """
     S = len(sentinels)
     if isinstance(classifier_trees, (int, float)):
@@ -102,6 +106,8 @@ def progressive_cost_model(
     stage_capacities: Sequence[int] | None = None,
     block_b: int = 1,
     query_exit_rate: float = 0.0,
+    dense_cost_trees: float = 0.0,
+    dense_stage: bool = False,
 ) -> float:
     """Estimated device cost of one progressive batch, in tree-traversal
     equivalents, for picking fused vs per-stage-tail execution (host
@@ -113,22 +119,38 @@ def progressive_cost_model(
     (``block_b``, 1 disables the rounding) and clipped at the stage
     capacity — but pays ``launch_overhead_trees`` per extra launch. Both
     run the same compacted tail; ``query_exit_rate`` discounts its launch.
-    The reference's dense-stage terms are left out with the dense stage.
+
+    ``dense_stage=True`` prices a hybrid cascade: ``stage_survivors`` and
+    ``stage_capacities`` (then required) carry a leading dense entry, every
+    candidate is charged ``dense_cost_trees``, and both modes' tree head is
+    priced at the dense capacity (the kernels score the whole compacted
+    block). The dense terms are the same in both modes.
     """
     S = len(sentinels)
-    if mode not in ("fused", "staged") or len(stage_survivors) != S:
-        raise ValueError((mode, len(stage_survivors), S))
+    n_stages = S + 1 if dense_stage else S
+    if mode not in ("fused", "staged") or len(stage_survivors) != n_stages:
+        raise ValueError((mode, len(stage_survivors), n_stages))
     n_docs = max(float(n_docs), 0.0)
     surv = _sane_survivors(stage_survivors, n_docs)
+    caps = list(stage_capacities) if stage_capacities is not None else None
+    dense_term = 0.0
+    head_docs = n_docs
+    if dense_stage:
+        if caps is None or len(caps) != n_stages:
+            raise ValueError(("one capacity per stage, the dense one first", caps))
+        dense_term = n_docs * float(dense_cost_trees)
+        head_docs = float(caps[0])
+        caps, surv = caps[1:], surv[1:]
     has_tail = sentinels[-1] < n_trees
     qe = min(max(float(query_exit_rate), 0.0), 1.0)
     tail_launch = (1.0 - qe) if has_tail else 0.0
     tail = surv[-1] * (n_trees - sentinels[-1])
     if mode == "fused":
-        head = n_docs * sentinels[-1]
+        head = head_docs * sentinels[-1]
         launches = 1 + tail_launch
     else:
-        caps = list(stage_capacities) if stage_capacities is not None else [n_docs] * S
+        if caps is None:
+            caps = [n_docs] * S
         if len(caps) != S:
             raise ValueError(("one capacity per stage", caps))
         if block_b > 1:
@@ -137,8 +159,8 @@ def progressive_cost_model(
                 for c, s in zip(caps, surv)
             ]
         surv = [min(float(c), float(s)) for c, s in zip(caps, surv)]
-        head = n_docs * sentinels[0] + sum(
+        head = head_docs * sentinels[0] + sum(
             surv[k] * (sentinels[k + 1] - sentinels[k]) for k in range(S - 1)
         )
         launches = S + tail_launch
-    return float(head + tail + launch_overhead_trees * launches)
+    return float(dense_term + head + tail + launch_overhead_trees * launches)

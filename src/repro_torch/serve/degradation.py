@@ -6,8 +6,8 @@ the levers a tier pulls before it sheds traffic:
 
 - :class:`ExitRung` — one step down, as overrides of the service's exit
   knobs (LEAR ``threshold``, a :class:`QueryExitConfig` with a finite
-  margin; ``dense_keep_frac`` belongs to the dense stage, which is not
-  ported, and raises at install). ``None`` inherits the baseline.
+  margin, the hybrid dense gate's ``dense_keep_frac``). ``None`` inherits
+  the baseline.
 - :class:`DegradationPolicy` — the rung ladder and its hysteresis band:
   degrade one rung when the queue-delay EMA is above ``degrade_above_ms``,
   recover one when it is below ``recover_below_ms`` (strictly lower), with
@@ -38,10 +38,14 @@ if typing.TYPE_CHECKING:  # annotation-only: avoids a serve-package cycle
 class ExitRung:
     """One degradation step: overrides of the service's exit knobs.
 
-    ``threshold`` replaces the LEAR continue threshold at every stage
+    ``threshold`` replaces the LEAR continue threshold at every tree stage
     (higher = fewer survivors = cheaper); ``query_exit`` replaces the
-    service's query-exit config; ``dense_keep_frac`` would re-point the
-    hybrid dense gate (the port has none: installing such a rung raises).
+    service's query-exit config; ``dense_keep_frac`` re-points the hybrid
+    dense gate at
+    :func:`repro_torch.core.strategies.dense_keep_fraction` with that keep
+    fraction, same scorer (a smaller fraction sends fewer documents to the
+    trees). Installing a ``dense_keep_frac`` rung on a service without a
+    dense stage raises ``ValueError``.
     """
 
     name: str

@@ -26,9 +26,14 @@ early exit and returns the top-k:
 - query-level exit (``ServiceConfig.query_exit``) with the device-gated
   tail, and its smoothed tail-skip rate discounting the tail launch in the
   mode pick;
+- the hybrid cascade (``ServiceConfig.dense_stage``): a dense stage-0 gate
+  ahead of the tree stages, its scorer moved to the service's device once
+  at construction; peaks, EMA and capacities then carry a leading dense
+  entry, and the accounting charges its ``cost_trees`` per candidate;
 - a degradation ladder of exit rungs (:meth:`RankingService.install_rungs`
-  / :meth:`RankingService.set_rung`), each materialized once, so stepping
-  it swaps objects and allocates nothing.
+  / :meth:`RankingService.set_rung`), each materialized once (its strategy
+  closures and, for ``dense_keep_frac``, its dense stage), so stepping it
+  swaps objects and allocates nothing.
 
 Per-``(Q, D)`` bucket state: each padded batch shape keeps its own survivor
 peaks, EMA and tail-skip rate, so a sparse trickle does not shrink a bulk
@@ -37,7 +42,9 @@ bucket.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
 import typing
 from collections.abc import Callable, Sequence
 
@@ -46,8 +53,8 @@ import torch
 
 from repro_torch.core.cascade import CascadeRanker, bucket_capacity
 from repro_torch.core.lear import LearClassifier, augment_features
-from repro_torch.core.stage import DenseStage, EngineConfig, TreeStage, _not_ported
-from repro_torch.core.strategies import QueryExitConfig
+from repro_torch.core.stage import DenseStage, EngineConfig, TreeStage
+from repro_torch.core.strategies import QueryExitConfig, dense_keep_fraction
 from repro_torch.forest.ensemble import TreeEnsemble
 from repro_torch.kernels.ops import ENGINE_BLOCK_B
 from repro_torch.metrics.speedup import (
@@ -66,9 +73,10 @@ if typing.TYPE_CHECKING:  # annotation-only: avoids a serve-package cycle
 class ServiceConfig:
     """Frozen bundle of every :class:`RankingService` tuning knob.
 
-    ``query_exit`` turns on query-level exit. ``dense_stage`` exists so
-    that a configuration written for the reference fails loudly here: it is
-    a queued item of ``ROADMAP.md`` and raises ``NotImplementedError``.
+    ``query_exit`` turns on query-level exit. ``dense_stage`` turns the
+    service into the hybrid cascade (the dense gate is stage 0 of every
+    step); set its ``capacity`` to pin the dense survivor block, else the
+    per-bucket ratchet sizes it like any stage.
     """
 
     threshold: float = 0.5
@@ -81,8 +89,8 @@ class ServiceConfig:
     dense_stage: DenseStage | None = None
 
     def __post_init__(self) -> None:
-        if self.dense_stage is not None:
-            raise _not_ported("dense/hybrid stage")
+        if self.dense_stage is not None and not isinstance(self.dense_stage, DenseStage):
+            raise ValueError(f"dense_stage must be a DenseStage: {self.dense_stage}")
         if self.execution_mode not in ("auto", "fused", "staged"):
             raise ValueError(self.execution_mode)
         # Capacity can only ratchet up when peak × headroom passes the
@@ -107,13 +115,15 @@ class _BucketAdaptState:
 @dataclasses.dataclass(frozen=True)
 class _RungState:
     """One installed degradation rung, built once at install time: its
-    strategy closures (with the rung's threshold) and query-exit config, so
-    :meth:`RankingService.set_rung` swaps these objects and nothing else."""
+    strategy closures (with the rung's threshold), query-exit config and
+    dense stage, so :meth:`RankingService.set_rung` swaps these objects and
+    nothing else."""
 
     name: str
     threshold: float
     strategies: tuple[Callable[..., torch.Tensor], ...]
     query_exit: QueryExitConfig | None
+    dense_stage: DenseStage | None
 
 
 @dataclasses.dataclass
@@ -129,7 +139,8 @@ class ServiceStats:
     batches_staged: int = 0
     queries_exited: int = 0  # queries query-level exit removed (knob on)
     # Batches per tuple of per-stage compaction capacities (stage k's
-    # survivors are compacted into capacities[k] rows; the last is the tail's).
+    # survivors are compacted into capacities[k] rows; the last is the
+    # tail's; a hybrid service's first is the dense gate's).
     capacities: dict[tuple[int, ...], int] = dataclasses.field(default_factory=dict)
 
     @property
@@ -151,7 +162,8 @@ class RankingService:
     ``extra_classifiers`` make it a multi-sentinel cascade: stages are
     ordered by sentinel and each stage's classifier gates the survivors of
     the previous one. ``device`` (``None`` → the card) is where the forests
-    live and the batches are scored; the ensembles are moved there.
+    and the dense scorer live and the batches are scored; they are moved
+    there once, here.
 
     Not thread-safe: one thread makes every call that touches the engine
     or its adaptive state (:class:`~repro_torch.serve.batching.ContinuousBatcher`
@@ -180,6 +192,7 @@ class RankingService:
         self.launch_overhead_trees = float(loh)
         self.survivor_ema = config.survivor_ema
         self.query_exit = config.query_exit
+        self.dense_stage = _on_device(config.dense_stage, self.device)
         self.stats = ServiceStats()
         self._adapt: dict[tuple[int, int] | None, _BucketAdaptState] = {}
         self._active_key: tuple[int, int] | None = None
@@ -196,8 +209,19 @@ class RankingService:
         if len(set(self.sentinels)) != len(stages):
             raise ValueError(f"stage sentinels must be distinct: {self.sentinels}")
         self.stage_strategies = [self._make_strategy(c) for c in stages]
-        self._acct_classifier_trees = tuple(float(c.n_trees) for c in stages)
-        self.n_stages = len(self.sentinels)
+        # Stage tuples per (strategy closures, dense stage): the same
+        # objects every batch of a configuration (and of each rung).
+        self._stages_cache: dict[tuple, tuple] = {}
+        # Accounting: a hybrid service's dense gate is a zero-sentinel stage
+        # charging cost_trees per candidate.
+        tree_costs = tuple(float(c.n_trees) for c in stages)
+        if self.dense_stage is not None:
+            self._acct_sentinels = (0, *self.sentinels)
+            self._acct_classifier_trees = (float(self.dense_stage.cost_trees), *tree_costs)
+        else:
+            self._acct_sentinels = self.sentinels
+            self._acct_classifier_trees = tree_costs
+        self.n_stages = len(self.sentinels) + (self.dense_stage is not None)
         # The degradation ladder: None until install_rungs; level 0 is the
         # baseline configuration.
         self._rungs: tuple[_RungState, ...] | None = None
@@ -215,6 +239,21 @@ class RankingService:
 
     def _active_state(self) -> _BucketAdaptState:
         return self._adapt.setdefault(self._active_key, _BucketAdaptState())
+
+    def _engine_stages(self) -> tuple:
+        """The EngineConfig stage list of the active strategies and dense
+        stage, built once per pair and reused."""
+        key = (tuple(self.stage_strategies), self.dense_stage)
+        stages = self._stages_cache.get(key)
+        if stages is None:
+            stages = tuple(
+                TreeStage(c.sentinel, strat, classifier_trees=float(c.n_trees))
+                for c, strat in zip(self.stage_classifiers, key[0])
+            )
+            if self.dense_stage is not None:
+                stages = (self.dense_stage, *stages)
+            self._stages_cache[key] = stages
+        return stages
 
     def _make_strategy(
         self, clf: LearClassifier, threshold: float | None = None
@@ -249,18 +288,21 @@ class RankingService:
         inherit the baseline). Each rung's strategy closures are built here,
         once. Install before warmup, which then warms every rung.
 
-        A rung changes thresholds and query exit, never the sentinels, so
-        the whole ladder uses one ``padded_forest`` buffer set per forest:
-        it fits the LRU (``PADDED_CACHE_MAX`` ≥ 1), and stepping rungs
-        evicts nothing. A rung with ``dense_keep_frac`` raises: the dense
-        stage is not ported.
+        A rung changes thresholds, query exit and the dense keep fraction,
+        never the sentinels, so the whole ladder uses one ``padded_forest``
+        buffer set per forest: it fits the LRU (``PADDED_CACHE_MAX`` ≥ 1),
+        and stepping rungs evicts nothing. A rung's ``dense_keep_frac``
+        re-points the dense gate at :func:`dense_keep_fraction` with that
+        fraction (same scorer); on a service without a dense stage it
+        raises ``ValueError``.
         """
         if self._rungs is not None:
             raise RuntimeError("rungs already installed")
-        if any(r.dense_keep_frac is not None for r in rungs):
-            raise _not_ported("dense/hybrid stage")
+        if self.dense_stage is None and any(r.dense_keep_frac is not None for r in rungs):
+            raise ValueError("a rung sets dense_keep_frac but the service has no dense stage")
         ladder = [_RungState(
             "baseline", self.threshold, tuple(self.stage_strategies), self.query_exit,
+            self.dense_stage,
         )]
         for rung in rungs:
             if rung.threshold is None:
@@ -271,7 +313,12 @@ class RankingService:
                     self._make_strategy(c, th) for c in self.stage_classifiers
                 )
             qe = rung.query_exit if rung.query_exit is not None else self.query_exit
-            ladder.append(_RungState(rung.name, th, strategies, qe))
+            dense = self.dense_stage
+            if rung.dense_keep_frac is not None:
+                dense = dataclasses.replace(dense, policy=functools.partial(
+                    dense_keep_fraction, keep_frac=float(rung.dense_keep_frac),
+                ))
+            ladder.append(_RungState(rung.name, th, strategies, qe, dense))
         self._rungs = tuple(ladder)
 
     def set_rung(self, level: int) -> None:
@@ -288,6 +335,7 @@ class RankingService:
         self.threshold = r.threshold
         self.stage_strategies = list(r.strategies)
         self.query_exit = r.query_exit
+        self.dense_stage = r.dense_stage
 
     def _cold_start_estimate(self, n_docs: int) -> int:
         # Assume a 40% survivor rate at EVERY stage (survivors only shrink;
@@ -298,14 +346,19 @@ class RankingService:
         """Per-stage compaction capacities of the ACTIVE bucket: the running
         survivor peak × headroom, never below the cold-start estimate, in
         powers of two. A stage that overflowed observed a peak equal to its
-        capacity, so peak × headroom rounds up to the next bucket."""
+        capacity, so peak × headroom rounds up to the next bucket. A pinned
+        ``dense_stage.capacity`` overrides the dense entry (the engine would
+        use it anyway; here the cost model prices the real block)."""
         cold = self._cold_start_estimate(n_docs)
         peaks = self._active_state().peaks
         if peaks is None:
             want = [cold] * self.n_stages
         else:
             want = [max(cold, int(peak * self.headroom)) for peak in peaks]
-        return [bucket_capacity(w, n_docs) for w in want]
+        caps = [bucket_capacity(w, n_docs) for w in want]
+        if self.dense_stage is not None and self.dense_stage.capacity is not None:
+            caps[0] = min(int(self.dense_stage.capacity), n_docs)
+        return caps
 
     def _pick_mode(
         self, n_docs: int, capacities: Sequence[int] | None = None
@@ -325,6 +378,7 @@ class RankingService:
             return "fused"
         if capacities is None:
             capacities = self._pick_capacities(n_docs)
+        dense = self.dense_stage
         cost = {
             m: progressive_cost_model(
                 n_docs, ema, self.sentinels, self.ensemble.n_trees, m,
@@ -332,6 +386,8 @@ class RankingService:
                 stage_capacities=capacities,
                 block_b=ENGINE_BLOCK_B,
                 query_exit_rate=self._query_exit_rate_estimate(),
+                dense_cost_trees=float(dense.cost_trees) if dense is not None else 0.0,
+                dense_stage=dense is not None,
             )
             for m in ("fused", "staged")
         }
@@ -366,10 +422,7 @@ class RankingService:
         result = self.cascade.rank_progressive(
             X, mask,
             EngineConfig(
-                stages=tuple(
-                    TreeStage(c.sentinel, strat, classifier_trees=float(c.n_trees))
-                    for c, strat in zip(self.stage_classifiers, self.stage_strategies)
-                ),
+                stages=self._engine_stages(),
                 mode=mode,
                 capacities=tuple(capacities),
                 query_exit=self.query_exit,
@@ -389,7 +442,7 @@ class RankingService:
         stats = torch.stack([t.double() for t in (
             *(m.sum() for m in result.stage_masks),
             trees_traversed_progressive(
-                mask, result.stage_masks, self.sentinels, T,
+                mask, result.stage_masks, self._acct_sentinels, T,
                 list(self._acct_classifier_trees),
             ),
             result.overflow,
@@ -436,3 +489,15 @@ class RankingService:
         s.trees_traversed += float(traversed)
         s.trees_full_equiv += int(batch_docs) * T
         return top_idx, scores
+
+
+def _on_device(dense: DenseStage | None, device: torch.device) -> DenseStage | None:
+    """``dense`` with its scorer on ``device``: a module scorer elsewhere is
+    copied there (the caller's module stays where it is); other scorers are
+    the caller's to place."""
+    if dense is None or not isinstance(dense.scorer, torch.nn.Module):
+        return dense
+    param = next(dense.scorer.parameters(), None)
+    if param is None or param.device == device:
+        return dense
+    return dataclasses.replace(dense, scorer=copy.deepcopy(dense.scorer).to(device))

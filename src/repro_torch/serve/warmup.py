@@ -11,7 +11,9 @@ counts them):
   the rungs use;
 - the launcher's plan for every ``(B, F, …)`` the capacities produce, and
   the shared-memory opt-in;
-- the per-stream scratch, grown to its largest size.
+- the per-stream scratch, grown to its largest size;
+- a hybrid service's dense scorer at every bucket's row count (the first
+  GEMMs of a shape on a stream: BLAS handle, workspace, kernel choice).
 
 :func:`warmup_service` drives one synthetic batch per bucket × rung × EMA
 probe, as the reference does. Before a bucket's first batch it seeds the
@@ -87,6 +89,9 @@ def warmup_service(
     ``auto`` with several sentinels and ``run_both_branches``, again at
     ``Q·D``, so the host pick runs staged and fused in turn. With
     ``warm_rungs`` and a ladder installed, every rung is served this way.
+    Stage counts are ``service.n_stages``, the dense gate included, so a
+    hybrid service runs its whole path (dense scorer, gate, compaction,
+    tree stages on the compacted block) at every bucket and rung.
     The service is left at rung 0 with clean stats and no EMA; the seeded
     peaks stay.
     """

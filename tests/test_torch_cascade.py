@@ -150,15 +150,18 @@ def test_rank_and_rank_compacted_match_reference():
 
 
 def test_unported_options_raise():
-    # Query exit is ported (tests/test_torch_query_exit.py); the dense
-    # stage and an engine-side "auto" are not.
+    # Query exit and the dense stage are ported (tests/test_torch_query_exit.py,
+    # tests/test_torch_hybrid.py); an engine-side "auto" is not: the port
+    # picks the mode on the host.
     qe = strategies.QueryExitConfig()
     assert stage.EngineConfig(stages=(stage.TreeStage(5),), query_exit=qe).query_exit == qe
     dense = stage.DenseStage(scorer=lambda x: x[:, 0], policy=lambda s, m: m)
-    with pytest.raises(NotImplementedError, match="dense"):
-        stage.EngineConfig(stages=(dense, stage.TreeStage(5)))
+    cfg = stage.EngineConfig(stages=(dense, stage.TreeStage(5)))
+    assert cfg.dense is dense and cfg.sentinels == (5,) and cfg.n_stages == 2
     with pytest.raises(ValueError, match="_pick_mode"):
         stage.EngineConfig.trees((5, 9), mode="auto")
+    with pytest.raises(ValueError, match="_pick_mode"):
+        stage.EngineConfig(stages=(dense, stage.TreeStage(5), stage.TreeStage(9)), mode="auto")
 
 
 @pytest.mark.parametrize("ref_use_kernel", [False, True])

@@ -408,3 +408,164 @@ def test_engine_with_query_exit_equals_the_cpu(dev):
     for margin in (0.1, 0.0):
         assert torch.equal(outs[("cuda", margin)][0], outs[("cpu", margin)][0])
         assert torch.equal(outs[("cuda", margin)][1], outs[("cpu", margin)][1])
+
+
+# -- the hybrid cascade on the card --------------------------------------------
+
+
+def _hybrid_service(d, params, sentinels, mode, keep=0.35):
+    import functools
+
+    from repro_torch.core.lear import LearClassifier
+    from repro_torch.core.stage import DenseStage
+    from repro_torch.core.strategies import dense_keep_fraction
+    from repro_torch.models.dense_scorer import dense_params_from_numpy
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+
+    ens = random_ensemble(21, 200, 5, 24, device=d)
+    clfs = [
+        LearClassifier(random_ensemble(22 + i, 10, 4, 28, device=d), s)
+        for i, s in enumerate(sentinels)
+    ]
+    dense = DenseStage(
+        dense_params_from_numpy(params, d),
+        functools.partial(dense_keep_fraction, keep_frac=keep),
+    )
+    return RankingService(
+        ens, clfs[0],
+        ServiceConfig(
+            threshold=0.4, execution_mode=mode, launch_overhead_trees=512.0, dense_stage=dense
+        ),
+        extra_classifiers=clfs[1:], device=d,
+    )
+
+
+def _dense_params(F=24, seed=3):
+    from repro_torch.models.dense_scorer import init_dense_scorer
+
+    return init_dense_scorer(torch.Generator().manual_seed(seed), F, device="cpu").to_numpy()
+
+
+@pytest.mark.parametrize("sentinels,mode", [((20,), "fused"), ((20, 60), "fused"),
+                                            ((20, 60), "staged")])
+def test_hybrid_engine_on_the_card_equals_the_cpu(dev, sentinels, mode):
+    """The boundary rule: dense scores within 1e-5; documents within that
+    tolerance of their query's keep boundary excepted (the count is
+    printed, none expected), every score within 1e-5 and the top-k equal."""
+    from repro_torch.core.strategies import dense_keep_fraction
+    from torch_parity import keep_boundary_docs
+
+    params = _dense_params()
+    card = _hybrid_service(dev, params, sentinels, mode)
+    cpu = _hybrid_service(torch.device("cpu"), params, sentinels, mode)
+    rng = np.random.default_rng(30)
+    n_boundary = 0
+    for _ in range(3):
+        X = rng.normal(size=(8, 128, 24)).astype(np.float32)
+        mask = np.arange(128)[None, :] < rng.integers(32, 129, size=8)[:, None]
+        top, scores = card.rank_batch(X, mask)
+        top_c, scores_c = cpu.rank_batch(X, mask)
+        flat = torch.as_tensor(X.reshape(-1, 24))
+        with torch.no_grad():
+            d_cpu = cpu.dense_stage.scorer(flat).reshape(8, 128)
+            d_card = card.dense_stage.scorer(flat.to(dev)).reshape(8, 128).cpu()
+        np.testing.assert_allclose(d_card.numpy()[mask], d_cpu.numpy()[mask], rtol=1e-5, atol=1e-5)
+        keep = dense_keep_fraction(d_cpu, torch.as_tensor(mask), 0.35).numpy()
+        boundary = keep_boundary_docs(d_cpu.numpy(), keep, mask, 1e-5)
+        n_boundary += int(boundary.sum())
+        ok = mask & ~boundary
+        np.testing.assert_allclose(scores[ok], scores_c[ok], rtol=1e-5, atol=1e-5)
+        if not boundary.any():
+            np.testing.assert_array_equal(top, top_c)
+    print(f"[hybrid card vs cpu] {sentinels} {mode}: boundary documents {n_boundary}")
+    assert card.stats.overflow_docs == cpu.stats.overflow_docs
+    assert card.stats.trees_traversed == cpu.stats.trees_traversed or n_boundary
+
+
+@pytest.mark.parametrize("cap", [64, 512, 1024])
+@pytest.mark.parametrize("n_cont", [1, 37, "cap"])
+def test_kernels_on_a_dense_compacted_block_with_padding_rows(dev, cap, n_cont):
+    """Both kernels on a block as the hybrid gives it: ``cap`` rows of which
+    the first ``n_cont`` are survivors and the rest padding that points at
+    row 0 (``compact_indices_cumsum``), bit-exact with the plain versions."""
+    from repro_torch.core.compaction import compact_indices_cumsum
+
+    n_cont = cap if n_cont == "cap" else n_cont
+    rng = np.random.default_rng(cap + n_cont)
+    ens = random_ensemble(31, 120, 6, 40, device=dev)
+    pf = ops.padded_forest(ens, boundaries=(20, 50, 120))
+    x = _x(rng, 2048, 40, dev)
+    keep = torch.zeros(2048, dtype=torch.bool, device=dev)
+    keep[torch.as_tensor(rng.choice(2048, n_cont, replace=False), device=dev)] = True
+    sel, n = compact_indices_cumsum(keep, cap)
+    assert int(n) == n_cont
+    rows = x[sel]
+    for lo, hi in ((0, 1), (1, 2), (2, 3)):
+        got, want = _both(pf, rows, lo, hi)
+        assert torch.equal(got, want), (lo, hi)
+    seg_kw = dict(seg_block_starts=pf.seg_block_starts[:2],
+                  n_tree_blocks=pf.seg_block_starts[1] + pf.seg_blocks[1], block_t=pf.block_t)
+    got = fs.forest_score_segments_kernel(
+        rows, *_tables(pf), leaf_gather=pf.leaf_gather, packed=pf.packed, **seg_kw
+    )
+    assert torch.equal(got, fs.forest_score_segments_plain(rows, *_tables(pf), **seg_kw))
+
+
+def test_dense_scorer_row_count_invariance_probe(dev):
+    """Records, without asserting it, whether the same 256 rows get
+    bit-equal dense scores inside GEMMs of M = 256, 2048 and 8192 rows
+    (cuBLAS may pick another kernel, with another K split, per M). Each
+    must agree with the CPU within 1e-5."""
+    from repro_torch.models.dense_scorer import dense_params_from_numpy
+
+    params = _dense_params(F=136, seed=4)
+    card = dense_params_from_numpy(params, dev)
+    cpu = dense_params_from_numpy(params, "cpu")
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(8192, 136)).astype(np.float32)
+    with torch.no_grad():
+        want = cpu(torch.as_tensor(x[:256])).numpy()
+        outs = {M: card(torch.as_tensor(x[:M], device=dev))[:256].cpu().numpy()
+                for M in (256, 2048, 8192)}
+    for M, got in outs.items():
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    diffs = {M: float(np.abs(outs[M] - outs[256]).max()) for M in outs}
+    print(f"[row-count invariance] max |s(M) - s(256)| over 256 rows: {diffs}; "
+          f"bit-equal: { {M: d == 0.0 for M, d in diffs.items()} }")
+
+
+def test_hybrid_batched_equals_single_query_per_bucket_shape(dev):
+    """The tier's batched ≡ single-query contract, per bucket shape: a query
+    served in a full (Q, D) batch and alone in a (Q, D) block of padding
+    queries scores its documents through GEMMs of the same M and must be
+    bit-exact; alone at (1, D) (another M) it is printed, not asserted."""
+    params = _dense_params()
+    svc = _hybrid_service(dev, params, (20, 60), "fused")
+    rng = np.random.default_rng(40)
+    alone_equal = True
+    for Qb, Db in ((2, 32), (4, 64), (8, 128)):
+        X = rng.normal(size=(Qb, Db, 24)).astype(np.float32)
+        mask = np.arange(Db)[None, :] < rng.integers(Db // 2, Db + 1, size=Qb)[:, None]
+        for s in (svc.bucket_state(Qb, Db), svc.bucket_state(1, Db)):
+            s.peaks = [Qb * Db] * svc.n_stages
+        _, scores = svc.rank_batch(X, mask)
+        for q in range(Qb):
+            Xq = np.zeros_like(X)
+            mq = np.zeros_like(mask)
+            Xq[q], mq[q] = X[q], mask[q]
+            _, sq = svc.rank_batch(Xq, mq)
+            np.testing.assert_array_equal(sq[q][mask[q]], scores[q][mask[q]])
+            _, s1 = svc.rank_batch(X[q:q + 1], mask[q:q + 1])
+            alone_equal &= bool(np.array_equal(s1[0][mask[q]], scores[q][mask[q]]))
+            np.testing.assert_allclose(s1[0][mask[q]], scores[q][mask[q]], rtol=1e-5, atol=1e-5)
+    print(f"[hybrid batched vs alone at (1, D)] bit-equal: {alone_equal}")
+
+
+def test_the_port_leaves_tf32_off(dev):
+    """fp32 matmuls stay full fp32: the port never turns TF32 on (it would
+    move dense scores by ~1e-3 and flip gate decisions)."""
+    params = _dense_params()
+    svc = _hybrid_service(dev, params, (20,), "fused")
+    svc.rank_batch(np.zeros((2, 32, 24), np.float32), np.ones((2, 32), bool))
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX and nothing of ``repro`` behind it.
 
 In a fresh interpreter, import every module of ``repro_torch`` (the serving
-tier's among them) and the ``chip_smoke`` script (without running it) and
+tier's, the dense scorer's and the distiller's among them) and the
+``chip_smoke`` script (without running it) and
 check that no ``jax*`` or ``repro.*`` module was loaded. Without a card, ``chip_smoke.py`` must fail
 and print no result, also when it is alone in a directory.
 """
@@ -32,6 +33,13 @@ serving = {"repro_torch.serve." + m for m in (
     "errors", "clock",
 )}
 assert serving <= set(names), sorted(serving - set(names))
+hybrid = {
+    "repro_torch.models", "repro_torch.models.dense_scorer",
+    "repro_torch.train", "repro_torch.train.optimizer", "repro_torch.train.distill",
+}
+assert hybrid <= set(names), sorted(hybrid - set(names))
+from repro_torch.train import distill_dense_scorer, adamw
+from repro_torch.models import DenseScorer, dense_params_from_numpy
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))

@@ -130,8 +130,12 @@ def test_rank_batch_reads_the_device_once(monkeypatch):
 
 
 def test_service_raises_on_unported_options():
-    # Query exit is ported (tests/test_torch_query_exit.py); the dense
-    # stage is not.
+    # Query exit and the dense stage are ported (tests/test_torch_query_exit.py,
+    # tests/test_torch_hybrid.py); what is not a DenseStage is refused.
     assert ServiceConfig(query_exit=QueryExitConfig()).query_exit == QueryExitConfig()
-    with pytest.raises(NotImplementedError, match="dense"):
-        ServiceConfig(dense_stage=DenseStage(scorer=lambda x: x, policy=lambda s, m: m))
+    dense = DenseStage(scorer=lambda x: x[:, 0], policy=lambda s, m: m)
+    assert ServiceConfig(dense_stage=dense).dense_stage is dense
+    with pytest.raises(ValueError, match="DenseStage"):
+        ServiceConfig(dense_stage=lambda x: x[:, 0])
+    with pytest.raises(ValueError):
+        ServiceConfig(execution_mode="eager")

@@ -267,7 +267,9 @@ def test_rung_ladder_misuse_raises():
     _, svc = _services()
     with pytest.raises(RuntimeError, match="install_rungs"):
         svc.set_rung(1)
-    with pytest.raises(NotImplementedError, match="dense"):
+    # A dense_keep_frac rung needs a dense stage (tests/test_torch_hybrid.py
+    # serves one); this service has none.
+    with pytest.raises(ValueError, match="no dense stage"):
         svc.install_rungs((ExitRung("dense", dense_keep_frac=0.5),))
     svc.install_rungs((ExitRung("tight", threshold=0.7),))
     assert svc.n_rungs == 2

@@ -32,3 +32,18 @@ def mask_lanes(mask) -> tuple[np.ndarray, np.ndarray]:
         (bits & np.uint64(0xFFFFFFFF)).astype(np.uint32),
         (bits >> np.uint64(32)).astype(np.uint32),
     )
+
+
+def keep_boundary_docs(scores, keep, mask, tol) -> np.ndarray:
+    """``[Q, D]`` bool: the valid documents whose dense score lies within
+    tolerance of their query's keep boundary — those that have a valid
+    document on the other side of the keep decision ``keep`` closer than
+    ``2·(tol + tol·max|score|)`` (each of two scores that agree within
+    ``tol`` may move by that much, so only such a pair can swap order)."""
+    scores = np.asarray(scores, np.float64)
+    keep, mask = np.asarray(keep, bool), np.asarray(mask, bool)
+    gap = np.abs(scores[:, :, None] - scores[:, None, :])
+    scale = np.maximum(np.abs(scores[:, :, None]), np.abs(scores[:, None, :]))
+    near = gap <= 2 * (tol + tol * scale)
+    across = (keep[:, :, None] != keep[:, None, :]) & mask[:, :, None] & mask[:, None, :]
+    return mask & (near & across).any(axis=-1)
