@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the LEAR serving path once on one card.
+"""Drive the PyTorch/CUDA port of the LEAR serving path and its training
+pipeline once on one card.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc`` in ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
@@ -78,8 +79,38 @@ Phases, each of which must pass:
   capacities the hybrid runs used, on blocks compacted as the dense gate
   compacts them (survivors, then padding rows).
 
-The last lines are a one-line summary of the tier, the gated tail and the
-hybrid runs, the
+- ``train``: the LEAR training pipeline at ``lear-msn1`` width on the
+  card. ``make_letor_dataset("msn1", n_queries=1000, max_docs=256,
+  seed=0)`` (136 features, ~120 real documents a query, splits 600 / 200 /
+  50 / 150), made on the host and moved to the card once. λ-MART
+  (``train_lambdamart``, 1,047 rounds of depth 6, learning rate 0.1, 256
+  bins, NDCG@10 lambdas: 153,600 rows a round) must beat random scores'
+  test NDCG@10 by more than 0.15; a second run of 20 rounds must be
+  bit-equal to the first 20 trees (its rounds are timed), a
+  ``[profile]`` window covers 3 rounds, and 8 rounds trained by the port
+  on the CPU must meet the tie rule of ``tests/torch_parity.py`` against
+  the card's first 8 (equal trees, or a split that differs only where its
+  gain ties the best within 1e-5, recomputed in float64; past the first
+  such split the two trainings no longer compare). Each of those 8 card
+  rounds is also refit on the CPU from the card's own predictions and held
+  to the card's tree by the same rule, so every round is checked.
+  ``train_lear`` (sentinel 50, k 15, 10 trees of depth 5) scores the
+  classifier split through the segments kernel (B = 51,200) and trains the
+  classifier; the CPU from the same ranker must build bit-equal features,
+  labels and weights and a classifier that meets the tie rule, free
+  running and refit round by round. ``reordered_ensemble`` learns a greedy order on the tune
+  split (≤ 4,096 documents), and the prefix residual at tree 50 is printed
+  for it and for the identity order. The trained ranker and classifier
+  then serve the test split through ``RankingService`` in 8 × 256 batches
+  at sentinel 50 and thresholds 0.1, 0.3 and 0.5, each response held to
+  the CPU service on the same weights (1e-5; top-k equal except ties);
+  printed: NDCG@10, its loss against all trees, speedup in trees traversed,
+  continue rate, the classifier's Continue/Exit precision and recall, and
+  batch p50 beside ``serve``'s on random weights. ``kernels`` also holds
+  the segments kernel to its plain version at ``train_lear``'s launch.
+
+The last lines are a one-line summary of the tier, the gated tail, the
+hybrid and the training runs, the
 card's name and power limit, one JSON line with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
@@ -89,6 +120,7 @@ directory without the repository's ``src/repro_torch``.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import statistics
@@ -132,6 +164,17 @@ HYBRID_KEEP = 0.35
 HYBRID_RUNG_KEEP = 0.2   # the hybrid tier's rungs 1 and 2
 HYBRID_DISTILL_QD = (32, 256)
 HYBRID_TIER_QUERIES = 100
+
+# The [train] phase: lear-msn1 width (136 features, depth 6, 256 bins,
+# D = 256), the paper's splits 600 / 200 / 50 / 150 queries.
+TRAIN_DATA = dict(preset="msn1", n_queries=1000, max_docs=256, seed=0)
+TRAIN_ROUNDS = 1047           # never below 300 (benchmarks/common.py:39-42)
+TRAIN_K = 10                  # λ-MART's NDCG@k
+TRAIN_SENTINEL = 50
+LEAR_K = 15
+TRAIN_DETERMINISM_ROUNDS = 20
+TRAIN_CPU_ROUNDS = 8
+TRAIN_THRESHOLDS = (0.1, 0.3, 0.5)
 
 
 def log(msg: str) -> None:
@@ -194,7 +237,7 @@ def _bound(B: int, F: int, pf, n_blocks: int, S: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def phase_kernels(tail_cases, hybrid_cases=()) -> dict:
+def phase_kernels(tail_cases, hybrid_cases=(), train_cases=()) -> dict:
     """Each kernel against its plain version and timed, at B = Q·D and at
     the compaction capacities of ``tail_cases`` (``(layout, seg_lo,
     seg_hi, B)`` as the serve runs launched them), and of ``hybrid_cases``
@@ -275,6 +318,9 @@ def phase_kernels(tail_cases, hybrid_cases=()) -> dict:
             cases.append(range_case(label, layouts[layout], xs, lo, hi))
         else:
             cases.append(seg_case(label, layouts[layout], xs, hi))
+
+    # train_lear's segmented launch on the classifier split, trained ranker.
+    cases += [seg_case(label, pf, xs, pf.n_segments) for label, pf, xs in train_cases]
 
     results: dict[str, dict] = {}
     for name, label, pf, xs, n_blocks, S_out, kernel, plain in cases:
@@ -405,7 +451,7 @@ def serve_run(label: str, sentinels, mode: str) -> dict:
         f"kernel_launches={launches} dispatches={dispatches} "
         f"max|score-cpu|={max_err:.3g}"
     )
-    return {"launches": launches, "service": svc, "batches": batches}
+    return {"launches": launches, "service": svc, "batches": batches, "p50": p50}
 
 
 def _launched_ranges(sentinels, stats) -> set[tuple[str, int, int, int]]:
@@ -425,43 +471,54 @@ def _launched_ranges(sentinels, stats) -> set[tuple[str, int, int, int]]:
 
 def profile_window(label: str, svc, batches) -> None:
     """Where one run's time goes: torch.profiler over a few more batches
-    (after the timed and checked ones) — the window's wall time, the
-    card's busy time in it (summed self device time) and the top ops."""
+    (after the timed and checked ones)."""
+    def run():
+        for X, mask in batches:
+            svc.rank_batch(X, mask)
+
+    profiled(label, run, f"{len(batches)} batches")
+
+
+def profiled(label: str, fn, what: str, n_top: int = 6) -> None:
+    """torch.profiler over one call of ``fn``: the window's wall time, the
+    card's busy time in it (the device events' summed time: kernels,
+    copies, sets; an operator's own device time repeats its kernels', so
+    operators are left out) and the top device events."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for X, mask in batches:
-            svc.rank_batch(X, mask)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [
         e for e in prof.key_averages()
-        if getattr(e, "self_device_time_total", 0) > 0
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us == 0:
         log(f"[profile] {label}: device time not measured (the profiler saw none)")
         return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:n_top]
     log(
-        f"[profile] {label}: {len(batches)} batches, window {wall_us / 1e3:.3f} ms "
+        f"[profile] {label}: {what}, window {wall_us / 1e3:.3f} ms "
         f"(traced), device busy {busy_us / 1e3:.3f} ms "
         f"({100 * busy_us / wall_us:.1f}%, idle {100 - 100 * busy_us / wall_us:.1f}%); top: "
         + "; ".join(
             f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top
         )
     )
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:n_top]
     log(
         f"[profile] {label}: host self time top: "
         + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}" for e in host)
     )
 
 
-def phase_serve() -> tuple[dict[str, int], set]:
+def phase_serve() -> tuple[dict[str, int], set, float]:
     runs = (
         ("single-sentinel", (50,), "auto", ("forest_score",)),
         ("fused-2", SENTINELS_2, "fused", ("forest_score", "forest_score_segments")),
@@ -479,7 +536,9 @@ def phase_serve() -> tuple[dict[str, int], set]:
         profile_window(label, r["service"], r["batches"][1:4])
         for name, n in r["launches"].items():
             total[name] += n
-    return total, tail_cases
+        if label == "single-sentinel":
+            single_p50 = r["p50"]
+    return total, tail_cases, single_p50
 
 
 def _tier_rungs():
@@ -1044,6 +1103,394 @@ def phase_hybrid(card: str, params: dict) -> dict:
     return {"launches": launches, "gated": gated, "cases": cases, "summary": summary}
 
 
+def _query_batches(X, mask):
+    """``[n, D, F]`` queries in batches of Q; the last batch is filled up
+    with copies of its own first queries (their results are dropped)."""
+    out = []
+    for q0 in range(0, X.shape[0], Q):
+        idx = list(range(q0, min(q0 + Q, X.shape[0])))
+        n_real = len(idx)
+        idx += idx[: Q - n_real] if n_real < Q else []
+        while len(idx) < Q:
+            idx.append(idx[0])
+        out.append((X[idx], mask[idx], n_real))
+    return out
+
+
+def _tree_arrays(ens, edges):
+    """(feature, bin, leaf_value) numpy arrays of a trained ensemble."""
+    from torch_parity import tree_bins
+
+    feat = ens.feature.cpu().numpy()
+    return feat, tree_bins(feat, ens.threshold.cpu().numpy(), edges), ens.leaf_value.cpu().numpy()
+
+
+def _cpu_tie_rule(label, Xb, grads, card, cpu, params, n_rounds) -> int:
+    """The card's first ``n_rounds`` trees against the CPU's by the tie rule
+    of ``tests/torch_parity.py``; the number of leading rounds with equal
+    trees."""
+    from torch_parity import check_training_tie_rule
+
+    head = tuple(a[:n_rounds] for a in card)
+    try:
+        return check_training_tie_rule(Xb, grads, head, cpu, params)
+    except AssertionError as e:
+        raise AssertionError(f"{label}: card against CPU breaks the tie rule: {e}") from None
+
+
+def _replay_rounds(label, Xb, card, preds_before, grad_fn, params) -> tuple[int, float]:
+    """Each of the card's first rounds refit on the CPU from the card's own
+    predictions before it (``preds_before[t]``; ``grad_fn`` gives the CPU's
+    gradients from them), held to the card's tree by the tie rule. Returns
+    the rounds with equal trees and the largest leaf difference among them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.forest.gbdt import _fit_tree
+    from torch_parity import check_tree_tie_rule
+
+    Xb_t = torch.as_tensor(Xb)
+    equal, leaf_diff = 0, 0.0
+    for t, prev in enumerate(preds_before):
+        g, h = grad_fn(torch.as_tensor(prev))
+        want = tuple(a.numpy() for a in _fit_tree(Xb_t, g, h, params)[:3])
+        got = tuple(a[t] for a in card)
+        try:
+            same = check_tree_tie_rule(Xb, g.numpy(), h.numpy(), got, want, params)
+        except AssertionError as e:
+            raise AssertionError(f"{label} round {t}: card against CPU refit: {e}") from None
+        if same:
+            equal += 1
+            leaf_diff = max(leaf_diff, float(np.abs(got[2] - want[2]).max()))
+    return equal, leaf_diff
+
+
+def _train_ranker(tr, params, dev):
+    """λ-MART on the card, timed; then the 20-round determinism rerun (timed
+    per round) and the first rounds on the CPU, each checked."""
+    import numpy as np
+    import torch
+
+    from repro_torch.forest import binning
+    from repro_torch.forest.gbdt import train_lambdamart
+    from repro_torch.forest.lambdamart import lambda_grad_hess
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranker = train_lambdamart(tr.X, tr.labels, tr.mask, params, k=TRAIN_K, device=dev)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+
+    Qn, Dn, F = tr.X.shape
+    flat = tr.X.reshape(Qn * Dn, F)
+    edges = binning.quantile_bins(flat[tr.mask.reshape(-1)], params.n_bins)
+    card = _tree_arrays(ranker, edges)
+
+    # Determinism: a second run of the first rounds is bit-equal.
+    stamps, card_preds = [], []
+
+    def on_round(t, preds):
+        stamps.append(time.perf_counter())
+        card_preds.append(preds)
+
+    short = dataclasses.replace(params, n_trees=TRAIN_DETERMINISM_ROUNDS)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    again = train_lambdamart(
+        tr.X, tr.labels, tr.mask, short, k=TRAIN_K, device=dev, callback=on_round,
+    )
+    rounds_s = np.diff(stamps)
+    for a, b, name in zip(_tree_arrays(again, edges), card, ("feature", "bin", "leaf_value")):
+        if not np.array_equal(a, b[:TRAIN_DETERMINISM_ROUNDS]):
+            raise AssertionError(f"train: a second card run differs in {name}")
+    log(
+        f"[train] ranker: train_lambdamart {params.n_trees} rounds x "
+        f"{tr.X.shape[0] * tr.X.shape[1]} rows on the card in {total:.3f} s (median round "
+        f"{np.median(rounds_s) * 1e3:.3f} ms over a {TRAIN_DETERMINISM_ROUNDS}-round rerun, "
+        f"first {rounds_s[0] * 1e3:.3f} ms); the rerun is bit-equal"
+    )
+    profiled(
+        "train", lambda: train_lambdamart(
+            tr.X, tr.labels, tr.mask, dataclasses.replace(params, n_trees=3), k=TRAIN_K,
+            edges=edges, device=dev,
+        ), "3 λ-MART rounds (binning on the card and the host read of the trees included)",
+        n_top=8,
+    )
+
+    # The card against the CPU: the first rounds at full width.
+    cpu_preds = []
+    t1 = time.perf_counter()
+    on_cpu = train_lambdamart(
+        tr.X, tr.labels, tr.mask, dataclasses.replace(params, n_trees=TRAIN_CPU_ROUNDS),
+        k=TRAIN_K, device="cpu", callback=lambda t, preds: cpu_preds.append(preds),
+    )
+    cpu_s = time.perf_counter() - t1
+    Xb = binning.apply_bins(torch.as_tensor(flat), torch.as_tensor(edges)).numpy()
+    lab, mask = torch.as_tensor(tr.labels).float(), torch.as_tensor(tr.mask)
+    w = mask.reshape(-1).float()
+
+    def grad_fn(prev):
+        g, h = lambda_grad_hess(prev, lab, mask, k=TRAIN_K)
+        return g.reshape(-1) * w, h.reshape(-1) * w
+
+    grads, prev = [], torch.zeros(lab.shape)
+    for preds in cpu_preds:
+        grads.append(tuple(a.numpy() for a in grad_fn(prev)))
+        prev = torch.as_tensor(preds)
+    equal = _cpu_tie_rule("train ranker", Xb, grads, card, _tree_arrays(on_cpu, edges),
+                          params, TRAIN_CPU_ROUNDS)
+    # Each card round refit on the CPU from the card's own predictions.
+    before = [np.zeros(lab.shape, np.float32), *card_preds[:TRAIN_CPU_ROUNDS - 1]]
+    replay = _replay_rounds("train ranker", Xb, card, before, grad_fn, params)
+    return ranker, {
+        "total_s": total, "round_median_s": float(np.median(rounds_s)),
+        "cpu_s": cpu_s, "cpu_equal_rounds": equal,
+        "replay": replay,
+    }
+
+
+def _train_classifier(cl, ranker, dev):
+    """``train_lear`` on the card (its segments launches counted), then on
+    the CPU from the same ranker, held to it by the tie rule."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lear import continue_training_set, train_lear
+    from repro_torch.forest import binning
+    from repro_torch.forest.gbdt import GBDTParams, grad_hess_logistic, train_gbdt
+    from repro_torch.forest.reorder import per_tree_contributions
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    fs.reset_kernel_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clf = train_lear(cl.X, cl.labels, cl.mask, ranker, sentinel=TRAIN_SENTINEL, k=LEAR_K)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, dispatches = fs.kernel_launches(), ops.launch_counts()
+    if launches["forest_score_segments"] == 0:
+        raise AssertionError("train: train_lear never launched the segments kernel")
+
+    # The same on the CPU: train_lear is continue_training_set, then
+    # train_gbdt; the pieces give the CPU's gradients for the tie rule.
+    ranker_cpu = ranker.to("cpu")
+    t1 = time.perf_counter()
+    X_aug, y, w = continue_training_set(
+        cl.X, cl.labels, cl.mask, ranker_cpu, TRAIN_SENTINEL, LEAR_K
+    )
+    card_set = continue_training_set(cl.X, cl.labels, cl.mask, ranker, TRAIN_SENTINEL, LEAR_K)
+    for a, b, name in zip(card_set, (X_aug, y, w), ("features", "labels", "weights")):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"train: the classifier's {name} differ between card and CPU")
+    params = GBDTParams(n_trees=10, depth=5, learning_rate=0.2, reg_lambda=1.0)
+    preds = []
+    clf_cpu = train_gbdt(X_aug.numpy(), y.numpy(), params, "logistic", weights=w.numpy(),
+                         device="cpu", callback=lambda t, p: preds.append(p))
+    cpu_s = time.perf_counter() - t1
+    edges = binning.quantile_bins(X_aug.numpy(), params.n_bins)
+    Xb = binning.apply_bins(X_aug, torch.as_tensor(edges)).numpy()
+    grads, prev = [], torch.zeros_like(y)
+    for p in preds:
+        grads.append(tuple(a.numpy() for a in grad_hess_logistic(prev, y, w)))
+        prev = torch.as_tensor(p)
+    card = _tree_arrays(clf.forest, edges)
+    equal = _cpu_tie_rule("train classifier", Xb, grads, card,
+                          _tree_arrays(clf_cpu, edges), params, params.n_trees)
+    # The card's predictions before each round: its trees' leaf values
+    # added in order, as training added them.
+    contrib = per_tree_contributions(clf.forest, card_set[0]).cpu()
+    before = [torch.zeros_like(y)]
+    for t in range(params.n_trees - 1):
+        before.append(before[-1] + contrib[:, t])
+    replay = _replay_rounds("train classifier", Xb, card, before,
+                            lambda prev: grad_hess_logistic(prev, y, w), params)
+    return clf, {
+        "seconds": seconds, "cpu_s": cpu_s, "cpu_equal_rounds": equal, "replay": replay,
+        "launches": launches, "dispatches": dispatches, "rows": int(X_aug.shape[0]),
+    }
+
+
+def _serve_trained(ranker, clf, te, full_ndcg):
+    """The trained cascade through RankingService on the card at each
+    threshold, every response against the CPU service on the same weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import ops
+    from repro_torch.metrics.ranking import ndcg_at_k
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+
+    batches = _query_batches(te.X, te.mask)
+    labels, mask = torch.as_tensor(te.labels), torch.as_tensor(te.mask)
+    out, launches = {}, {"forest_score": 0, "forest_score_segments": 0}
+    ranker_cpu = ranker.to("cpu")
+    for th in TRAIN_THRESHOLDS:
+        svc = RankingService(ranker, clf, ServiceConfig(threshold=th), device=DEVICE)
+        ops.reset_launch_counts()
+        fs.reset_kernel_launches()
+        outs, lat = [], []
+        for X, m, _ in batches:
+            t0 = time.perf_counter()
+            outs.append(svc.rank_batch(X, m))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        for k, v in fs.kernel_launches().items():
+            launches[k] += v
+        svc_cpu = RankingService(
+            ranker_cpu, clf, ServiceConfig(
+                threshold=th, launch_overhead_trees=svc.launch_overhead_trees,
+            ), device="cpu",
+        )
+        max_err, scores_all = 0.0, []
+        for (X, m, n_real), (top, scores) in zip(batches, outs):
+            top_c, scores_c = svc_cpu.rank_batch(X, m)
+            if scores.shape != (Q, D) or not np.isfinite(scores).all():
+                raise AssertionError(f"train serve {th}: scores {scores.shape} or non-finite")
+            max_err = max(max_err, float(np.abs(scores - scores_c).max()))
+            if not _topk_agree(top, top_c, scores_c):
+                raise AssertionError(f"train serve {th}: top-k differs from the CPU service")
+            scores_all.append(scores[:n_real])
+        if max_err > TOL:
+            raise AssertionError(f"train serve {th}: scores differ from the CPU by {max_err}")
+        st = svc.stats
+        lear = float(ndcg_at_k(torch.as_tensor(np.concatenate(scores_all)), labels, mask).mean())
+        out[th] = {
+            "ndcg": lear, "loss": full_ndcg - lear, "speedup": st.speedup,
+            "continue_rate": st.continue_rate, "p50": statistics.median(lat[1:]),
+            "max_err": max_err, "overflow": st.overflow_docs,
+        }
+    if launches["forest_score"] == 0:
+        raise AssertionError("train serve: kernel forest_score was never launched")
+    return out, launches
+
+
+def phase_train(card: str, serve_p50: float) -> dict:
+    """Train the LEAR pipeline on the card at lear-msn1 width and serve it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.lear_msn1 import config
+    from repro_torch.core.lear import continue_training_set
+    from repro_torch.data import make_letor_dataset
+    from repro_torch.forest.gbdt import GBDTParams
+    from repro_torch.forest.reorder import (
+        per_tree_contributions,
+        prefix_residual,
+        reordered_ensemble,
+    )
+    from repro_torch.kernels.ops import forest_score, padded_forest
+    from repro_torch.metrics import mean_ndcg, precision_recall
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    dev = torch.device(DEVICE)
+    cfg = config()
+    t_phase = time.perf_counter()
+    data = make_letor_dataset(**TRAIN_DATA)
+    parts = data.splits()
+    tr, cl, tune, te = (parts[k] for k in ("train", "classifier", "tune", "test"))
+    log(
+        f"[train] data: make_letor_dataset{tuple(TRAIN_DATA.items())} in "
+        f"{time.perf_counter() - t_phase:.3f} s: F={data.X.shape[-1]}, D={data.X.shape[1]}, "
+        f"mean real docs/query {data.mask.sum(1).mean():.2f}, splits "
+        + "/".join(str(p.n_queries) for p in parts.values())
+    )
+    if TRAIN_ROUNDS < cfg.n_trees:
+        log(f"[train] reduced: {TRAIN_ROUNDS} boosting rounds of {cfg.n_trees} "
+            "(widths unchanged: 136 features, depth 6, 256 bins, D = 256)")
+    params = GBDTParams(n_trees=TRAIN_ROUNDS, depth=cfg.depth, learning_rate=0.1, n_bins=256)
+    ranker, r = _train_ranker(tr, params, dev)
+    log(
+        f"[train] ranker against the CPU: {TRAIN_CPU_ROUNDS} rounds on the CPU in "
+        f"{r['cpu_s']:.3f} s: equal trees in {r['cpu_equal_rounds']} of {TRAIN_CPU_ROUNDS} "
+        f"rounds, the tie rule held; each of the card's first {TRAIN_CPU_ROUNDS} rounds "
+        f"refit on the CPU from the card's predictions: equal trees in {r['replay'][0]} of "
+        f"{TRAIN_CPU_ROUNDS} (max leaf diff {r['replay'][1]:.3g}), the tie rule held in all "
+        f"({card})"
+    )
+
+    # Quality sanity: the trained ranker against random scores on the test split.
+    Qt, Dt, F = te.X.shape
+    x_te = torch.as_tensor(te.X.reshape(Qt * Dt, F), device=dev)
+    labels, mask = torch.as_tensor(te.labels), torch.as_tensor(te.mask)
+    full_scores = forest_score(ranker, x_te).reshape(Qt, Dt).cpu()
+    full_ndcg = float(mean_ndcg(full_scores, labels, mask))
+    rand = torch.as_tensor(np.random.default_rng(SEED).normal(size=(Qt, Dt)).astype(np.float32))
+    rand_ndcg = float(mean_ndcg(rand, labels, mask))
+    log(f"[train] ranker NDCG@10 on the test split {full_ndcg:.5f} (random scores {rand_ndcg:.5f})")
+    if not full_ndcg > rand_ndcg + 0.15:
+        raise AssertionError(f"train: NDCG@10 {full_ndcg} is not above random {rand_ndcg} + 0.15")
+
+    clf, c = _train_classifier(cl, ranker, dev)
+    log(
+        f"[train] classifier: train_lear(sentinel={TRAIN_SENTINEL}, k={LEAR_K}) on "
+        f"{c['rows']} rows in {c['seconds']:.3f} s on the card, kernel_launches="
+        f"{c['launches']} dispatches={c['dispatches']}; on the CPU from the same ranker "
+        f"in {c['cpu_s']:.3f} s: features, labels and weights bit-equal, equal trees in "
+        f"{c['cpu_equal_rounds']} of 10 rounds, the tie rule held; each card round refit on "
+        f"the CPU from the card's predictions: equal trees in {c['replay'][0]} of 10 (max "
+        f"leaf diff {c['replay'][1]:.3g}), the tie rule held in all"
+    )
+
+    # Reordering on the tune split.
+    x_tune = torch.as_tensor(tune.X[tune.mask], device=dev)
+    t0 = time.perf_counter()
+    reordered, order = reordered_ensemble(ranker, x_tune, "greedy", max_docs=4096)
+    reorder_s = time.perf_counter() - t0
+    stride = -(-x_tune.shape[0] // 4096)
+    contrib = per_tree_contributions(ranker, x_tune[::stride]).cpu().numpy()
+    greedy = prefix_residual(contrib, order)[TRAIN_SENTINEL - 1]
+    ident = prefix_residual(contrib, np.arange(ranker.n_trees))[TRAIN_SENTINEL - 1]
+    diff = float((forest_score(reordered, x_te) - forest_score(ranker, x_te)).abs().max())
+    log(
+        f"[train] reorder: greedy order from {contrib.shape[0]} tune documents in "
+        f"{reorder_s:.3f} s; prefix residual at tree {TRAIN_SENTINEL}: greedy {greedy:.6g}, "
+        f"identity {ident:.6g}; reordered scores within {diff:.3g} of the original"
+    )
+    if diff > 1e-4:
+        raise AssertionError(f"train: the reordered ensemble's scores moved by {diff}")
+
+    # Classifier precision/recall on the test split, then the served cascade.
+    X_aug, cont, _ = continue_training_set(te.X, te.labels, te.mask, ranker, TRAIN_SENTINEL, LEAR_K)
+    prob = torch.sigmoid(forest_score(clf.forest, X_aug))
+    flat_mask = mask.reshape(-1).to(dev)
+    served, launches = _serve_trained(ranker, clf, te, full_ndcg)
+    lines = []
+    for th, s in served.items():
+        pr = precision_recall(prob >= th, cont.bool(), flat_mask)
+        lines.append(
+            f"threshold {th}: NDCG@10 {s['ndcg']:.5f} (loss {s['loss']:.5f} against all "
+            f"trees), speedup {s['speedup']:.3f}x, continue_rate {s['continue_rate']:.4f}, "
+            "Continue P/R {continue_precision:.4f}/{continue_recall:.4f}, "
+            "Exit P/R {exit_precision:.4f}/{exit_recall:.4f}".format(**pr)
+            + f", batch p50 {s['p50']:.3f} ms, max|score-cpu| {s['max_err']:.3g}, "
+            f"overflow {s['overflow']}"
+        )
+        log(f"[train] served, {lines[-1]}")
+    for k, v in c["launches"].items():
+        launches[k] += v
+    log(
+        f"[train] batch p50 with trained weights at threshold 0.5: {served[0.5]['p50']:.3f} ms; "
+        f"[serve] single-sentinel on random weights: {serve_p50:.3f} ms; kernel launches of "
+        f"the phase (train_lear and serving) {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s"
+    )
+    pf = padded_forest(ranker, boundaries=(TRAIN_SENTINEL, ranker.n_trees))
+    x_cl = torch.as_tensor(cl.X.reshape(-1, F), device=dev)
+    summary = (
+        f"train {TRAIN_ROUNDS} rounds {r['total_s']:.1f} s, NDCG@10 {full_ndcg:.4f}; "
+        + "; ".join(
+            f"th {th} NDCG {s['ndcg']:.4f} x{s['speedup']:.2f} cont {s['continue_rate']:.3f}"
+            for th, s in served.items()
+        )
+    )
+    return {
+        "launches": launches, "summary": summary,
+        "cases": [(f"train_lear head S=2 ({TRAIN_SENTINEL}, {ranker.n_trees})", pf, x_cl)],
+    }
+
+
 def _leaf_paths(feature, threshold, depth: int) -> list[list[tuple[int, float, bool]]]:
     """Each leaf of one complete heap-ordered tree, left to right, as its
     path of ``(feature, threshold, goes_left)``; left is ``x <= threshold``."""
@@ -1201,18 +1648,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     try:
         phase_build()
         card = card_line()
-        launches, tail_cases = phase_serve()
+        elapsed = lambda name: log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
+        launches, tail_cases, serve_p50 = phase_serve()
+        elapsed("serve")
         tier = phase_tier(card)
         for name, n in tier["launches"].items():
             launches[name] += n
+        elapsed("tier")
         hybrid = phase_hybrid(card, _distill_on_card())
         for name, n in hybrid["launches"].items():
             launches[name] += n
-        kernels = phase_kernels(tail_cases, hybrid["cases"])
+        elapsed("hybrid")
+        train = phase_train(card, serve_p50)
+        for name, n in train["launches"].items():
+            launches[name] += n
+        elapsed("train")
+        kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"])
         gated = phase_gated()
+        elapsed("kernels")
     except Exception:  # report the failing phase, then fail the run
         traceback.print_exc()
         return 1
@@ -1248,7 +1705,7 @@ def main() -> int:
     full = {c["B"]: c["ms"] for c in gated["cases"] if c["n_valid"] == c["B"]}
     log(f"[summary] {tier['summary']}; gated tail at a full count "
         + ", ".join(f"B={B} {ms:.4f} ms" for B, ms in sorted(full.items()))
-        + f"; {hybrid['summary']}")
+        + f"; {hybrid['summary']}; {train['summary']}; run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""repro_torch — the LEAR serving path in PyTorch, with CUDA kernels for Hopper.
+"""repro_torch — the LEAR serving path and its training in PyTorch, with CUDA
+kernels for Hopper.
 
 A port of :mod:`repro` (JAX, Pallas kernels for the TPU), which stays in
 the repository unchanged as the reference the port is tested against. The
@@ -8,34 +9,40 @@ plain PyTorch version of every kernel.
 
 Module map (port ↔ reference):
 
-=====================================  =====================================
-``repro_torch.forest.ensemble``        ``repro.forest.ensemble`` (+ the
-                                       ``from_numpy`` weight converter)
-``repro_torch.forest.scoring``         ``repro.forest.scoring``
-``repro_torch.kernels.forest_score``   ``repro.kernels.forest_score`` —
-                                       CUDA source in ``csrc/forest_score.cu``
-``repro_torch.kernels.build``          (none: nvcc build + ctypes load)
-``repro_torch.kernels.ops``            ``repro.kernels.ops``
-``repro_torch.core.compaction``        ``repro.core.compaction``
-``repro_torch.core.features``          ``repro.core.features``
-``repro_torch.core.strategies``        ``repro.core.strategies`` (ERT, EPT,
-                                       query-exit predicate, dense keep
-                                       fraction, EE_ideal)
-``repro_torch.core.stage``             ``repro.core.stage``
-``repro_torch.core.lear``              ``repro.core.lear`` (inference half)
-``repro_torch.core.cascade``           ``repro.core.cascade``
-``repro_torch.models.dense_scorer``    ``repro.models.dense_scorer`` (+ the
-                                       ``dense_params_from_numpy`` converter)
-``repro_torch.train.optimizer``        ``repro.train.optimizer`` (AdamW)
-``repro_torch.train.distill``          ``repro.train.distill``
-``repro_torch.metrics.ranking``        ``repro.metrics.ranking``
-``repro_torch.metrics.speedup``        ``repro.metrics.speedup``
-``repro_torch.serve.calibration``      ``repro.serve.calibration``
-``repro_torch.serve.ranking_service``  ``repro.serve.ranking_service``
-``repro_torch.configs.lear_msn1``      ``repro.configs.lear_msn1`` (+ its
-                                       ``ForestConfig``)
-``repro_torch.utils``                  (none: device resolution)
-=====================================  =====================================
+======================================  =====================================
+``repro_torch.forest.ensemble``         ``repro.forest.ensemble`` (+ the
+                                        ``from_numpy`` weight converter)
+``repro_torch.forest.scoring``          ``repro.forest.scoring``
+``repro_torch.forest.binning``          ``repro.forest.binning``
+``repro_torch.forest.lambdamart``       ``repro.forest.lambdamart``
+``repro_torch.forest.gbdt``             ``repro.forest.gbdt``
+``repro_torch.forest.reorder``          ``repro.forest.reorder``
+``repro_torch.data.synthetic``          ``repro.data.synthetic``
+``repro_torch.kernels.forest_score``    ``repro.kernels.forest_score`` —
+                                        CUDA source in ``csrc/forest_score.cu``
+``repro_torch.kernels.build``           (none: nvcc build + ctypes load)
+``repro_torch.kernels.ops``             ``repro.kernels.ops``
+``repro_torch.core.compaction``         ``repro.core.compaction``
+``repro_torch.core.features``           ``repro.core.features``
+``repro_torch.core.strategies``         ``repro.core.strategies`` (ERT, EPT,
+                                        query-exit predicate, dense keep
+                                        fraction, EE_ideal)
+``repro_torch.core.stage``              ``repro.core.stage``
+``repro_torch.core.lear``               ``repro.core.lear``
+``repro_torch.core.cascade``            ``repro.core.cascade``
+``repro_torch.models.dense_scorer``     ``repro.models.dense_scorer`` (+ the
+                                        ``dense_params_from_numpy`` converter)
+``repro_torch.train.optimizer``         ``repro.train.optimizer`` (AdamW)
+``repro_torch.train.distill``           ``repro.train.distill``
+``repro_torch.metrics.ranking``         ``repro.metrics.ranking``
+``repro_torch.metrics.speedup``         ``repro.metrics.speedup``
+``repro_torch.metrics.classification``  ``repro.metrics.classification``
+``repro_torch.serve.calibration``       ``repro.serve.calibration``
+``repro_torch.serve.ranking_service``   ``repro.serve.ranking_service``
+``repro_torch.configs.lear_msn1``       ``repro.configs.lear_msn1`` (+ its
+                                        ``ForestConfig``)
+``repro_torch.utils``                   (none: device resolution)
+======================================  =====================================
 
 What is not ported yet is listed in ``ROADMAP.md``.
 """

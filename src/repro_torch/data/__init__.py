@@ -1,0 +1,5 @@
+"""Data of the port: the synthetic LETOR datasets (numpy, host side)."""
+
+from repro_torch.data.synthetic import PRESETS, LetorDataset, LetorPreset, make_letor_dataset
+
+__all__ = ["LetorDataset", "LetorPreset", "make_letor_dataset", "PRESETS"]

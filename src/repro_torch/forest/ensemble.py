@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
+from collections.abc import Sequence
 
 import numpy as np
 import torch
@@ -86,6 +87,18 @@ class TreeEnsemble:
             for f in dataclasses.fields(self) if f.init
         ))
 
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        """The reference's fields as numpy arrays, the inverse of
+        :func:`from_numpy`: the int64 mask splits into two uint32 lanes."""
+        bits = self.mask.cpu().numpy().view(np.uint64)
+        out = {
+            name: getattr(self, name).cpu().numpy()
+            for name in ("feature", "threshold", "left", "right", "leaf_value", "base_score")
+        }
+        out["mask_lo"] = (bits & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        out["mask_hi"] = (bits >> np.uint64(32)).astype(np.uint32)
+        return out
+
 
 def slice_trees(ens: TreeEnsemble, start: int, stop: int) -> TreeEnsemble:
     """Sub-ensemble of trees [start, stop) — used to split at a sentinel."""
@@ -99,6 +112,39 @@ def slice_trees(ens: TreeEnsemble, start: int, stop: int) -> TreeEnsemble:
         leaf_value=ens.leaf_value[start:stop],
         base_score=base,
     )
+
+
+def concat_ensembles(parts: Sequence[TreeEnsemble]) -> TreeEnsemble:
+    """The trees of ``parts`` in order, with the first part's base score."""
+    return TreeEnsemble(
+        feature=torch.cat([p.feature for p in parts]),
+        threshold=torch.cat([p.threshold for p in parts]),
+        left=torch.cat([p.left for p in parts]),
+        right=torch.cat([p.right for p in parts]),
+        mask=torch.cat([p.mask for p in parts]),
+        leaf_value=torch.cat([p.leaf_value for p in parts]),
+        base_score=parts[0].base_score,
+    )
+
+
+def _leaf_spans(left: np.ndarray, right: np.ndarray, n_nodes: int):
+    """In-order leaf numbering: for each internal node return (lo, mid, hi) —
+    its subtree covers leaves [lo, hi), left child covers [lo, mid)."""
+    spans = np.zeros((n_nodes, 3), dtype=np.int64)
+    counter = [0]
+
+    def visit(node: int) -> tuple[int, int]:
+        if node < 0:  # leaf
+            i = counter[0]
+            counter[0] += 1
+            return i, i + 1
+        lo, mid = visit(int(left[node]))
+        _, hi = visit(int(right[node]))
+        spans[node] = (lo, mid, hi)
+        return lo, hi
+
+    visit(0)
+    return spans, counter[0]
 
 
 def _span_mask(lo: int, hi: int) -> int:
@@ -130,6 +176,80 @@ def from_numpy(
         mask=torch.as_tensor(np.array(mask), device=dev),
         leaf_value=as_t("leaf_value", np.float32),
         base_score=as_t("base_score", np.float32).reshape(()),
+    )
+
+
+def from_arrays(
+    features: list[np.ndarray],
+    thresholds: list[np.ndarray],
+    lefts: list[np.ndarray],
+    rights: list[np.ndarray],
+    leaf_values: list[np.ndarray],
+    base_score: float = 0.0,
+    n_nodes: int | None = None,
+    n_leaves: int | None = None,
+    *,
+    device: str | torch.device | None = None,
+) -> TreeEnsemble:
+    """Build a padded ensemble from per-tree structure arrays (irregular trees).
+
+    Per-tree convention: internal nodes indexed 0..n_int-1 (root = 0); child
+    entries < 0 encode leaf ``-(leaf_slot+1)`` into that tree's
+    ``leaf_values``. Leaf slots are renumbered here to in-order so the
+    QuickScorer mask rule holds regardless of input numbering.
+    """
+    dev = resolve_device(device)
+    T = len(features)
+    n_nodes = n_nodes or max(int(f.shape[0]) for f in features)
+    n_leaves = n_leaves or max(int(lv.shape[0]) for lv in leaf_values)
+    if n_leaves > 64:
+        raise ValueError(f"bitmask encoding requires <=64 leaves, got {n_leaves}")
+
+    feat = np.zeros((T, n_nodes), dtype=np.int32)
+    thr = np.full((T, n_nodes), np.float32(np.inf))  # padded → always-true node
+    left = np.full((T, n_nodes), -1, dtype=np.int32)
+    right = np.full((T, n_nodes), -1, dtype=np.int32)
+    mask = np.full((T, n_nodes), ALL_ONES, dtype=np.int64)
+    lv = np.zeros((T, n_leaves), dtype=np.float32)
+
+    for t in range(T):
+        n_int = int(features[t].shape[0])
+        feat[t, :n_int] = features[t]
+        thr[t, :n_int] = thresholds[t]
+        lt, rt = lefts[t].astype(np.int64), rights[t].astype(np.int64)
+        spans, n_leaf_t = _leaf_spans(lt, rt, n_int)
+        # Renumber leaves to in-order: walk again mapping old slot → in-order id.
+        order = np.zeros(n_leaf_t, dtype=np.int64)  # in-order id → old slot
+        counter = [0]
+
+        def visit(node: int):
+            if node < 0:
+                order[counter[0]] = -(node + 1)
+                counter[0] += 1
+                return
+            visit(int(lt[node]))
+            visit(int(rt[node]))
+
+        visit(0)
+        lv[t, :n_leaf_t] = leaf_values[t][order]
+        # Children re-encoded with in-order leaf ids.
+        old2new = np.zeros(n_leaf_t, dtype=np.int64)
+        old2new[order] = np.arange(n_leaf_t)
+        for n in range(n_int):
+            for arr_in, arr_out in ((lt, left), (rt, right)):
+                c = int(arr_in[n])
+                arr_out[t, n] = c if c >= 0 else -(int(old2new[-(c + 1)]) + 1)
+            lo, mid, _hi = spans[n]
+            mask[t, n] = _span_mask(int(lo), int(mid))
+
+    return TreeEnsemble(
+        feature=torch.as_tensor(feat, device=dev),
+        threshold=torch.as_tensor(thr, device=dev),
+        left=torch.as_tensor(left, device=dev),
+        right=torch.as_tensor(right, device=dev),
+        mask=torch.as_tensor(mask, device=dev),
+        leaf_value=torch.as_tensor(lv, device=dev),
+        base_score=torch.tensor(base_score, dtype=torch.float32, device=dev),
     )
 
 

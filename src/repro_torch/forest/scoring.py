@@ -4,11 +4,14 @@ The port of :mod:`repro.forest.scoring`:
 
 - :func:`score_numpy_oracle` — per-document recursive traversal in numpy;
   slowest, trusted ground truth for tests.
+- :func:`score_level` — vectorized root→leaf stepping (``depth + 1``
+  dependent gather steps), classic batched traversal.
 - :func:`score_bitvector` — QuickScorer: order-free AND of false-node masks,
   exit leaf = lowest set bit, one ``sum`` over the trees. The reference path
   of :meth:`repro_torch.core.cascade.CascadeRanker.rank`.
+- :func:`partial_scores` — the head and tail of a sentinel split.
 
-Both take ``X: [B, F]`` and return ``[B]`` scores.
+All take ``X: [B, F]`` and return ``[B]`` scores.
 """
 
 from __future__ import annotations
@@ -35,6 +38,40 @@ def score_bitvector(
     if return_per_tree:
         return scores, per_tree
     return scores
+
+
+def score_level(ens: TreeEnsemble, X: torch.Tensor) -> torch.Tensor:
+    """Classic batched root→leaf traversal (``depth + 1`` dependent steps)."""
+    B, T = X.shape[0], ens.n_trees
+    trees = torch.arange(T, device=X.device)[None, :]
+    node = torch.zeros((B, T), dtype=torch.int64, device=X.device)
+    done = torch.zeros((B, T), dtype=torch.bool, device=X.device)
+    leaf = torch.zeros((B, T), dtype=torch.int64, device=X.device)
+    for _ in range(ens.depth + 1):
+        safe = torch.where(done, torch.zeros_like(node), node)
+        f = ens.feature[trees, safe].long()                       # [B, T]
+        t = ens.threshold[trees, safe]
+        left = ens.left[trees, safe].long()
+        right = ens.right[trees, safe].long()
+        xv = torch.gather(X.float(), 1, f)
+        child = torch.where(xv <= t, left, right)
+        is_leaf = child < 0
+        leaf = torch.where(~done & is_leaf, -(child + 1), leaf)
+        node = torch.where(~done & ~is_leaf, child, node)
+        done = done | is_leaf
+    per_tree = ens.leaf_value[trees, leaf]
+    return per_tree.sum(dim=1) + ens.base_score
+
+
+def partial_scores(
+    ens: TreeEnsemble, X: torch.Tensor, sentinel: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scores after the first ``sentinel`` trees, scores of the remaining
+    tail). Full score = partial + tail."""
+    _, per_tree = score_bitvector(ens, X, return_per_tree=True)
+    head = per_tree[:, :sentinel].sum(dim=1) + ens.base_score
+    tail = per_tree[:, sentinel:].sum(dim=1)
+    return head, tail
 
 
 def score_numpy_oracle(ens: TreeEnsemble, X: np.ndarray) -> np.ndarray:

@@ -33,6 +33,21 @@ def _sane_survivors(
     return out
 
 
+def trees_traversed(
+    continue_mask: torch.Tensor,
+    mask: torch.Tensor,
+    sentinel: int,
+    n_trees: int,
+    classifier_trees: int = 0,
+) -> torch.Tensor:
+    """Total tree traversals for one EE configuration. Arrays are [Q, D]."""
+    n_docs = mask.sum()
+    n_cont = (continue_mask & mask).sum()
+    return (
+        n_docs * (sentinel + classifier_trees) + n_cont * (n_trees - sentinel)
+    ).float()
+
+
 def speedup_vs_full(
     continue_mask: torch.Tensor,
     mask: torch.Tensor,
@@ -41,12 +56,8 @@ def speedup_vs_full(
     classifier_trees: int = 0,
 ) -> float:
     """Single-sentinel speedup vs scoring every tree (host float)."""
-    n_docs = mask.sum()
-    n_cont = (continue_mask & mask).sum()
-    ee = (
-        n_docs * (sentinel + classifier_trees) + n_cont * (n_trees - sentinel)
-    ).float()
-    return float(n_docs * n_trees / ee)
+    ee = trees_traversed(continue_mask, mask, sentinel, n_trees, classifier_trees)
+    return float(mask.sum() * n_trees / ee)
 
 
 def trees_traversed_progressive(

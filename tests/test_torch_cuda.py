@@ -20,6 +20,7 @@ from repro_torch.forest.ensemble import random_ensemble  # noqa: E402
 from repro_torch.forest.scoring import score_bitvector  # noqa: E402
 from repro_torch.kernels import forest_score as fs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from torch_parity import check_tree_tie_rule  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -569,3 +570,87 @@ def test_the_port_leaves_tf32_off(dev):
     svc.rank_batch(np.zeros((2, 32, 24), np.float32), np.ones((2, 32), bool))
     assert torch.get_float32_matmul_precision() == "highest"
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# --- The training pipeline on the card -----------------------------------------
+
+
+def _train_trees(ens):
+    return tuple(getattr(ens, k).cpu() for k in ("feature", "threshold", "leaf_value"))
+
+
+def test_fit_tree_is_deterministic_on_the_card(dev):
+    """The histogram and leaf sums are segment sums over rows sorted by
+    destination, without atomics: two fits of one tree are bit-equal (at a
+    width where float atomics would reorder the sums), the histogram equals
+    the CPU's, and the tree meets the tie rule against the CPU's."""
+    from repro_torch.forest import gbdt
+
+    rng = np.random.default_rng(0)
+    N, F = 40_000, 64
+    Xb = torch.as_tensor(rng.integers(0, 256, size=(N, F)).astype(np.int32), device=dev)
+    g = torch.as_tensor(rng.normal(size=N).astype(np.float32), device=dev)
+    h = torch.as_tensor(rng.uniform(0.01, 1, size=N).astype(np.float32), device=dev)
+    p = gbdt.GBDTParams(depth=6)
+    first = gbdt._fit_tree(Xb, g, h, p)
+    for _ in range(3):
+        again = gbdt._fit_tree(Xb, g, h, p)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    # The card's scatter adds in the CPU's order: equal histograms. The
+    # 256-bin cumulative sums scan in other orders on the two devices, so
+    # the trees meet the tie rule (ROADMAP C4).
+    idx = (torch.arange(F, device=dev) * 256)[None, :] + Xb.long()
+    vals = torch.stack([g, h], 1)[:, None, :].expand(N, F, 2).reshape(-1, 2)
+    hist = gbdt._scatter_sum(idx.reshape(-1), vals, F * 256)
+    assert torch.equal(hist.cpu(), gbdt._scatter_sum(idx.reshape(-1).cpu(), vals.cpu(), F * 256))
+    on_cpu = gbdt._fit_tree(Xb.cpu(), g.cpu(), h.cpu(), p)
+    check_tree_tie_rule(
+        Xb.cpu().numpy(), g.cpu().numpy(), h.cpu().numpy(),
+        [a.cpu().numpy() for a in first[:3]], [a.numpy() for a in on_cpu[:3]], p,
+    )
+
+
+def test_lambdamart_and_lear_are_deterministic_on_the_card(dev):
+    from repro_torch.core import lear
+    from repro_torch.data import make_letor_dataset
+    from repro_torch.forest import gbdt
+
+    data = make_letor_dataset("msn1", n_queries=80, max_docs=128, seed=1).splits()
+    tr, cl = data["train"], data["classifier"]
+    p = gbdt.GBDTParams(n_trees=12, depth=6)
+    rankers = [gbdt.train_lambdamart(tr.X, tr.labels, tr.mask, p, device=dev) for _ in range(2)]
+    for a, b in zip(_train_trees(rankers[0]), _train_trees(rankers[1])):
+        assert torch.equal(a, b)
+    clfs = [lear.train_lear(cl.X, cl.labels, cl.mask, rankers[0], sentinel=5) for _ in range(2)]
+    for a, b in zip(_train_trees(clfs[0].forest), _train_trees(clfs[1].forest)):
+        assert torch.equal(a, b)
+    assert clfs[0].forest.device == rankers[0].device
+
+
+def test_segments_kernel_at_the_classifier_split_width(dev):
+    """``train_lear``'s launch at lear-msn1 width: B = 51,200 rows (200
+    queries × 256), 1,047 depth-6 trees, boundary (50,): equal to its plain
+    version."""
+    ens = random_ensemble(0, 1047, 6, 136, device=dev)
+    pf = ops.padded_forest(ens, boundaries=(50, 1047))
+    x = _x(np.random.default_rng(51), 51_200, 136, dev)
+    kw = dict(seg_block_starts=pf.seg_block_starts, block_t=pf.block_t,
+              n_tree_blocks=pf.seg_block_starts[1] + pf.seg_blocks[1])
+    tables = (pf.feature, pf.threshold, pf.mask, pf.leaf_value)
+    got = fs.forest_score_segments_kernel(x, *tables, leaf_gather=pf.leaf_gather,
+                                          packed=pf.packed, **kw)
+    want = fs.forest_score_segments_plain(x, *tables, **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) == 0.0
+
+
+def test_contributions_chunked_equal_unchunked_on_the_card(dev):
+    from repro_torch.forest import reorder
+
+    ens = random_ensemble(2, 300, 6, 136, device=dev)
+    x = _x(np.random.default_rng(2), 1500, 136, dev)
+    whole = reorder.per_tree_contributions(ens, x, chunk_rows=1500)
+    for chunk in (1, 97, 512):
+        assert torch.equal(reorder.per_tree_contributions(ens, x, chunk_rows=chunk), whole)
+    assert torch.equal(whole.cpu(), reorder.per_tree_contributions(ens.to("cpu"), x.cpu()))

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX and nothing of ``repro`` behind it.
 
 In a fresh interpreter, import every module of ``repro_torch`` (the serving
-tier's, the dense scorer's and the distiller's among them) and the
+tier's, the dense scorer's, the distiller's and the training pipeline's —
+data, binning, GBDT, λ-MART, LEAR training, reordering — among them) and the
 ``chip_smoke`` script (without running it) and
 check that no ``jax*`` or ``repro.*`` module was loaded. Without a card, ``chip_smoke.py`` must fail
 and print no result, also when it is alone in a directory.
@@ -39,6 +40,15 @@ hybrid = {
 }
 assert hybrid <= set(names), sorted(hybrid - set(names))
 from repro_torch.train import distill_dense_scorer, adamw
+training = {"repro_torch." + m for m in (
+    "data", "data.synthetic", "forest.binning", "forest.gbdt", "forest.lambdamart",
+    "forest.reorder", "metrics.classification", "core.lear",
+)}
+assert training <= set(names), sorted(training - set(names))
+from repro_torch.forest import GBDTParams, train_gbdt, train_lambdamart, reordered_ensemble
+from repro_torch.core import train_lear, build_continue_labels, instance_weights
+from repro_torch.metrics import precision_recall, trees_traversed
+from repro_torch.data import make_letor_dataset
 from repro_torch.models import DenseScorer, dense_params_from_numpy
 leaked = sorted(
     m for m in sys.modules
