@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the LEAR serving path and its training
-pipeline once on one card.
+"""Drive the PyTorch/CUDA port of the LEAR serving path, its training
+pipeline and the model cells once on one card.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc`` in ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
@@ -109,8 +109,36 @@ Phases, each of which must pass:
   batch p50 beside ``serve``'s on random weights. ``kernels`` also holds
   the segments kernel to its plain version at ``train_lear``'s launch.
 
+- ``cells``: the model-cell path (``repro_torch.models.api.make_cell``).
+  First both launchers at the reference's defaults (smoke configs):
+  ``launch.serve`` for ``dlrm-rm2`` and ``lear-msn1`` (9 forest kernel
+  launches), ``launch.train`` for ``dlrm-rm2`` (20 steps, checkpoints at
+  10 and 20 in a temporary directory under ``build/``), and
+  ``launch.train`` for ``lear-msn1``, which must exit as the reference's
+  does. Then each cell at full width and its published shapes, one cell at
+  a time, each printing its peak memory (``max_memory_allocated``) and its
+  step time (CUDA events, median after one warm step): DLRM-RM2 with
+  45.56 GB of tables trains 5 steps on one batch of 65,536 (row-wise
+  Adagrad on sparse rows, in place; the loss must fall), and step 1's loss
+  and touched rows are held to the CPU port on a compact copy of the rows
+  the batch touches (1e-5; rows touched by a sample whose ReLU decisions
+  differ between card and CPU are set aside and counted), with sampled
+  untouched rows bit-unchanged; its three serving shapes use the trained
+  tables and hold their first 64 requests or 4,096 candidates to the CPU
+  port on a compact copy. DeepFM, DIN and BERT4Rec train (loss falling)
+  and serve (finite, of the declared shape); DIN's retrieval sweeps its
+  candidates in chunks, and DIN resumes bit-exactly from a checkpoint at
+  full width; BERT4Rec's two cuts are printed with their arithmetic. The
+  ``lear-msn1`` cell at ``rank_xl`` (4,096 × 256 = 1,048,576 rows) and
+  ``rank_online`` must launch the forest kernel 3 times a step, equal the
+  same step through the kernel's plain version on the card (0 difference)
+  and, for its first 64 queries, the CPU port (1e-5, documents whose
+  Continue probability is within 1e-5 of the threshold set aside);
+  ``kernels`` also holds its three ``rank_xl`` launches to their plain
+  versions and times them.
+
 The last lines are a one-line summary of the tier, the gated tail, the
-hybrid and the training runs, the
+hybrid, the training and the cell runs, the
 card's name and power limit, one JSON line with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
@@ -228,22 +256,32 @@ def _models(device, sentinels):
     return cfg, ranker, clfs
 
 
-def _bound(B: int, F: int, pf, n_blocks: int, S: int) -> tuple[float, str]:
-    trees = n_blocks * pf.block_t
-    N, L = pf.feature.shape[1], pf.leaf_value.shape[1]
-    nbytes = B * F * 4 + trees * N * (4 + 4 + 8) + trees * L * 4 + B * S * 4
-    ops = OPS_PER_NODE_TEST * B * trees * N
+def _bound(B: int, F: int, pf, seg_lo: int, seg_hi: int, S: int = 1,
+           n_valid: int | None = None) -> tuple[float, str]:
+    """The least time for the work a launch over segments [seg_lo, seg_hi)
+    needs: the ensemble's own trees there (the layout's padding trees and
+    node slots left out), ``pf.n_nodes`` node tests each, on ``B`` rows
+    (``n_valid`` of them for the gated tail, which reads its count); bytes:
+    the rows' features, the trees' 16-byte node records and leaves, each
+    read once, and ``B × S`` outputs written once."""
+    trees = pf.boundaries[seg_hi - 1] - (pf.boundaries[seg_lo - 1] if seg_lo else 0)
+    rows = B if n_valid is None else n_valid
+    tables = trees * (pf.n_nodes * (4 + 4 + 8) + pf.n_leaves * 4) if rows else 0
+    nbytes = rows * F * 4 + tables + B * S * 4 + (0 if n_valid is None else 4)
+    ops = OPS_PER_NODE_TEST * rows * trees * pf.n_nodes
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def phase_kernels(tail_cases, hybrid_cases=(), train_cases=()) -> dict:
+def phase_kernels(tail_cases, hybrid_cases=(), train_cases=(), cell_cases=()) -> dict:
     """Each kernel against its plain version and timed, at B = Q·D and at
     the compaction capacities of ``tail_cases`` (``(layout, seg_lo,
     seg_hi, B)`` as the serve runs launched them), and of ``hybrid_cases``
     (``(kernel, layout, seg_lo, seg_hi, B)`` as the hybrid runs launched
     them) on a block compacted as the dense gate compacts it: the rows of a
-    keep fraction of the batch, then padding rows that repeat row 0."""
+    keep fraction of the batch, then padding rows that repeat row 0; and
+    the forest cell's launches ``cell_cases`` (``(label, padded forest,
+    X, seg_lo, seg_hi)``) on the cell's own inputs."""
     import numpy as np
     import torch
 
@@ -275,7 +313,7 @@ def phase_kernels(tail_cases, hybrid_cases=(), train_cases=()) -> dict:
             n_tree_blocks=sum(pf.seg_blocks[seg_lo:seg_hi]), leaf_gather=pf.leaf_gather,
         )
         return (
-            "forest_score", label, pf, xs, kw["n_tree_blocks"], 1,
+            "forest_score", label, pf, xs, kw["n_tree_blocks"], (seg_lo, seg_hi, 1),
             lambda: fs.forest_score_kernel(xs, *tables(pf), packed=pf.packed, **kw),
             lambda: fs.forest_score_plain(
                 xs, *tables(pf), block_t=kw["block_t"],
@@ -291,7 +329,7 @@ def phase_kernels(tail_cases, hybrid_cases=(), train_cases=()) -> dict:
             block_t=pf.block_t,
         )
         return (
-            "forest_score_segments", label, pf, xs, n_seg_blocks, S,
+            "forest_score_segments", label, pf, xs, n_seg_blocks, (0, S, S),
             lambda: fs.forest_score_segments_kernel(
                 xs, *tables(pf), leaf_gather=pf.leaf_gather, packed=pf.packed, **seg_kw
             ),
@@ -321,9 +359,10 @@ def phase_kernels(tail_cases, hybrid_cases=(), train_cases=()) -> dict:
 
     # train_lear's segmented launch on the classifier split, trained ranker.
     cases += [seg_case(label, pf, xs, pf.n_segments) for label, pf, xs in train_cases]
+    cases += [range_case(label, pf, xs, lo, hi) for label, pf, xs, lo, hi in cell_cases]
 
     results: dict[str, dict] = {}
-    for name, label, pf, xs, n_blocks, S_out, kernel, plain in cases:
+    for name, label, pf, xs, n_blocks, (lo, hi, S_out), kernel, plain in cases:
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.isfinite(got).all():
@@ -331,15 +370,16 @@ def phase_kernels(tail_cases, hybrid_cases=(), train_cases=()) -> dict:
         err = float((got - want).abs().max())
         k_ms = device_ms(kernel, reps=200)
         p_ms = device_ms(plain, reps=5, warmup=1)
-        b_ms, b_by = _bound(xs.shape[0], xs.shape[1], pf, n_blocks, S_out)
+        b_ms, b_by = _bound(xs.shape[0], xs.shape[1], pf, lo, hi, S_out)
+        n_trees = pf.boundaries[hi - 1] - (pf.boundaries[lo - 1] if lo else 0)
         plan = fs.launch_plan(
             xs.shape[0], xs.shape[1], pf.feature.shape[1], pf.leaf_value.shape[1],
             pf.block_t, n_blocks, segmented=name == "forest_score_segments",
         )
         log(
             f"[kernels] {name} {label}: B={xs.shape[0]} F={xs.shape[1]} "
-            f"trees={n_blocks * pf.block_t} N={pf.feature.shape[1]} "
-            f"L={pf.leaf_value.shape[1]} max_abs_err={err:.3g} kernel={k_ms:.4f} ms "
+            f"trees={n_trees} ({n_blocks * pf.block_t} padded) N={pf.n_nodes} "
+            f"({pf.feature.shape[1]} padded) L={pf.n_leaves} max_abs_err={err:.3g} kernel={k_ms:.4f} ms "
             f"plain={p_ms:.3f} ms bound={b_ms:.5f} ms ({b_by}) "
             f"x{k_ms / b_ms:.1f} bound; grid {plan['tiles']}x{plan['chunks']} "
             f"(tile {plan['tile']} docs, {plan['warps_d']}x{plan['warps_t']} warps "
@@ -1570,17 +1610,6 @@ def _mixed_batches(n_features: int, clf_forest, n_hot: int = 20):
     return out
 
 
-def _gated_bound(B: int, n_valid: int, F: int, pf, n_blocks: int) -> tuple[float, str]:
-    """The gated tail's least time: the valid rows' work, and B outputs."""
-    trees = n_blocks * pf.block_t
-    N, L = pf.feature.shape[1], pf.leaf_value.shape[1]
-    tables = trees * N * (4 + 4 + 8) + trees * L * 4 if n_valid else 0
-    nbytes = 4 + n_valid * F * 4 + tables + B * 4
-    ops = OPS_PER_NODE_TEST * n_valid * trees * N
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
-
-
 def phase_gated() -> dict:
     """The gated tail against its plain version, and timed at counts 0, B."""
     import numpy as np
@@ -1617,10 +1646,10 @@ def phase_gated() -> dict:
                 continue
             k_ms = device_ms(kernel, reps=200)
             p_ms = device_ms(plain, reps=5, warmup=1)
-            b_ms, b_by = _gated_bound(B, count, cfg.n_features, pf, kw["n_tree_blocks"])
+            b_ms, b_by = _bound(B, cfg.n_features, pf, 1, 2, n_valid=count)
             log(
                 f"[kernels] forest_score gated tail B={B} n_valid={count}: "
-                f"trees={kw['n_tree_blocks'] * pf.block_t} max_abs_err={err:.3g} "
+                f"trees={cfg.n_trees - cfg.sentinel} max_abs_err={err:.3g} "
                 f"kernel={k_ms:.4f} ms plain={p_ms:.3f} ms bound={b_ms:.3g} ms ({b_by})"
             )
             out["cases"].append({
@@ -1630,6 +1659,507 @@ def phase_gated() -> dict:
     log(f"[kernels] gated tail equals its plain version at B in {GATED_BS}, "
         f"n_valid in (0, 1, 33, B/2, B): max_abs_err={out['max_abs_err']:.3g}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# [cells]: the model-cell path at full width.
+# ---------------------------------------------------------------------------
+
+# Cuts of the [cells] phase, by arithmetic (PERF.md §4). BERT4Rec's tied
+# softmax at 65,536 × 200 × 27,136 f32 is 1.42 TB of logits, and its
+# attention at 262,144 × 2 heads × 200 × 200 f32 is 84 GB of scores.
+CELL_BATCH_CUTS = {
+    ("bert4rec", "train_batch"): (256, "tied-softmax logits at 65,536 x 200 x 27,136 f32 "
+                                       "are 1.42 TB"),
+    ("bert4rec", "serve_bulk"): (8192, "attention scores at 262,144 x 2 x 200 x 200 f32 "
+                                       "are 84 GB"),
+}
+CELL_RECSYS = ("dlrm-rm2", "deepfm", "din", "bert4rec")
+CELL_TIMED_STEPS = 3          # timed after one warm step; the median is printed
+CELL_TRAIN_STEPS = 5          # training steps on one batch (the first is the warm one)
+CELL_CHECK_REQUESTS = 64      # requests held to the CPU port
+CELL_CHECK_CANDS = 4096       # candidates held to the CPU port
+CELL_UNTOUCHED_SAMPLE = 2048  # untouched rows sampled per row-wise table
+
+
+def _events_ms(fn, n: int) -> tuple[float, list]:
+    """Median device time of ``n`` calls of ``fn``, each between its own
+    pair of CUDA events; returns it with the last call's result."""
+    import torch
+
+    times, out = [], None
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), out
+
+
+def _cell_shapes(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    for shape in get_config(arch).shapes:
+        cut = CELL_BATCH_CUTS.get((arch, shape.name))
+        if cut is not None:
+            log(f"[cells] {arch} {shape.name}: cut batch {shape.batch} -> {cut[0]} ({cut[1]})")
+            shape = dataclasses.replace(shape, batch=cut[0])
+        yield shape
+
+
+def _gib(n_bytes: float) -> str:
+    return f"{n_bytes / 1e9:.2f} GB"
+
+
+def _compact_dlrm(cfg, params, sparse, cands=None):
+    """A CPU copy of DLRM's parameters holding only the table rows that
+    ``sparse`` ([n, fields, hot] ids) and ``cands`` touch, with the ids
+    remapped. A table below ROWWISE_MIN_ROWS rows is copied whole; a larger
+    one keeps its touched rows first and is padded with zero rows to at least
+    ROWWISE_MIN_ROWS, so the optimizer still treats it row-wise. Returns
+    (params, sparse, cands, touched rows per table)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.recsys import pad_rows
+    from repro_torch.train.optimizer import ROWWISE_MIN_ROWS
+
+    out = {k: v.cpu() for k, v in params.items() if not k.startswith("tables/")}
+    new_sparse, new_cands, touched = sparse.copy(), None, {}
+    n_tables = len(cfg.vocab_sizes)
+    for i in range(n_tables):
+        table = params[f"tables/t{i}"]
+        ids = sparse[:, i] if i < sparse.shape[1] else np.zeros((0,), np.int32)
+        if i == n_tables - 1 and cands is not None:
+            ids = np.concatenate([ids.ravel(), cands])
+        if table.shape[0] < ROWWISE_MIN_ROWS:
+            out[f"tables/t{i}"] = table.cpu()
+            if i == n_tables - 1 and cands is not None:
+                new_cands = cands.copy()
+            continue
+        u = np.unique(ids)
+        touched[f"tables/t{i}"] = u
+        rows = torch.zeros(pad_rows(max(len(u), ROWWISE_MIN_ROWS)), table.shape[1])
+        rows[:len(u)] = table.index_select(0, torch.as_tensor(u, dtype=torch.int64, device=table.device)).cpu()
+        out[f"tables/t{i}"] = rows
+        if i < sparse.shape[1]:
+            new_sparse[:, i] = np.searchsorted(u, sparse[:, i])
+        if i == n_tables - 1 and cands is not None:
+            new_cands = np.searchsorted(u, cands).astype(np.int32)
+    return out, new_sparse, new_cands, touched
+
+
+def _relu_signs(cfg, params, batch):
+    """DLRM's ReLU decisions per sample, ``[B, units]`` bool on the host,
+    read from the port's own forward pass: every bottom-MLP unit, then every
+    hidden top-MLP unit."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.models.recsys import dlrm_forward
+
+    relu, signs = torch.relu, []
+
+    def recording_relu(x):
+        signs.append(x > 0)
+        return relu(x)
+
+    with torch.no_grad(), mock.patch.object(torch, "relu", recording_relu):
+        dlrm_forward(cfg, params, batch)
+    return torch.cat(signs, dim=1).cpu()
+
+
+def _dlrm_cell() -> dict:
+    """DLRM-RM2 at full width: train on one batch of 65,536 with row-wise
+    Adagrad (sparse rows in place), then serve the three serving shapes with
+    the trained tables, each held to the CPU port on a compact copy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.trainer import init_state
+
+    dev = torch.device(DEVICE)
+    cfg = get_config("dlrm-rm2")
+    shapes = {s.name: s for s in _cell_shapes("dlrm-rm2")}
+    out = {}
+
+    # Training.
+    torch.cuda.reset_peak_memory_stats()
+    cell = make_cell(cfg, shapes["train_batch"])
+    t0 = time.perf_counter()
+    state = cell.init_state(SEED, device=dev)
+    torch.cuda.synchronize()
+    tables = sum(v.numel() * 4 for k, v in state.params.items() if k.startswith("tables/"))
+    acc = sum(v.numel() * 4 for v in state.opt_state["acc"].values())
+    row_acc = sum(v.numel() * 4 for k, v in state.opt_state["acc"].items()
+                  if k.startswith("tables/") and v.ndim == 1)
+    n_rows = sum(v.shape[0] for k, v in state.params.items() if k.startswith("tables/"))
+    log(f"[cells] dlrm-rm2: init on the card in {time.perf_counter() - t0:.2f} s: "
+        f"{n_rows:,} padded table rows x {cfg.embed_dim} = {_gib(tables)} of tables, "
+        f"row accumulators {_gib(row_acc)} (all Adagrad state {_gib(acc)}); largest table "
+        f"{max(v.numel() for k, v in state.params.items() if k.startswith('tables/')):,} elements")
+    raw = synthesize_inputs(cell, seed=SEED)
+    batch = as_tensors(raw, dev)
+    cpu_params, cpu_sparse, _, touched = _compact_dlrm(cfg, state.params, raw["sparse"])
+    cpu_batch = {"dense": torch.as_tensor(raw["dense"]), "sparse": torch.as_tensor(cpu_sparse),
+                 "label": torch.as_tensor(raw["label"])}
+    # The kink rule: a sample whose ReLU decisions differ between the card
+    # and the CPU (a pre-activation within rounding of 0) takes another
+    # gradient path; the rows it touches are set aside.
+    with torch.no_grad():
+        kinked = (_relu_signs(cfg, state.params, batch)
+                  != _relu_signs(cfg, cpu_params, cpu_batch)).any(dim=1)
+    kinked = kinked.numpy()
+    aside = {k: np.isin(u, raw["sparse"][kinked, int(k.split("/t")[1])]) for k, u in touched.items()}
+    rng = np.random.default_rng(SEED + 50)
+    untouched = {}
+    for k, u in touched.items():
+        rows = rng.integers(0, state.params[k].shape[0], CELL_UNTOUCHED_SAMPLE)
+        rows = np.unique(rows[~np.isin(rows, u)])
+        idx = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+        untouched[k] = (idx, state.params[k].index_select(0, idx).cpu())
+
+    losses, times = [], []
+    for i in range(CELL_TRAIN_STEPS):
+        ms, (state, metrics) = _events_ms(lambda: cell.step(state, batch), 1)
+        losses.append(float(metrics["loss"]))
+        times.append(ms)
+        if i == 0:
+            mlp1 = {k: v.cpu() for k, v in state.params.items() if not k.startswith("tables/")}
+            after1 = {k: state.params[k].index_select(
+                0, torch.as_tensor(u, dtype=torch.int64, device=dev)).cpu()
+                for k, u in touched.items()}
+            acc1 = {k: state.opt_state["acc"][k].index_select(
+                0, torch.as_tensor(u, dtype=torch.int64, device=dev)).cpu()
+                for k, u in touched.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dlrm-rm2 train: losses {losses} not finite or not falling")
+
+    # The CPU port, one step on the compact copy of the same batch.
+    t0 = time.perf_counter()
+    cpu_state = init_state(cpu_params, get_optimizer(cfg.optimizer))
+    cpu_state, cpu_m = cell.step(cpu_state, cpu_batch)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(losses[0] - float(cpu_m["loss"]))
+    keep = {k: torch.as_tensor(~a) for k, a in aside.items()}
+    row_err = max((float((after1[k] - cpu_state.params[k][:len(u)])[keep[k]].abs().max())
+                   for k, u in touched.items()), default=0.0)
+    acc_err = max((float(((acc1[k] - cpu_state.opt_state["acc"][k][:len(u)]).abs()
+                          / cpu_state.opt_state["acc"][k][:len(u)].abs().clamp_min(1e-30))[keep[k]].max())
+                   for k, u in touched.items()), default=0.0)
+    n_aside = sum(int(a.sum()) for a in aside.values())
+    aside_err = max((float((after1[k] - cpu_state.params[k][:len(u)])[~keep[k]].abs().max())
+                     for k, u in touched.items() if (~keep[k]).any()), default=0.0)
+    mlp_err = max(float((v - cpu_state.params[k]).abs().max()) for k, v in mlp1.items())
+    changed = sum(
+        int(((state.params[k].index_select(0, idx).cpu() != before).any(dim=1)
+             | (state.opt_state["acc"][k].index_select(0, idx).cpu() != 0)).sum())
+        for k, (idx, before) in untouched.items()
+    )
+    n_sampled = sum(len(idx) for idx, _ in untouched.values())
+    n_touched = sum(len(u) for u in touched.values())
+    log(f"[cells] dlrm-rm2 train_batch B={shapes['train_batch'].batch}: {CELL_TRAIN_STEPS} steps "
+        f"on one batch, losses {[round(x, 6) for x in losses]}; step {statistics.median(times[1:]):.3f} ms "
+        f"(median of {CELL_TRAIN_STEPS - 1} after one warm step of {times[0]:.3f} ms); "
+        f"peak memory {_gib(peak)}; vs the CPU port on a compact copy ({n_touched:,} touched "
+        f"rows of the row-wise tables, {cpu_s:.1f} s): |loss|={loss_err:.3g} "
+        f"max|touched row|={row_err:.3g} (max rel|row accumulator|={acc_err:.3g}, not held: "
+        f"it carries the gradient's scale, whose rounding a loss gradient sigma(z) - y near 0 "
+        f"magnifies; the step divides it out); kink rule: "
+        f"{int(kinked.sum())} samples with a ReLU decision that differs, {n_aside} of their "
+        f"rows set aside (max|row| there {aside_err:.3g}) "
+        f"(MLP weights after the first dense Adagrad step, not held: {mlp_err:.3g}); "
+        f"untouched rows changed: {changed} of {n_sampled} sampled")
+    if loss_err > TOL * max(1.0, abs(losses[0])) or row_err > TOL or changed:
+        raise AssertionError("dlrm-rm2 train: the card differs from the CPU port")
+    out["train_batch"] = {"ms": statistics.median(times[1:]), "peak": peak, "losses": losses}
+
+    # Serving with the trained tables.
+    params = state.params
+    del state, cpu_state, cpu_params
+    for name in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        torch.cuda.reset_peak_memory_stats()
+        scell = make_cell(cfg, shapes[name])
+        raw = synthesize_inputs(scell, seed=SEED + 1)
+        inputs = as_tensors(raw, dev)
+        scell.step(params, inputs)  # warm
+        ms, scores = _events_ms(lambda: scell.step(params, inputs), CELL_TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        n_out = shapes[name].n_candidates and -(-shapes[name].n_candidates // 512) * 512
+        want_shape = (n_out or shapes[name].batch,)
+        if tuple(scores.shape) != want_shape or not torch.isfinite(scores).all():
+            raise AssertionError(f"dlrm-rm2 {name}: shape {tuple(scores.shape)} or non-finite")
+        if name == "retrieval_cand":
+            c = raw["cand_ids"][:CELL_CHECK_CANDS]
+            cp, cs, cc, _ = _compact_dlrm(cfg, params, raw["sparse"], c)
+            want = make_cell(cfg, shapes[name]).step(cp, {
+                "dense": torch.as_tensor(raw["dense"]), "sparse": torch.as_tensor(cs),
+                "cand_ids": torch.as_tensor(cc)})
+            got, what = scores[:CELL_CHECK_CANDS].cpu(), f"first {CELL_CHECK_CANDS} candidates"
+        else:
+            n = CELL_CHECK_REQUESTS
+            cp, cs, _, _ = _compact_dlrm(cfg, params, raw["sparse"][:n])
+            want = scell.step(cp, {"dense": torch.as_tensor(raw["dense"][:n]),
+                                   "sparse": torch.as_tensor(cs)})
+            got, what = scores[:n].cpu(), f"first {n} requests"
+        err = float((got - want).abs().max())
+        log(f"[cells] dlrm-rm2 {name}: {want_shape[0]:,} scores in {ms:.3f} ms "
+            f"(median of {CELL_TIMED_STEPS} after one warm call); peak memory {_gib(peak)}; "
+            f"{what} vs the CPU port on a compact copy: max_abs_err={err:.3g}")
+        if not err <= TOL:
+            raise AssertionError(f"dlrm-rm2 {name}: differs from the CPU port by {err}")
+        out[name] = {"ms": ms, "peak": peak}
+    del params
+    return out
+
+
+def _recsys_cell(arch: str) -> dict:
+    """DeepFM, DIN or BERT4Rec at full width: train steps on one batch
+    (the loss must fall), then each serving shape (finite, of its shape)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import DIN_CAND_CHUNK, make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+
+    dev = torch.device(DEVICE)
+    cfg = get_config(arch)
+    out, params = {}, None
+    for shape in _cell_shapes(arch):
+        torch.cuda.reset_peak_memory_stats()
+        cell = make_cell(cfg, shape)
+        inputs = as_tensors(synthesize_inputs(cell, seed=SEED), dev)
+        if shape.kind == "train":
+            state = cell.init_state(SEED, device=dev)
+            losses, times = [], []
+            for _ in range(CELL_TRAIN_STEPS):
+                ms, (state, m) = _events_ms(lambda: cell.step(state, inputs), 1)
+                losses.append(float(m["loss"]))
+                times.append(ms)
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"{arch} train: losses {losses} not finite or not falling")
+            params = state.params
+            del state
+            ms = statistics.median(times[1:])
+            what = f"losses {[round(x, 6) for x in losses]}"
+        else:
+            cell.step(params, inputs)  # warm
+            ms, scores = _events_ms(lambda: cell.step(params, inputs), CELL_TIMED_STEPS)
+            n = -(-shape.n_candidates // 512) * 512 if shape.n_candidates else shape.batch
+            if tuple(scores.shape) != (n,) or not torch.isfinite(scores).all():
+                raise AssertionError(f"{arch} {shape.name}: shape {tuple(scores.shape)} or non-finite")
+            what = f"{n:,} finite scores"
+            if arch == "din" and shape.n_candidates:
+                what += f", swept in chunks of {DIN_CAND_CHUNK:,} candidates"
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[cells] {arch} {shape.name} B={shape.batch}: {what}; step {ms:.3f} ms "
+            f"(median after one warm step); peak memory {_gib(peak)}")
+        out[shape.name] = {"ms": ms, "peak": peak}
+    if arch == "din":
+        out["resume"] = _din_resume(cfg)
+    return out
+
+
+def _din_resume(cfg) -> bool:
+    """DIN at full width: 4 steps straight against 2 steps, a checkpoint
+    saved and restored, and 2 more steps: bit-equal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.utils import tree_items
+
+    dev = torch.device(DEVICE)
+    cell = make_cell(cfg, next(s for s in cfg.shapes if s.kind == "train"))
+    batches = [as_tensors(synthesize_inputs(cell, seed=i), dev) for i in range(4)]
+    straight = cell.init_state(SEED, device=dev)
+    for b in batches:
+        straight, _ = cell.step(straight, b)
+    resumed = cell.init_state(SEED, device=dev)
+    for b in batches[:2]:
+        resumed, _ = cell.step(resumed, b)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="cells_ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        save_checkpoint(ckpt, 2, resumed, extra={"step": 2})
+        template = cell.init_state(SEED + 1, device=dev)
+        torch.cuda.synchronize()
+        state_bytes = sum(v.numel() * v.element_size() for _, v in tree_items(template))
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        resumed, extra = restore_checkpoint(ckpt, template)
+        torch.cuda.synchronize()
+        restore_extra = torch.cuda.max_memory_allocated() - before
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for b in batches[int(extra["step"]):]:
+        resumed, _ = cell.step(resumed, b)
+    a, b = dict(tree_items(straight)), dict(tree_items(resumed))
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    log(f"[cells] din resume at full width: 4 steps straight vs 2 + save + restore + 2: "
+        f"{len(a)} tensors, {len(differ)} differ; the restore, in place into a state of "
+        f"{_gib(state_bytes)}, took {_gib(restore_extra)} more card memory at its peak")
+    if differ:
+        raise AssertionError(f"din resume is not bit-equal: {differ[:5]}")
+    if restore_extra * 2 > state_bytes:
+        raise AssertionError(f"din restore took {restore_extra} bytes beside the state")
+    return True
+
+
+def _forest_cell(shape_name: str) -> dict:
+    """lear-msn1 at a published shape: the kernel route against the plain
+    route on the card (0 difference), the first 64 queries against the CPU
+    port (1e-5, boundary rule), three kernel launches a step."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import forest_head, make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+
+    dev = torch.device(DEVICE)
+    cfg = get_config("lear-msn1")
+    shape = next(s for s in cfg.shapes if s.name == shape_name)
+    cell = make_cell(cfg, shape)
+    torch.cuda.reset_peak_memory_stats()
+    params = cell.init_state(SEED, device=dev)
+    t0 = time.perf_counter()
+    raw = synthesize_inputs(cell, seed=SEED)
+    inputs = as_tensors(raw, dev)
+    synth_s = time.perf_counter() - t0
+    Q, D, F = inputs["X"].shape
+    cell.step(params, inputs)  # warm: buffers, plans, scratch
+    fs.reset_kernel_launches()
+    ops.reset_launch_counts()
+    ms, (scores, cont) = _events_ms(lambda: cell.step(params, inputs), CELL_TIMED_STEPS)
+    launches, dispatches = fs.kernel_launches(), ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["forest_score"] != 3 * CELL_TIMED_STEPS:
+        raise AssertionError(f"forest cell {shape_name}: kernel launches {launches}")
+
+    # The same step with the kernel's plain version, on the card.
+    def plain(x, feature, threshold, mask, leaf, *, leaf_gather, packed, **kw):
+        return fs.forest_score_plain(x, feature, threshold, mask, leaf, **kw)
+
+    with mock.patch.object(ops, "forest_score_kernel", plain):
+        p_scores, p_cont = cell.step(params, inputs)
+    plain_err = float((scores - p_scores).abs().max())
+    cont_diff = int((cont != p_cont).sum())
+
+    # The first 64 queries on the CPU port (same seed, same trees).
+    n = min(CELL_CHECK_REQUESTS, Q)
+    cpu_params = cell.init_state(SEED, device="cpu")
+    cpu_in = {"X": torch.as_tensor(raw["X"][:n]), "mask": torch.as_tensor(raw["mask"][:n])}
+    c_scores, c_cont = cell.step(cpu_params, cpu_in)
+    _, _, prob = forest_head(cfg, cpu_params, cpu_in["X"], cpu_in["mask"])
+    boundary = cpu_in["mask"] & ((prob - cpu_params["threshold"]).abs() <= TOL)
+    ok = ~boundary
+    cpu_err = float((scores[:n].cpu() - c_scores)[ok].abs().max())
+    cpu_cont = int((cont[:n].cpu() != c_cont)[ok].sum())
+    log(f"[cells] lear-msn1 {shape_name}: {Q} queries x {D} docs = {Q * D:,} rows, "
+        f"step {ms:.3f} ms (median of {CELL_TIMED_STEPS} after one warm step; inputs drawn "
+        f"in {synth_s:.2f} s); peak memory {_gib(peak)}; continue rate "
+        f"{float(cont.sum()) / float(inputs['mask'].sum()):.4f}; kernel_launches={launches} "
+        f"dispatches={dispatches}; kernel vs plain on the card: max_abs_err={plain_err:.3g}, "
+        f"cont differs at {cont_diff}; first {n} queries vs the CPU port: "
+        f"max_abs_err={cpu_err:.3g}, cont differs at {cpu_cont} "
+        f"({int(boundary.sum())} boundary docs set aside)")
+    if plain_err != 0.0 or cont_diff or not cpu_err <= TOL or cpu_cont:
+        raise AssertionError(f"forest cell {shape_name}: kernel, plain and CPU disagree")
+    pfc = ops.padded_forest(params["classifier"])
+    pf = ops.padded_forest(params["ranker"], boundaries=(cfg.sentinel, cfg.n_trees))
+    x2d = inputs["X"].reshape(-1, F)
+    _, aug, _ = forest_head(cfg, params, inputs["X"], inputs["mask"])
+    cases = [(f"cell {shape_name} ranker head [0,1)", pf, x2d, 0, 1),
+             (f"cell {shape_name} classifier [0,1)", pfc, aug, 0, 1),
+             (f"cell {shape_name} ranker tail [1,2)", pf, x2d, 1, 2)]
+    return {"ms": ms, "peak": peak, "launches": launches["forest_score"], "cases": cases}
+
+
+def _launchers() -> int:
+    """Both launchers at the reference's defaults (smoke configs) on the
+    card; returns the forest kernel's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.launch import serve, train
+
+    fs.reset_kernel_launches()
+    serve.main(["--arch", "dlrm-rm2", "--device", DEVICE])
+    serve.main(["--arch", "lear-msn1", "--device", DEVICE])
+    launches = fs.kernel_launches()["forest_score"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="cells_launch_", dir=os.path.join(ROOT, "build"))
+    try:
+        train.main(["--arch", "dlrm-rm2", "--ckpt-dir", ckpt, "--device", DEVICE])
+        if sorted(os.listdir(ckpt)) != ["step_0000000010.json", "step_0000000010.npz",
+                                        "step_0000000020.json", "step_0000000020.npz"]:
+            raise AssertionError(f"train launcher checkpoints: {sorted(os.listdir(ckpt))}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        train.main(["--arch", "lear-msn1", "--device", DEVICE])
+        raise AssertionError("the train launcher accepted lear-msn1")
+    except SystemExit as e:
+        log(f"[cells] launch.train --arch lear-msn1: exits as the reference's does: {e}")
+    log(f"[cells] launchers: serve dlrm-rm2 and lear-msn1, train dlrm-rm2 (20 steps, "
+        f"checkpoints at 10 and 20) on the card; forest kernel launches {launches}")
+    if launches != 9:
+        raise AssertionError(f"launch.serve lear-msn1: {launches} kernel launches, want 9")
+    return launches
+
+
+def phase_cells(card: str) -> dict:
+    """The model-cell path: the launchers, then every RecSys cell and the
+    forest cell at full width, one cell at a time (two DLRM-RM2 states do
+    not fit one card)."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = _launchers()
+    results = {"dlrm-rm2": _dlrm_cell()}
+    for arch in CELL_RECSYS[1:]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        results[arch] = _recsys_cell(arch)
+    cases = []
+    for name in ("rank_xl", "rank_online"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = _forest_cell(name)
+        launches += r.pop("launches")
+        cases += r.pop("cases") if name == "rank_xl" else []
+        results[f"lear-msn1 {name}"] = r
+    xl = results["lear-msn1 rank_xl"]
+    dl = results["dlrm-rm2"]
+    summary = (
+        f"cells: dlrm-rm2 train step {dl['train_batch']['ms']:.3f} ms at "
+        f"{_gib(dl['train_batch']['peak'])} peak, lear-msn1 rank_xl step {xl['ms']:.3f} ms"
+    )
+    log(f"[cells] done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"launches": {"forest_score": launches}, "cases": cases, "summary": summary}
 
 
 def main() -> int:
@@ -1667,7 +2197,11 @@ def main() -> int:
         for name, n in train["launches"].items():
             launches[name] += n
         elapsed("train")
-        kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"])
+        cells = phase_cells(card)
+        for name, n in cells["launches"].items():
+            launches[name] += n
+        elapsed("cells")
+        kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"], cells["cases"])
         gated = phase_gated()
         elapsed("kernels")
     except Exception:  # report the failing phase, then fail the run
@@ -1705,7 +2239,8 @@ def main() -> int:
     full = {c["B"]: c["ms"] for c in gated["cases"] if c["n_valid"] == c["B"]}
     log(f"[summary] {tier['summary']}; gated tail at a full count "
         + ", ".join(f"B={B} {ms:.4f} ms" for B, ms in sorted(full.items()))
-        + f"; {hybrid['summary']}; {train['summary']}; run {time.perf_counter() - t_start:.1f} s")
+        + f"; {hybrid['summary']}; {train['summary']}; {cells['summary']}; "
+        f"run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

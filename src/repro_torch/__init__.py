@@ -1,5 +1,5 @@
 """repro_torch — the LEAR serving path and its training in PyTorch, with CUDA
-kernels for Hopper.
+kernels for Hopper, and the model cells of the architecture registry.
 
 A port of :mod:`repro` (JAX, Pallas kernels for the TPU), which stays in
 the repository unchanged as the reference the port is tested against. The
@@ -32,16 +32,29 @@ Module map (port ↔ reference):
 ``repro_torch.core.cascade``            ``repro.core.cascade``
 ``repro_torch.models.dense_scorer``     ``repro.models.dense_scorer`` (+ the
                                         ``dense_params_from_numpy`` converter)
-``repro_torch.train.optimizer``         ``repro.train.optimizer`` (AdamW)
+``repro_torch.models.layers``           ``repro.models.layers`` (``rms_norm``)
+``repro_torch.models.recsys``           ``repro.models.recsys`` (+ the
+                                        ``recsys_params_from_numpy`` /
+                                        ``_to_numpy`` converters)
+``repro_torch.models.api``              ``repro.models.api`` (RecSys and
+                                        forest cells)
+``repro_torch.models.synth``            ``repro.models.synth``
+``repro_torch.train.optimizer``         ``repro.train.optimizer``
+``repro_torch.train.trainer``           ``repro.train.trainer``
+``repro_torch.train.checkpoint``        ``repro.train.checkpoint``
 ``repro_torch.train.distill``           ``repro.train.distill``
+``repro_torch.data.pipeline``           ``repro.data.pipeline``
 ``repro_torch.metrics.ranking``         ``repro.metrics.ranking``
 ``repro_torch.metrics.speedup``         ``repro.metrics.speedup``
 ``repro_torch.metrics.classification``  ``repro.metrics.classification``
 ``repro_torch.serve.calibration``       ``repro.serve.calibration``
 ``repro_torch.serve.ranking_service``   ``repro.serve.ranking_service``
-``repro_torch.configs.lear_msn1``       ``repro.configs.lear_msn1`` (+ its
-                                        ``ForestConfig``)
-``repro_torch.utils``                   (none: device resolution)
+``repro_torch.configs``                 ``repro.configs`` (the registry,
+                                        ``base`` and the eleven configs)
+``repro_torch.launch.serve``            ``repro.launch.serve``
+``repro_torch.launch.train``            ``repro.launch.train``
+``repro_torch.utils``                   (none: device resolution, the path
+                                        walk of nested states)
 ======================================  =====================================
 
 What is not ported yet is listed in ``ROADMAP.md``.

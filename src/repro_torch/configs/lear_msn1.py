@@ -1,31 +1,10 @@
 """The paper's own architecture: λ-MART ensemble (MSN-1 scale) + LEAR
 cascade. 1,047 trees / 64 leaves / 136 features, sentinel 50, 10-tree
-Continue/Exit classifier — exactly Table 1's setting.
+Continue/Exit classifier — exactly Table 1's setting."""
 
-The port's own copy of ``repro.configs.lear_msn1`` and of the fields of
-``repro.configs.base.ForestConfig`` the serving path reads.
-"""
+from repro_torch.configs.base import ForestConfig, forest_shapes
 
-from __future__ import annotations
-
-import dataclasses
-
-
-@dataclasses.dataclass(frozen=True)
-class ForestConfig:
-    """The paper's own architecture: λ-MART ensemble + LEAR cascade."""
-
-    name: str
-    n_trees: int = 1047
-    depth: int = 6
-    n_features: int = 136
-    sentinel: int = 50
-    classifier_trees: int = 10
-    # The classifier forest's depth: the reference trains it with
-    # GBDTParams(n_trees=10, depth=5) (repro.core.lear.train_lear), so it
-    # has 31 internal nodes and 32 leaves.
-    classifier_depth: int = 5
-    max_docs: int = 256
+__all__ = ["ForestConfig", "config", "smoke_config"]
 
 
 def config() -> ForestConfig:
@@ -37,6 +16,7 @@ def config() -> ForestConfig:
         sentinel=50,
         classifier_trees=10,
         max_docs=256,
+        shapes=forest_shapes(),
     )
 
 
@@ -49,4 +29,5 @@ def smoke_config() -> ForestConfig:
         sentinel=6,
         classifier_trees=4,
         max_docs=32,
+        shapes=(),
     )

@@ -124,6 +124,9 @@ class PaddedForest:
     block_t: int
     leaf_gather: str = "onehot"
     leaf_layout: str = "native"
+    # The ensemble's own node tests and leaves per tree, before padding.
+    n_nodes: int = 0
+    n_leaves: int = 0
     # The CUDA kernels' copies of the same tables: 16-byte node records
     # [T_pad, N_pad, 4] i32 (kernels.forest_score.pack_nodes) and leaf rows
     # padded to a multiple of 4 [T_pad, L4] f32 (pack_leaves).
@@ -226,6 +229,8 @@ def padded_forest(
         block_t=block_t,
         leaf_gather=leaf_gather,
         leaf_layout=leaf_layout,
+        n_nodes=N,
+        n_leaves=ens.n_leaves,
         nodes=pack_nodes(feature, threshold, mask),
         leaves=pack_leaves(leaf_value),
     )

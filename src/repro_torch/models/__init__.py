@@ -1,4 +1,6 @@
-"""Models of the port: the hybrid cascade's distilled dense scorer."""
+"""Models of the port: the hybrid cascade's distilled dense scorer, the
+RecSys family, and the model-cell API (``make_cell``) over them and the
+paper's forest."""
 
 from repro_torch.models.dense_scorer import (
     DenseScorer,
@@ -6,5 +8,9 @@ from repro_torch.models.dense_scorer import (
     dense_score,
     init_dense_scorer,
 )
+from repro_torch.models.recsys import recsys_params_from_numpy, recsys_params_to_numpy
 
-__all__ = ["DenseScorer", "dense_params_from_numpy", "dense_score", "init_dense_scorer"]
+__all__ = [
+    "DenseScorer", "dense_params_from_numpy", "dense_score", "init_dense_scorer",
+    "recsys_params_from_numpy", "recsys_params_to_numpy",
+]

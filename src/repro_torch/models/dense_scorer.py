@@ -7,7 +7,8 @@ scores the whole flat ``[Q·D, F]`` candidate block through it, the gate
 policy (:func:`repro_torch.core.strategies.dense_keep_fraction`) keeps the
 contested head, and only those survivors reach a tree. One projection
 lifts each feature vector into ``n_vec`` small vectors, their pairwise
-upper-triangle dots (the DLRM ``dot_interact``) add second-order
+upper-triangle dots (the DLRM interaction,
+:func:`repro_torch.models.recsys.dot_interact`) add second-order
 interactions, and a two-layer MLP head maps ``[projection ‖ interactions]``
 to one score. The products are plain ``torch`` matmuls, as the reference
 leaves them to XLA: the dense stage launches no forest kernel.
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch.kernels.forest_score import FIRST_TOUCHES
 from repro_torch.kernels.ops import env_int
+from repro_torch.models.recsys import dot_interact
 from repro_torch.utils import resolve_device
 
 DENSE_N_VEC = env_int("REPRO_DENSE_N_VEC", 4, minimum=2)
@@ -48,15 +50,6 @@ DENSE_HIDDEN = env_int("REPRO_DENSE_HIDDEN", 32)
 DENSE_COST_TREES = env_int("REPRO_DENSE_COST_TREES", 4)
 
 PARAM_NAMES = ("proj", "pb", "w1", "b1", "w2", "b2")
-
-
-def dot_interact(vecs: torch.Tensor) -> torch.Tensor:
-    """``[B, n, d]`` → upper-triangle pairwise dots ``[B, n(n−1)/2]``, in
-    ``np.triu_indices(n, k=1)`` order (row by row). The rows of the Gram
-    matrix are sliced on the host, so no index tensor is sent to the card."""
-    n = vecs.shape[1]
-    z = torch.bmm(vecs, vecs.transpose(1, 2))
-    return torch.cat([z[:, i, i + 1:] for i in range(n - 1)], dim=1)
 
 
 def dense_score(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Device resolution shared by the port's public entry points, and the
-device timer of its measurement scripts.
+"""Device resolution shared by the port's public entry points, the
+device timer of its measurement scripts, and the path walk of nested
+states (:func:`tree_items`, :func:`tree_map`).
 
 Every entry point that creates tensors (ensemble constructors, the ranking
 service, the calibration probe) takes an explicit ``device``. ``None`` means
@@ -10,6 +11,10 @@ with ``device="cpu"``, as the tests do.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from collections.abc import Callable, Iterator
+from typing import Any
 
 import torch
 
@@ -57,3 +62,44 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _children(tree: Any) -> Iterator[tuple[str, Any]] | None:
+    """``(key, child)`` pairs of a dict, list, tuple or dataclass instance
+    (its ``init`` fields, by name); ``None`` for a leaf."""
+    if isinstance(tree, dict):
+        return ((str(k), v) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return ((str(i), v) for i, v in enumerate(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return ((f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree) if f.init)
+    return None
+
+
+def tree_items(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
+    """Every leaf of a nested state with its ``/``-joined path, in the
+    reference's spelling of ``jax.tree_util.tree_flatten_with_path``: dict
+    keys, sequence indices and dataclass field names
+    (``params/tables/t0``, ``opt_state/acc/bot/0/1``, ``step``). A flat
+    dict whose keys are already paths flattens to the same strings."""
+    children = _children(tree)
+    if children is None:
+        yield prefix, tree
+        return
+    for key, child in children:
+        yield from tree_items(child, f"{prefix}/{key}" if prefix else key)
+
+
+def tree_map(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
+    """The same structure with each leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, f"{prefix}/{k}" if prefix else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, f"{prefix}/{i}" if prefix else str(i)) for i, v in enumerate(tree)]
+        return type(tree)(out)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name), f"{prefix}/{f.name}" if prefix else f.name)
+            for f in dataclasses.fields(tree) if f.init
+        })
+    return fn(prefix, tree)

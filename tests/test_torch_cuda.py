@@ -654,3 +654,119 @@ def test_contributions_chunked_equal_unchunked_on_the_card(dev):
     for chunk in (1, 97, 512):
         assert torch.equal(reorder.per_tree_contributions(ens, x, chunk_rows=chunk), whole)
     assert torch.equal(whole.cpu(), reorder.per_tree_contributions(ens.to("cpu"), x.cpu()))
+
+
+# ---------------------------------------------------------------------------
+# The model cells on the card.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("extra", [{}, {"capacity_frac": 0.3},
+                                   {"capacity_frac": 0.4, "sentinel2": 12}])
+def test_forest_cell_kernel_route_equals_plain_route(dev, extra):
+    """The forest cell's step through the kernel and through its plain
+    version on the card: equal scores and verdicts; three (four) launches."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+
+    cfg = dataclasses.replace(get_smoke_config("lear-msn1"), **extra)
+    cell = make_cell(cfg, ShapeSpec("q", "serve", batch=40))
+    params = cell.init_state(5, device=dev)
+    inputs = as_tensors(synthesize_inputs(cell, seed=2), dev)
+    fs.reset_kernel_launches()
+    scores, cont = cell.step(params, inputs)
+    torch.cuda.synchronize()
+    assert fs.kernel_launches()["forest_score"] == (4 if "sentinel2" in extra else 3)
+
+    def plain(x, feature, threshold, mask, leaf, *, leaf_gather, packed, **kw):
+        return fs.forest_score_plain(x, feature, threshold, mask, leaf, **kw)
+
+    with mock.patch.object(ops, "forest_score_kernel", plain):
+        p_scores, p_cont = cell.step(params, inputs)
+    assert torch.equal(scores, p_scores) and torch.equal(cont, p_cont)
+
+
+def test_rowwise_sparse_update_on_the_card_equals_the_cpu(dev):
+    from repro_torch.train import optimizer
+
+    rows = optimizer.ROWWISE_MIN_ROWS
+    rng = np.random.default_rng(3)
+    table = torch.as_tensor(rng.normal(size=(rows, 16)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(0, rows, size=500))
+    vals = torch.as_tensor(rng.normal(size=(500, 16)).astype(np.float32))
+    opt = optimizer.adagrad_rowwise(0.1)
+    out = {}
+    for d in ("cpu", dev):
+        p = {"t": table.clone().to(d)}          # the update is in place
+        g = torch.sparse_coo_tensor(idx[None].to(d), vals.to(d), (rows, 16),
+                                    check_invariants=True)
+        p, s = opt.update({"t": g}, opt.init(p), p)
+        out[str(d)] = (p["t"].cpu(), s["acc"]["t"].cpu())
+    (pc, ac), (pg, ag) = out.values()
+    np.testing.assert_allclose(pg.numpy(), pc.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ag.numpy(), ac.numpy(), rtol=1e-6, atol=0)
+    untouched = np.setdiff1d(np.arange(rows), idx.numpy())
+    assert torch.equal(pg[untouched], table[untouched])
+
+
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "deepfm", "din", "bert4rec"])
+def test_recsys_train_step_on_the_card_equals_the_cpu(dev, arch):
+    """One train step on the card against the CPU port: loss and global norm
+    at 1e-5, every gradient at 1e-5, and the card's update on the CPU's
+    gradients equal to the CPU's step in every entry of the parameters and
+    the optimizer state at 1e-6 (a first Adam/Adagrad step on a near-zero
+    gradient is a sign, so the update is held on identical gradients)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train import trainer
+    from repro_torch.utils import tree_items, tree_map
+
+    cell = make_cell(get_smoke_config(arch), ShapeSpec("t", "train", batch=64))
+    raw = synthesize_inputs(cell, seed=1)
+    own = trainer._grads
+
+    def run(device, inject=None):
+        """A fresh state (seed 0) stepped once on ``device``; the gradients
+        it used, on the host."""
+        state = tree_map(lambda _, v: v.to(device) if isinstance(v, torch.Tensor) else v,
+                         cell.init_state(0, device="cpu"))
+        seen = {}
+
+        def grads(loss_fn, params, b):
+            loss, g = own(loss_fn, params, b)
+            if inject is not None:
+                g = {k: inject[k].to(device) for k in g}
+            seen.update({k: v.cpu() for k, v in g.items()})
+            return loss, g
+
+        with mock.patch.object(trainer, "_grads", grads):
+            state, m = cell.step(state, as_tensors(raw, device))
+        return dict(tree_items(state)), m, seen
+
+    def dense(g):
+        return (g.coalesce().to_dense() if g.is_sparse else g).numpy()
+
+    cpu, m_cpu, g_cpu = run("cpu")
+    _, m_card, g_card = run(dev)
+    np.testing.assert_allclose(float(m_card["loss"]), float(m_cpu["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(m_card["grad_norm"]), float(m_cpu["grad_norm"]), rtol=1e-5)
+    assert set(g_card) == set(g_cpu)
+    for k in g_cpu:
+        assert g_card[k].is_sparse == g_cpu[k].is_sparse, k
+        np.testing.assert_allclose(dense(g_card[k]), dense(g_cpu[k]), rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    card, m_inj, _ = run(dev, inject=g_cpu)
+    np.testing.assert_allclose(float(m_inj["grad_norm"]), float(m_cpu["grad_norm"]), rtol=1e-6)
+    assert set(card) == set(cpu)
+    for k, v in cpu.items():
+        np.testing.assert_allclose(card[k].cpu().numpy(), v.numpy(), rtol=1e-6, atol=1e-6,
+                                   err_msg=k)

@@ -1,8 +1,10 @@
 """The port stands alone: no JAX and nothing of ``repro`` behind it.
 
 In a fresh interpreter, import every module of ``repro_torch`` (the serving
-tier's, the dense scorer's, the distiller's and the training pipeline's —
-data, binning, GBDT, λ-MART, LEAR training, reordering — among them) and the
+tier's, the dense scorer's, the distiller's, the training pipeline's —
+data, binning, GBDT, λ-MART, LEAR training, reordering — and the model-cell
+path's — configs, RecSys, cells, trainer, checkpoints, launchers — among
+them) and the
 ``chip_smoke`` script (without running it) and
 check that no ``jax*`` or ``repro.*`` module was loaded. Without a card, ``chip_smoke.py`` must fail
 and print no result, also when it is alone in a directory.
@@ -50,6 +52,25 @@ from repro_torch.core import train_lear, build_continue_labels, instance_weights
 from repro_torch.metrics import precision_recall, trees_traversed
 from repro_torch.data import make_letor_dataset
 from repro_torch.models import DenseScorer, dense_params_from_numpy
+cells = {"repro_torch." + m for m in (
+    "configs", "configs.base", "configs.lear_msn1", "configs.dlrm_rm2", "configs.deepfm",
+    "configs.din", "configs.bert4rec", "configs.qwen2_5_14b", "configs.minitron_4b",
+    "configs.qwen3_4b", "configs.deepseek_moe_16b", "configs.llama4_maverick",
+    "configs.nequip", "models.layers", "models.recsys", "models.api", "models.synth",
+    "train.trainer", "train.checkpoint", "data.pipeline", "launch", "launch.serve",
+    "launch.train",
+)}
+assert cells <= set(names), sorted(cells - set(names))
+from repro_torch.configs import ASSIGNED_ARCHS, get_config, get_smoke_config, list_archs
+for arch in list_archs():
+    get_config(arch), get_smoke_config(arch)
+from repro_torch.models.api import make_cell
+from repro_torch.models.recsys import recsys_params_from_numpy, recsys_params_to_numpy
+from repro_torch.models.synth import synthesize_inputs
+from repro_torch.train import adafactor, adagrad_rowwise, get_optimizer, make_train_step
+from repro_torch.train import save_checkpoint, restore_checkpoint, latest_step
+from repro_torch.data import QueryBatcher, TokenPipeline
+from repro_torch.launch import serve, train
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
