@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the LEAR serving path, its training
-pipeline and the model cells once on one card.
+pipeline, the model cells and the LM serving path once on one card.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc`` in ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
@@ -137,8 +137,33 @@ Phases, each of which must pass:
   ``kernels`` also holds its three ``rank_xl`` launches to their plain
   versions and times them.
 
+- ``lm``: the LM serving path (``repro_torch.models.transformer``,
+  ``models.moe``, ``serve.lm_serve``) at full width and depth, bfloat16
+  weights drawn on the card from a device generator: Qwen3-4B (4.41 B
+  parameters) and DeepSeek-MoE-16B (16.38 B; 64 experts top-6, 2 shared).
+  For each: its first layers (Qwen3-4B's 2; DeepSeek's dense layer and
+  first MoE layer) with the full embedding and lm_head, on the card and
+  on the CPU port (prefill 2 × 64, 4 greedy steps, the CPU fed the
+  card's tokens), held by ``tests/lm_parity.py`` (bfloat16 logits and
+  caches within 0.125; greedy tokens equal except at a top-2 gap within
+  that; a step's logits set aside where its token was re-routed at a
+  near tie, margin < 0.1); the same 2 × 512 prefill twice, bit-equal;
+  ``prefill_32k`` at B = 1 (cut from 32: the caches would take 154.62 /
+  240.52 GB), timed against its bound, with one layer's attention timed
+  alone (DeepSeek: a second prefill counts capacity drops and must equal
+  the first bit for bit); ``decode_32k`` at B = 8 / 4 (cut from 128)
+  against a 32,768-token cache drawn on the card, timed, with a
+  ``[profile]`` window; ``generate`` (B = 2, 128-token prompts, 16
+  greedy steps); then float32 weights drawn anew for prefill(512)
+  against prefill(511) + ``decode_step`` at 511 (2e-4; DeepSeek with
+  capacity_factor E / top_k, so no token is dropped on either path).
+  Then ``launch.serve --arch qwen3-4b`` (smoke config) on the card, and
+  Qwen2.5-14B, Minitron-4B and Llama-4-Maverick by shape on ``meta``.
+  Values must be finite, TF32 and reduced-precision bf16 reductions off,
+  and no forest kernel launched.
+
 The last lines are a one-line summary of the tier, the gated tail, the
-hybrid, the training and the cell runs, the
+hybrid, the training, the cell and the LM runs, the
 card's name and power limit, one JSON line with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
@@ -2162,6 +2187,461 @@ def phase_cells(card: str) -> dict:
     return {"launches": {"forest_score": launches}, "cases": cases, "summary": summary}
 
 
+# ---------------------------------------------------------------------------
+# [lm]: the LM serving path at full width.
+# ---------------------------------------------------------------------------
+
+# NVIDIA H100 SXM data sheet: dense bf16 on the tensor cores, and fp32
+# outside them (an FMA counts two), the rate the attention's float32
+# products run at with TF32 off.
+BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
+LM_FULL = ("qwen3-4b", "deepseek-moe-16b")
+LM_SHAPES_ONLY = ("qwen2.5-14b", "minitron-4b", "llama4-maverick-400b-a17b")
+# Batch cuts of the published shapes (prefill_32k B = 32, decode_32k
+# B = 128), by arithmetic: printed with their cache sizes (PERF.md §4).
+LM_PREFILL_BATCH = {"qwen3-4b": 1, "deepseek-moe-16b": 1}
+LM_DECODE_BATCH = {"qwen3-4b": 8, "deepseek-moe-16b": 4}
+LM_COMPACT = (2, 64, 4)      # batch, prompt tokens, greedy steps: first layers, card vs CPU
+LM_CONSIST = (2, 511)        # batch, S: prefill(S + 1) vs prefill(S) + decode at S
+LM_GENERATE = (2, 128, 16)   # batch, prompt tokens, greedy steps
+LM_DECODE_STEPS = 3          # timed after one warm step; the median is printed
+
+
+def _lm_cache_bytes(cfg, batch: int, tokens: int) -> int:
+    return 2 * cfg.n_layers * batch * tokens * cfg.n_kv_heads * cfg.d_head * 2
+
+
+def _lm_prefill_ops(cfg, B: int, S: int) -> tuple[float, float]:
+    """(bf16 tensor-core FLOPs, float32 FLOPs) of one prefill of B × S
+    tokens as the port computes it: every weight GEMM over every token
+    (the MoE's over every capacity slot, padding included), the router in
+    float32, and attention's QKᵀ and PV over every block (no causal skip),
+    in float32; lm_head on the last token only."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import _capacity
+
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    T = B * S
+    bf16 = 2.0 * T * (2 * D * H * Dh + 2 * D * Hkv * Dh) * cfg.n_layers + 2.0 * B * D * cfg.vocab_size
+    f32 = 4.0 * B * H * S * S * Dh * cfg.n_layers
+    for _, L, moe in tfm._stacks(cfg):
+        if not moe:
+            bf16 += 2.0 * T * 3 * D * (cfg.dense_d_ff or cfg.d_ff) * L
+            continue
+        E, Fe = cfg.n_experts, cfg.d_ff_expert or cfg.d_ff
+        C = _capacity(S, E, cfg.top_k, cfg.capacity_factor)
+        bf16 += 2.0 * B * E * C * 3 * D * Fe * L + 2.0 * T * 3 * D * cfg.n_shared_experts * Fe * L
+        f32 += 2.0 * T * D * E * L
+    return bf16, f32
+
+
+def _lm_decode_bytes(cfg, params, B: int, S: int) -> int:
+    """Bytes one decode step must move: every weight but the embedding
+    table (B rows of it), the whole cache (the reference masks, it does not
+    skip, the positions past ``pos``), the new keys and values and the
+    float32 logits."""
+    w = sum(t.numel() * t.element_size() for k, t in params.items() if k != "embed")
+    emb = params["embed"]
+    return (w + B * emb.shape[1] * emb.element_size() + _lm_cache_bytes(cfg, B, S)
+            + _lm_cache_bytes(cfg, B, 1) + B * cfg.vocab_size * 4)
+
+
+def _lm_finite(what: str, logits, caches=None) -> None:
+    """Fail on a non-finite logit or cache entry. Caches are checked a
+    layer at a time: ``isfinite`` of a whole 19 GB cache would allocate a
+    copy and two masks of it."""
+    import torch
+
+    ok = [torch.isfinite(logits).all()]
+    for c in (caches or {}).values():
+        ok += [torch.isfinite(t[i]).all() for t in c.values() for i in range(t.shape[0])]
+    if not bool(torch.stack(ok).all()):
+        raise AssertionError(f"[lm] {what}: non-finite values")
+
+
+def _lm_compact(arch: str, cfg, params) -> dict:
+    """The full-width model's first layers (Qwen3-4B's first 2; DeepSeek's
+    dense layer and its first MoE layer) with the full embedding and
+    lm_head, on the card and on the CPU port: a prefill, then greedy decode
+    steps, the CPU fed the card's tokens. Held by tests/lm_parity.py: logits
+    and caches within the bfloat16 tolerance, and greedy tokens equal except
+    where the card's logits of the two tokens lie within the tolerance. The
+    MoE layer is the copy's last, so it reaches only the logits of the token
+    it routes: a step's logits are set aside for a sequence whose read token
+    was re-routed at a near tie (``rerouted_last``); caches never are."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lm_parity import BF16_LOGIT_TOL, hold, hold_caches, record_port, rerouted_last
+
+    from repro_torch.models import transformer as tfm
+
+    B, S, steps = LM_COMPACT
+    keep = {"dense_stack": 1 if cfg.is_moe else 2, "moe_stack": 1}
+    ccfg = dataclasses.replace(cfg, n_layers=2)
+    cparams = {k: v[:keep[k.split("/")[0]]] if "/" in k else v for k, v in params.items()}
+    prompt = np.random.default_rng(SEED + 60).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    runs, feed = {}, []
+    for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+        p = cparams if side == "card" else {k: v.cpu() for k, v in cparams.items()}
+        calls, logits, caches_at = [], [], []
+        t0 = time.perf_counter()
+        with record_port(calls):
+            lg, caches = tfm.prefill(ccfg, p, torch.as_tensor(prompt, device=dev), S + steps)
+            logits.append(lg.cpu())
+            # Copies: decode writes the caches in place (and .cpu() of a CPU
+            # tensor is the tensor itself).
+            caches_at.append({n: {k: t.to("cpu", copy=True) for k, t in c.items()}
+                              for n, c in caches.items()})
+            for i in range(steps):
+                if side == "card":
+                    feed.append(torch.argmax(logits[-1], dim=-1).to(torch.int32)[:, None])
+                lg, caches = tfm.decode_step(ccfg, p, feed[i].to(dev), caches, S + i)
+                logits.append(lg.cpu())
+        caches_at.append({n: {k: t.cpu() for k, t in c.items()} for n, c in caches.items()})
+        runs[side] = (calls, logits, caches_at, time.perf_counter() - t0)
+        _lm_finite(f"{arch} compact copy on the {side}", lg, caches)
+
+    (card_calls, card_lg, card_c, t_card), (cpu_calls, cpu_lg, cpu_c, t_cpu) = runs["card"], runs["cpu"]
+    errs, gaps, aside = [0.0, 0.0], 0, 0
+    for i in range(steps + 1):
+        moved = rerouted_last(card_calls[i], cpu_calls[i], B) if ccfg.is_moe else {}
+        for seq, msg in moved.items():
+            if msg:
+                raise AssertionError(f"[lm] {arch} compact, step {i}, sequence {seq}: {msg}")
+        rows = [b for b in range(B) if b not in moved]
+        aside += len(moved)
+        errs[0] = max(errs[0], hold(cpu_lg[i], card_lg[i], rows, "bfloat16", f"logits compact {i}"))
+        for b in rows:
+            want, got = int(card_lg[i][b].argmax()), int(cpu_lg[i][b].argmax())
+            if want != got:
+                gap = float(card_lg[i][b, want] - card_lg[i][b, got])
+                if gap > BF16_LOGIT_TOL:
+                    raise AssertionError(f"[lm] {arch} compact: step {i} row {b} greedy tokens "
+                                         f"{want} (card) and {got} (CPU), gap {gap:.4g}")
+                gaps += 1
+    for j, i in enumerate((0, steps)):
+        errs[1] = max(errs[1], hold_caches(cpu_c[j], card_c[j], list(range(B)), "bfloat16",
+                                           f"compact {i}"))
+    log(f"[lm] {arch} compact copy ({ccfg.n_layers} layers of full width, full embedding and "
+        f"lm_head; prefill {B}x{S} + {steps} greedy steps) card vs CPU: max |dlogits| "
+        f"{errs[0]:.4g}, max |dcache| {errs[1]:.4g} (tolerance {BF16_LOGIT_TOL}); greedy "
+        f"tokens differing within the top-2 gap: {gaps}; logits set aside for a read token "
+        f"re-routed at a near tie: {aside} of {B * (steps + 1)}; card {t_card:.2f} s, CPU "
+        f"{t_cpu:.2f} s")
+    return {"logits": errs[0], "caches": errs[1], "gaps": gaps, "aside": aside}
+
+
+def _lm_rerun(arch: str, cfg, params) -> None:
+    """The same prefill twice on the card: bit-equal logits and caches (the
+    MoE sums each token's experts in a fixed order, no float atomics)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    B, S = LM_CONSIST[0], LM_CONSIST[1] + 1
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 61).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32), device=DEVICE)
+    (la, ca), (lb, cb) = (tfm.prefill(cfg, params, tokens, S) for _ in range(2))
+    same = torch.equal(la, lb) and all(torch.equal(ca[n][k], cb[n][k]) for n in ca for k in ca[n])
+    if not same:
+        raise AssertionError(f"[lm] {arch}: a rerun of prefill {B}x{S} is not bit-equal")
+    _lm_finite(f"{arch} rerun", la, ca)
+    log(f"[lm] {arch} rerun of prefill {B}x{S}: logits and caches bit-equal")
+
+
+def _lm_consistency(arch: str, cfg, gen) -> float:
+    """Full depth, float32: the last logits of prefill(S + 1) against
+    prefill(S) then decode_step at position S (2e-4). DeepSeek runs with
+    capacity_factor E / top_k, so C = T and no token is dropped: with the
+    config's 1.25 a prefill of S + 1 tokens drops or displaces other tokens
+    than a prefill of S tokens and a decode step do, by GShard's design."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lm_parity import hold
+    from repro_torch.models import transformer as tfm
+
+    B, S = LM_CONSIST
+    in_use = torch.cuda.memory_allocated()
+    cut = {"capacity_factor": cfg.n_experts / cfg.top_k} if cfg.is_moe else {}
+    c32 = dataclasses.replace(cfg, dtype="float32", **cut)
+    p32 = tfm.init(c32, gen, DEVICE)
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 62).integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32), device=DEVICE)
+    full, _ = tfm.prefill(c32, p32, tokens, S + 1)
+    _, caches = tfm.prefill(c32, p32, tokens[:, :S], S + 1)
+    step, caches = tfm.decode_step(c32, p32, tokens[:, S:], caches, S)
+    _lm_finite(f"{arch} consistency", step, caches)
+    err = hold(step, full, list(range(B)), "float32", f"logits {arch} consistency")
+    log(f"[lm] {arch} full depth ({cfg.n_layers} layers), float32"
+        + (f", capacity_factor {c32.capacity_factor:.4g} (C = T)" if cut else "")
+        + f": prefill({S + 1}) vs prefill({S}) + decode_step at {S}, B = {B}: "
+        f"max |dlogits| {err:.4g} (tolerance 2e-4); weights {_gib(sum(t.numel() * 4 for t in p32.values()))} "
+        f"beside {_gib(in_use)} in use before")
+    del p32, caches
+    return err
+
+
+def _lm_prefill_timed(arch: str, cfg, params, card: str) -> dict:
+    """prefill_32k at the cut batch, timed; for an MoE, a second prefill
+    counts capacity drops and must equal the first bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import _capacity
+
+    pre, B = next(s for s in cfg.shapes if s.name == "prefill_32k"), LM_PREFILL_BATCH[arch]
+    S = pre.seq_len
+    log(f"[lm] {arch} prefill_32k: cut batch {pre.global_batch} -> {B} (caches "
+        f"{_gib(_lm_cache_bytes(cfg, pre.global_batch, S))} at {pre.global_batch}, "
+        f"{_gib(_lm_cache_bytes(cfg, B, S))} at {B})")
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 63).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32), device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ms, (logits, caches) = _events_ms(lambda: tfm.prefill(cfg, params, tokens, S), 1)
+    peak = torch.cuda.max_memory_allocated()
+    _lm_finite(f"{arch} prefill_32k", logits, caches)
+    if cfg.is_moe:
+        logits2, caches2, dropped = _lm_prefill_counting_drops(cfg, params, tokens)
+        if not (torch.equal(logits, logits2)
+                and all(torch.equal(caches[n][k], caches2[n][k]) for n in caches for k in "kv")):
+            raise AssertionError(f"[lm] {arch}: a rerun of prefill {B}x{S} is not bit-equal")
+        C = _capacity(S, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+        log(f"[lm] {arch} prefill_32k: capacity C = {C} slots per expert; (token, expert) "
+            f"choices dropped for capacity over the {cfg.n_moe_layers} MoE layers: "
+            f"{dropped:.3%}; a rerun is bit-equal")
+    del logits, caches
+    bf16, f32 = _lm_prefill_ops(cfg, B, S)
+    bound = bf16 / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+    log(f"[lm] {arch} prefill {B}x{S}: {ms:.1f} ms, {B * S / ms * 1e3:,.0f} tokens/s, peak "
+        f"{_gib(peak)}; bound {bound * 1e3:.1f} ms (bf16 {bf16:.4g} FLOP / 989 TFLOP/s = "
+        f"{bf16 / BF16_OPS_PER_S * 1e3:.1f} ms + f32 {f32:.4g} FLOP / 67 TFLOP/s = "
+        f"{f32 / F32_OPS_PER_S * 1e3:.1f} ms), {ms / 1e3 / bound:.2f}x the bound; {card}")
+    # Where it goes: one layer's attention alone, at the layer's shapes.
+    from repro_torch.models.layers import blockwise_attention
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    q = torch.randn((B, S, cfg.n_heads, cfg.d_head), generator=g, device=DEVICE, dtype=torch.bfloat16)
+    k, v = (torch.randn((B, S, cfg.n_kv_heads, cfg.d_head), generator=g, device=DEVICE,
+                        dtype=torch.bfloat16) for _ in range(2))
+    attn_ms, _ = _events_ms(lambda: blockwise_attention(
+        q, k, v, causal=cfg.causal, q_block=min(cfg.attn_q_block, S),
+        kv_block=min(cfg.attn_kv_block, S), causal_skip=cfg.causal_skip), 1)
+    log(f"[lm] {arch} prefill {B}x{S}: blockwise attention alone {attn_ms:.1f} ms a layer, "
+        f"x {cfg.n_layers} layers = {attn_ms * cfg.n_layers:.0f} ms of the {ms:.0f} ms "
+        f"({attn_ms * cfg.n_layers / ms:.1%}); its float32 products' bound "
+        f"{f32 / F32_OPS_PER_S * 1e3 / cfg.n_layers:.1f} ms a layer")
+    return {"ms": ms, "tokens_s": B * S / ms * 1e3, "peak": peak, "bound_ms": bound * 1e3,
+            "attn_share": attn_ms * cfg.n_layers / ms}
+
+
+def _lm_decode_timed(arch: str, cfg, params, gen, card: str) -> dict:
+    """decode_32k at the cut batch against a cache drawn on the card (every
+    position valid), timed: one warm step, then ``LM_DECODE_STEPS``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    dec, B = next(s for s in cfg.shapes if s.name == "decode_32k"), LM_DECODE_BATCH[arch]
+    S = dec.seq_len
+    w_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    log(f"[lm] {arch} decode_32k: cut batch {dec.global_batch} -> {B} (caches "
+        f"{_gib(_lm_cache_bytes(cfg, dec.global_batch, S))} at {dec.global_batch}, "
+        f"{_gib(_lm_cache_bytes(cfg, B, S))} at {B}, beside {_gib(w_bytes)} of weights)")
+    torch.cuda.reset_peak_memory_stats()
+    caches = tfm.make_decode_caches(cfg, B, S, DEVICE)
+    for t in (t for c in caches.values() for t in c.values()):
+        t.normal_(generator=gen)
+    token = torch.as_tensor(np.random.default_rng(SEED + 64).integers(
+        0, cfg.vocab_size, (B, 1)).astype(np.int32), device=DEVICE)
+    tfm.decode_step(cfg, params, token, caches, S - 1)
+    ms, (logits, _) = _events_ms(lambda: tfm.decode_step(cfg, params, token, caches, S - 1),
+                                 LM_DECODE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    _lm_finite(f"{arch} decode_32k", logits, caches)
+    profiled(f"lm {arch} decode B={B}", lambda: tfm.decode_step(cfg, params, token, caches, S - 1),
+             "one decode step", n_top=6)
+    moved = _lm_decode_bytes(cfg, params, B, S)
+    log(f"[lm] {arch} decode B={B} at position {S - 1} of a {S}-token cache: {ms:.2f} ms a step, "
+        f"{B / ms * 1e3:,.1f} tokens/s, peak {_gib(peak)}; bound {moved / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"({_gib(moved)} / 3.35 TB/s), {ms / 1e3 / (moved / HBM_BYTES_PER_S):.2f}x the bound; {card}")
+    return {"ms": ms, "tokens_s": B / ms * 1e3, "peak": peak,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def _lm_generate(arch: str, cfg, params) -> float:
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.lm_serve import generate
+
+    B, S, steps = LM_GENERATE
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 65).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32), device=DEVICE)
+    t0 = time.perf_counter()
+    toks = generate(cfg, params, prompt, n_steps=steps).cpu()
+    seconds = time.perf_counter() - t0
+    if toks.shape != (B, steps) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"[lm] {arch} generate: {tuple(toks.shape)} tokens out of range")
+    log(f"[lm] {arch} generate B={B}, prompt {S}, {steps} greedy steps: {seconds:.2f} s; "
+        f"first row {toks[0].tolist()}")
+    return seconds
+
+
+def _lm_full(arch: str, card: str) -> dict:
+    """One arch at full width and depth: init on the card, the compact copy
+    against the CPU, a bit-equal rerun, prefill at 32,768 tokens and decode
+    against a 32,768-token cache (cut batches), generate, then the float32
+    full-depth consistency check. Each step runs in its own function, so
+    its tensors are freed when it returns."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = tfm.init(cfg, gen, DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.values())
+    w_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    log(f"[lm] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, vocab {cfg.vocab_size}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} shared, "
+           f"{cfg.n_dense_layers} dense layer" if cfg.is_moe else "")
+        + f": {n_params / 1e9:.2f} B parameters, {_gib(w_bytes)}, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {"compact": _lm_compact(arch, cfg, params)}
+    _lm_rerun(arch, cfg, params)
+    free()
+    out["prefill"] = _lm_prefill_timed(arch, cfg, params, card)
+    free()
+    out["decode"] = _lm_decode_timed(arch, cfg, params, gen, card)
+    free()
+    out["generate_s"] = _lm_generate(arch, cfg, params)
+    del params
+    free()
+    out["consistency"] = _lm_consistency(arch, cfg, gen)
+    free()
+    return out
+
+
+def _lm_prefill_counting_drops(cfg, params, tokens):
+    """The prefill again, counting at every MoE layer the (token, chosen
+    expert) pairs its capacity drops (the routing recomputed from the
+    layer's input by ``moe.route``; the outputs are untouched). Returns
+    (logits, caches, dropped share)."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import route
+
+    counts = []
+    real = tfm.moe_ffn
+
+    def counting(x, router_w, *args, **kw):
+        _, _, weight, token_idx = route(x, router_w, **kw)
+        kept = (torch.gather(weight.transpose(1, 2), 2, token_idx) > 0).sum()
+        counts.append(torch.stack([kept, (weight > 0).sum()]))
+        return real(x, router_w, *args, **kw)
+
+    tfm.moe_ffn = counting
+    try:
+        logits, caches = tfm.prefill(cfg, params, tokens, tokens.shape[1])
+    finally:
+        tfm.moe_ffn = real
+    kept, chosen = torch.stack(counts).sum(0).tolist()
+    return logits, caches, 1.0 - kept / chosen
+
+
+def _lm_shapes_only() -> str:
+    """Qwen2.5-14B, Minitron-4B and Llama-4-Maverick by shape: parameters
+    and the serving cells' states and inputs on ``meta`` (the CPU tests hold
+    them to the reference's ``eval_shape``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.api import make_cell
+
+    parts = []
+    for arch in LM_SHAPES_ONLY:
+        cfg = get_config(arch)
+        abstract = tfm.abstract_params(cfg)
+        n = sum(t.numel() for t in abstract.values())
+        size = sum(t.numel() * t.element_size() for t in abstract.values())
+        cells = []
+        for shape in cfg.shapes:
+            if shape.kind == "train":
+                try:
+                    make_cell(cfg, shape)
+                    raise AssertionError(f"[lm] {arch}: the LM train cell should raise")
+                except NotImplementedError:
+                    continue
+            cell = make_cell(cfg, shape)
+            state = cell.abstract_state()
+            specs = cell.input_specs()
+            if any(t.device.type != "meta" for t in state.values()):
+                raise AssertionError(f"[lm] {arch} {shape.name}: state not on meta")
+            caches = specs.get("caches", {})
+            c_bytes = sum(t.numel() * t.element_size() for c in caches.values() for t in c.values())
+            cells.append(f"{shape.name} (B {shape.global_batch}, S {shape.seq_len}"
+                         + (f", caches {_gib(c_bytes)}" if caches else "") + ")")
+        parts.append(f"{arch} {n / 1e9:.2f} B parameters ({_gib(size)})")
+        log(f"[lm] {arch} by shape only, on meta: {n / 1e9:.2f} B parameters, {_gib(size)}; "
+            f"cells {', '.join(cells)}; train raises (ROADMAP.md A7)")
+    return "; ".join(parts)
+
+
+def phase_lm(card: str) -> dict:
+    """The LM serving path: Qwen3-4B and DeepSeek-MoE-16B at full width and
+    depth, the launcher on the smoke config, and the other three LM archs
+    by shape. Adds no forest kernel launch."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.launch import serve
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))   # lm_parity: the tests' tolerances and rules
+    t_phase = time.perf_counter()
+    before = fs.kernel_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = {arch: _lm_full(arch, card) for arch in LM_FULL}
+    serve.main(["--arch", "qwen3-4b", "--device", DEVICE])
+    log("[lm] launch.serve --arch qwen3-4b (smoke config) on the card: served")
+    shapes = _lm_shapes_only()
+    if fs.kernel_launches() != before:
+        raise AssertionError(f"[lm] the LM path launched forest kernels: {fs.kernel_launches()}")
+    if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction):
+        raise AssertionError("[lm] TF32 or reduced-precision bf16 reductions were enabled")
+    log(f"[lm] done in {time.perf_counter() - t_phase:.1f} s on {card}; {shapes}")
+    q, d = results["qwen3-4b"], results["deepseek-moe-16b"]
+    summary = (
+        f"lm: qwen3-4b prefill 1x32768 {q['prefill']['ms']:.0f} ms, decode B=8 "
+        f"{q['decode']['ms']:.2f} ms/step; deepseek-moe-16b prefill {d['prefill']['ms']:.0f} ms, "
+        f"decode B=4 {d['decode']['ms']:.2f} ms/step"
+    )
+    return {"results": results, "summary": summary}
+
+
 def main() -> int:
     try:
         import torch
@@ -2177,6 +2657,8 @@ def main() -> int:
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in float32 throughout, as the reference's do.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t_start = time.perf_counter()
     try:
@@ -2201,6 +2683,8 @@ def main() -> int:
         for name, n in cells["launches"].items():
             launches[name] += n
         elapsed("cells")
+        lm = phase_lm(card)
+        elapsed("lm")
         kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"], cells["cases"])
         gated = phase_gated()
         elapsed("kernels")
@@ -2239,7 +2723,7 @@ def main() -> int:
     full = {c["B"]: c["ms"] for c in gated["cases"] if c["n_valid"] == c["B"]}
     log(f"[summary] {tier['summary']}; gated tail at a full count "
         + ", ".join(f"B={B} {ms:.4f} ms" for B, ms in sorted(full.items()))
-        + f"; {hybrid['summary']}; {train['summary']}; {cells['summary']}; "
+        + f"; {hybrid['summary']}; {train['summary']}; {cells['summary']}; {lm['summary']}; "
         f"run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -1,5 +1,6 @@
 """repro_torch — the LEAR serving path and its training in PyTorch, with CUDA
-kernels for Hopper, and the model cells of the architecture registry.
+kernels for Hopper, the model cells of the architecture registry and the
+LM serving path.
 
 A port of :mod:`repro` (JAX, Pallas kernels for the TPU), which stays in
 the repository unchanged as the reference the port is tested against. The
@@ -32,12 +33,17 @@ Module map (port ↔ reference):
 ``repro_torch.core.cascade``            ``repro.core.cascade``
 ``repro_torch.models.dense_scorer``     ``repro.models.dense_scorer`` (+ the
                                         ``dense_params_from_numpy`` converter)
-``repro_torch.models.layers``           ``repro.models.layers`` (``rms_norm``)
+``repro_torch.models.layers``           ``repro.models.layers``
+``repro_torch.models.moe``              ``repro.models.moe``
+``repro_torch.models.transformer``      ``repro.models.transformer`` (serving
+                                        half, + the
+                                        ``transformer_params_from_numpy`` /
+                                        ``_to_numpy`` converters)
 ``repro_torch.models.recsys``           ``repro.models.recsys`` (+ the
                                         ``recsys_params_from_numpy`` /
                                         ``_to_numpy`` converters)
-``repro_torch.models.api``              ``repro.models.api`` (RecSys and
-                                        forest cells)
+``repro_torch.models.api``              ``repro.models.api`` (RecSys, LM
+                                        serving and forest cells)
 ``repro_torch.models.synth``            ``repro.models.synth``
 ``repro_torch.train.optimizer``         ``repro.train.optimizer``
 ``repro_torch.train.trainer``           ``repro.train.trainer``
@@ -49,6 +55,7 @@ Module map (port ↔ reference):
 ``repro_torch.metrics.classification``  ``repro.metrics.classification``
 ``repro_torch.serve.calibration``       ``repro.serve.calibration``
 ``repro_torch.serve.ranking_service``   ``repro.serve.ranking_service``
+``repro_torch.serve.lm_serve``          ``repro.serve.lm_serve``
 ``repro_torch.configs``                 ``repro.configs`` (the registry,
                                         ``base`` and the eleven configs)
 ``repro_torch.launch.serve``            ``repro.launch.serve``

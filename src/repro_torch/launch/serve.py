@@ -3,14 +3,18 @@
 The port of :mod:`repro.launch.serve`, on the smoke config, on the card
 unless ``--device cpu``:
 
-RecSys archs: batched scoring. Forest (lear-msn1): the LEAR cascade cell,
-through the forest kernel. The LM archs raise until their slice lands
-(``ROADMAP.md`` A7), as ``make_cell`` does.
+LM archs: prefill + greedy decode (``generate``, 2 prompts of 16 tokens,
+8 steps). RecSys archs: batched scoring. Forest (lear-msn1): the LEAR
+cascade cell, through the forest kernel.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
+
+import numpy as np
+import torch
 
 from repro_torch.configs import get_smoke_config, list_archs
 from repro_torch.configs.base import ForestConfig, RecSysConfig, ShapeSpec, TransformerConfig
@@ -29,15 +33,28 @@ def main(argv: list[str] | None = None) -> None:
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch)
     if isinstance(cfg, TransformerConfig):
-        raise NotImplementedError(
-            f"{cfg.name}: LM serving (prefill + decode) is not ported yet (ROADMAP.md A7)"
-        )
-    if isinstance(cfg, RecSysConfig):
+        _serve_lm(cfg, args, dev)
+    elif isinstance(cfg, RecSysConfig):
         _serve_recsys(cfg, args, dev)
     elif isinstance(cfg, ForestConfig):
         _serve_forest(cfg, args, dev)
     else:
         raise SystemExit(f"{cfg.name}: GNN potentials are trained, not served")
+
+
+def _serve_lm(cfg, args, dev):
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.lm_serve import generate
+
+    params = tfm.init(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(2, 16)).astype(np.int32), device=dev
+    )
+    t0 = time.time()
+    out = generate(cfg, params, prompt, n_steps=8).cpu().numpy()
+    print(f"generated {out.shape} tokens in {time.time() - t0:.2f}s")
+    print(out)
 
 
 def _serve_recsys(cfg, args, dev):

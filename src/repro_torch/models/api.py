@@ -18,9 +18,12 @@ The port of :mod:`repro.models.api`. ``make_cell(cfg, shape)`` returns a
   a JAX key).
 
 Parameters are flat ``dict[str, Tensor]`` keyed by the reference's pytree
-paths. The RecSys cells (:mod:`repro_torch.models.recsys`) and the paper's
-forest cell are ported; the LM and NequIP cells raise
-``NotImplementedError`` until their slices land (``ROADMAP.md`` A7, A8).
+paths. The RecSys cells (:mod:`repro_torch.models.recsys`), the LM
+serving cells (``prefill`` and ``decode``, :mod:`repro_torch.models.transformer`)
+and the paper's forest cell are ported; an LM ``train`` shape and the
+NequIP cells raise ``NotImplementedError`` until their slices land
+(``ROADMAP.md`` A7, A8). A decode step writes its token's keys and values
+into the input caches in place and returns them.
 
 The forest cell serves the LEAR cascade over a padded ``[Q, D, F]`` block
 through the hand-written forest kernel
@@ -50,6 +53,7 @@ from repro_torch.configs.base import (
     TransformerConfig,
 )
 from repro_torch.models import recsys as recsys_mod
+from repro_torch.models import transformer as tfm
 from repro_torch.train.optimizer import get_optimizer, is_rowwise_table
 from repro_torch.train.trainer import TrainState, init_state, make_train_step
 from repro_torch.utils import resolve_device
@@ -144,6 +148,58 @@ def _pad512(n: int) -> int:
     (data=16, data×model=256, pod×data×model=512). The data pipeline emits
     dummy entries (self-edges on a ghost node / zero-weight rows)."""
     return -(-n // 512) * 512
+
+
+# ---------------------------------------------------------------------------
+# LM transformers (serving).
+# ---------------------------------------------------------------------------
+
+
+def _lm_cell(cfg: TransformerConfig, shape: ShapeSpec) -> Cell:
+    B, S = shape.global_batch, shape.seq_len
+    plogical = tfm.param_logical(cfg)
+
+    if shape.kind == "train":
+        raise NotImplementedError(
+            f"{cfg.name}: the LM train cell (loss_fn, chunked cross-entropy, remat) "
+            "is not ported yet (ROADMAP.md A7)"
+        )
+
+    def init(seed, device=None):
+        dev = resolve_device(device)
+        return tfm.init(cfg, _generator(seed, dev), dev)
+
+    def cell(step, inputs, inputs_logical):
+        return Cell(
+            cfg=cfg, shape=shape, step=step,
+            abstract_state=lambda: tfm.abstract_params(cfg),
+            state_logical=lambda: plogical,
+            input_specs=inputs, input_logical=inputs_logical,
+            init_state=init,
+        )
+
+    if shape.kind == "prefill":
+        def step(params, inputs):
+            return tfm.prefill(cfg, params, inputs["tokens"], cache_len=S)
+
+        return cell(step, lambda: {"tokens": _sds((B, S), I32)},
+                    lambda: {"tokens": ("batch", None)})
+
+    # decode
+    def step(params, inputs):
+        return tfm.decode_step(cfg, params, inputs["token"], inputs["caches"], inputs["pos"])
+
+    def inputs():
+        return {"token": _sds((B, 1), I32),
+                "caches": tfm.make_decode_caches(cfg, B, S, "meta"),
+                "pos": _sds((), I32)}
+
+    def inputs_logical():
+        cache_lg = {name: {kv: (None, "batch", "kv_seq", None, None) for kv in c}
+                    for name, c in tfm.make_decode_caches(cfg, B, S, "meta").items()}
+        return {"token": ("batch", None), "caches": cache_lg, "pos": ()}
+
+    return cell(step, inputs, inputs_logical)
 
 
 # ---------------------------------------------------------------------------
@@ -435,10 +491,7 @@ def _forest_cell(cfg: ForestConfig, shape: ShapeSpec) -> Cell:
 
 def make_cell(cfg, shape: ShapeSpec) -> Cell:
     if isinstance(cfg, TransformerConfig):
-        raise NotImplementedError(
-            f"{cfg.name}: the LM cells (transformer, MoE, lm_serve) are not ported "
-            "yet (ROADMAP.md A7)"
-        )
+        return _lm_cell(cfg, shape)
     if isinstance(cfg, NequIPConfig):
         raise NotImplementedError(
             f"{cfg.name}: the NequIP cells are not ported yet (ROADMAP.md A8)"

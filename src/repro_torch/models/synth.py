@@ -3,7 +3,13 @@
 The port's copy of :mod:`repro.models.synth` (numpy): for the same cell and
 seed it draws the same arrays, bit for bit, in the same order. Integer
 inputs are drawn within the valid range implied by the config (vocab sizes,
-node counts, …); the specs are ``cell.input_specs()``'s ``meta`` tensors.
+node counts, …); the specs are ``cell.input_specs()``'s ``meta`` tensors,
+nested dicts of them (an LM decode cell's caches) drawn in sorted key order
+as ``jax.tree.map`` visits them. A bfloat16 spec (an LM decode cell's
+caches) is drawn as the reference draws it: numpy does not count
+``ml_dtypes``' bfloat16 as floating (``np.issubdtype(bfloat16,
+np.floating)`` is False), so the reference's draw falls through to the
+integer branch and gives int32 ids in ``[0, vocab)``; so does this one.
 :func:`as_tensors` moves a drawn batch to a device.
 """
 
@@ -25,6 +31,7 @@ _NP_DTYPES = {
     torch.bool: np.dtype(np.bool_),
     torch.int32: np.dtype(np.int32),
     torch.int64: np.dtype(np.int64),
+    torch.bfloat16: np.dtype(np.int32),   # drawn as the reference draws it (above)
 }
 
 
@@ -51,7 +58,7 @@ def _ints(rng, shape, hi):
 
 def _one(name, spec, cfg, shape, rng):
     if isinstance(spec, dict):
-        return {k: _one(name, s, cfg, shape, rng) for k, s in spec.items()}
+        return {k: _one(name, spec[k], cfg, shape, rng) for k in sorted(spec)}
     shp, dt = tuple(spec.shape), _NP_DTYPES[spec.dtype]
 
     if np.issubdtype(dt, np.floating):

@@ -1,0 +1,377 @@
+"""Decoder LM: GQA attention, optional QK-norm / QKV bias / MoE FFN.
+
+The port of :mod:`repro.models.transformer`, serving half: ``init``,
+``prefill`` and ``decode_step`` (the training loss and remat are not
+ported yet, ``ROADMAP.md`` A7).
+
+Parameters are one flat ``dict[str, Tensor]`` keyed by the reference's
+pytree paths, with the layers stacked on a leading axis as the reference
+scans them: ``embed`` ``[V, D]``, ``dense_stack/attn/wq`` ``[L, D, H·Dh]``,
+``moe_stack/moe/router`` ``[L, D, E]`` (float32), … MoE archs hold two
+stacks: ``n_dense_layers`` leading dense layers (DeepSeek-MoE places a
+dense FFN first) and the MoE stack. The port runs the layers in a Python
+loop over views of the stacked tensors.
+
+KV caches are nested dicts ``{stack: {"k": [L, B, S, Hkv, Dh], "v": …}}``
+in the model's dtype, as in the reference. ``decode_step`` writes the new
+token's keys and values into the caches *in place* and returns the same
+tensors (the reference updates them functionally; at Qwen3-4B, batch 8
+and 32,768 tokens the caches are 38.65 GB, and a copy per step would not
+fit beside them).
+
+``init`` draws from an explicit ``torch.Generator`` on the target device
+with the reference's distributions (normal · fan^-½ in the model's dtype,
+the router drawn in that dtype then cast to float32, the embedding normal
+· 0.02, norms at one, biases at zero); the numbers differ from
+``jax.random``'s. :func:`transformer_params_from_numpy` and
+:func:`transformer_params_to_numpy` carry weights across in both
+directions, bfloat16 bit for bit. The reference's sharding constraints are
+dropped (one device); the logical-axis tables stay as data.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import TransformerConfig
+from repro_torch.models.layers import (
+    apply_rope,
+    blockwise_attention,
+    decode_attention,
+    glu_mlp,
+    rms_norm,
+)
+from repro_torch.models.moe import moe_ffn
+from repro_torch.utils import resolve_device, tree_items
+
+Params = dict[str, torch.Tensor]
+Caches = dict[str, dict[str, torch.Tensor]]
+
+
+# ---------------------------------------------------------------------------
+# Parameter table: path → (shape, logical axes, init).
+# ---------------------------------------------------------------------------
+
+# An init is ("normal", scale), ("ones",) or ("zeros",); "router" is a
+# normal drawn in the model's dtype and kept in float32.
+
+
+def _dtype(cfg: TransformerConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _attn_table(cfg: TransformerConfig, L: int) -> dict:
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    table = {
+        "wq": ((L, D, H * Dh), ("layers", "embed", "qkv"), ("normal", D ** -0.5)),
+        "wk": ((L, D, Hkv * Dh), ("layers", "embed", "qkv"), ("normal", D ** -0.5)),
+        "wv": ((L, D, Hkv * Dh), ("layers", "embed", "qkv"), ("normal", D ** -0.5)),
+        "wo": ((L, H * Dh, D), ("layers", "qkv", "embed"), ("normal", (H * Dh) ** -0.5)),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * Dh), ("bk", Hkv * Dh), ("bv", Hkv * Dh)):
+            table[name] = ((L, width), ("layers", "qkv"), ("zeros",))
+    if cfg.qk_norm:
+        table["q_norm"] = ((L, Dh), ("layers", None), ("ones",))
+        table["k_norm"] = ((L, Dh), ("layers", None), ("ones",))
+    return table
+
+
+def _mlp_table(L: int, D: int, F_: int, ff: str = "ff", experts: int = 0) -> dict:
+    lead, lead_lg = ((L, experts), ("layers", "experts")) if experts else ((L,), ("layers",))
+    return {
+        "w_gate": ((*lead, D, F_), (*lead_lg, "embed", ff), ("normal", D ** -0.5)),
+        "w_up": ((*lead, D, F_), (*lead_lg, "embed", ff), ("normal", D ** -0.5)),
+        "w_down": ((*lead, F_, D), (*lead_lg, ff, "embed"), ("normal", F_ ** -0.5)),
+    }
+
+
+def _stack_table(cfg: TransformerConfig, L: int, moe: bool) -> dict:
+    D = cfg.d_model
+    table = {
+        "ln1": ((L, D), ("layers", None), ("ones",)),
+        "ln2": ((L, D), ("layers", None), ("ones",)),
+        **{f"attn/{k}": v for k, v in _attn_table(cfg, L).items()},
+    }
+    if not moe:
+        F_ = cfg.dense_d_ff or cfg.d_ff
+        table.update({f"mlp/{k}": v for k, v in _mlp_table(L, D, F_).items()})
+        return table
+    E, Fe = cfg.n_experts, cfg.d_ff_expert or cfg.d_ff
+    table["moe/router"] = ((L, D, E), ("layers", "embed", None), ("router", D ** -0.5))
+    table.update({
+        f"moe/{k}": v for k, v in _mlp_table(L, D, Fe, "expert_ff", experts=E).items()
+    })
+    if cfg.n_shared_experts:
+        Fs = cfg.n_shared_experts * Fe
+        table.update({f"shared/{k}": v for k, v in _mlp_table(L, D, Fs).items()})
+    return table
+
+
+def _stacks(cfg: TransformerConfig) -> list[tuple[str, int, bool]]:
+    """(name, n_layers, moe) of each layer stack, in execution order."""
+    if not cfg.is_moe:
+        return [("dense_stack", cfg.n_layers, False)]
+    out = [("dense_stack", cfg.n_dense_layers, False)] if cfg.n_dense_layers else []
+    return out + [("moe_stack", cfg.n_moe_layers, True)]
+
+
+def _table(cfg: TransformerConfig) -> dict:
+    D, V = cfg.d_model, cfg.vocab_size
+    table = {
+        "embed": ((V, D), ("vocab", "embed"), ("normal", 0.02)),
+        "final_norm": ((D,), (None,), ("ones",)),
+        "lm_head": ((D, V), ("embed", "vocab"), ("normal", D ** -0.5)),
+    }
+    for name, L, moe in _stacks(cfg):
+        table.update({f"{name}/{k}": v for k, v in _stack_table(cfg, L, moe).items()})
+    return table
+
+
+def init(cfg: TransformerConfig, seed: int | torch.Generator | None,
+         device: str | torch.device | None = None) -> Params:
+    """Random parameters on ``device`` (``None`` → the card), drawn from
+    ``seed`` (an int or a ``torch.Generator`` on that device); on the
+    ``meta`` device only their shapes and dtypes (``seed`` unused)."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    dt = _dtype(cfg)
+    gen = seed
+    if dev.type != "meta" and not isinstance(seed, torch.Generator):
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    params = {}
+    for path, (shape, _, (kind, *scale)) in _table(cfg).items():
+        out_dt = torch.float32 if kind == "router" else dt
+        if dev.type == "meta":
+            params[path] = torch.empty(shape, dtype=out_dt, device=dev)
+        elif kind in ("normal", "router"):
+            w = torch.randn(shape, dtype=dt, generator=gen, device=dev).mul_(scale[0])
+            params[path] = w.to(out_dt)
+        else:
+            params[path] = torch.full(shape, 1.0 if kind == "ones" else 0.0, dtype=dt, device=dev)
+    return params
+
+
+def param_logical(cfg: TransformerConfig) -> dict[str, tuple]:
+    return {path: logical for path, (_, logical, _) in _table(cfg).items()}
+
+
+def abstract_params(cfg: TransformerConfig) -> Params:
+    """The parameters as ``meta`` tensors: shapes and dtypes, no memory."""
+    return init(cfg, None, "meta")
+
+
+# ---------------------------------------------------------------------------
+# Layer body (prefill / decode).
+# ---------------------------------------------------------------------------
+
+
+def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positions,
+               pos: int | None, k_cache: torch.Tensor, v_cache: torch.Tensor):
+    """Prefill (``pos`` None): attention over ``x``'s sequence, whose keys
+    and values are written to ``k_cache`` / ``v_cache`` ``[B, S, Hkv, Dh]``.
+    Decode: the token's keys and values are written at ``pos`` and it
+    attends the cache up to and including them."""
+    B, S, D = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = x @ layer["attn/wq"]
+    k = x @ layer["attn/wk"]
+    v = x @ layer["attn/wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + layer["attn/bq"], k + layer["attn/bk"], v + layer["attn/bv"]
+    q = q.reshape(B, S, H, Dh)
+    k = k.reshape(B, S, Hkv, Dh)
+    v = v.reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, layer["attn/q_norm"])
+        k = rms_norm(k, layer["attn/k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if pos is not None:
+        # dynamic_update_slice clamps the start so the update fits.
+        at = min(max(pos, 0), k_cache.shape[1] - 1)
+        k_cache[:, at] = k[:, 0]
+        v_cache[:, at] = v[:, 0]
+        out = decode_attention(q, k_cache, v_cache, pos + 1)
+    else:
+        k_cache.copy_(k)
+        v_cache.copy_(v)
+        out = blockwise_attention(
+            q, k, v,
+            causal=cfg.causal,
+            q_block=min(cfg.attn_q_block, S),
+            kv_block=min(cfg.attn_kv_block, S),
+            causal_skip=cfg.causal_skip,
+        )
+    return out.reshape(B, S, H * Dh) @ layer["attn/wo"]
+
+
+def _layer(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positions,
+           pos: int | None, k_cache, v_cache, moe: bool) -> torch.Tensor:
+    x = x + _attention(cfg, layer, rms_norm(x, layer["ln1"]), positions, pos, k_cache, v_cache)
+    h = rms_norm(x, layer["ln2"])
+    if not moe:
+        h = glu_mlp(h, layer["mlp/w_gate"], layer["mlp/w_up"], layer["mlp/w_down"])
+    else:
+        B, S, D = h.shape
+        # Decode: one dispatch group of every sequence's token; prefill:
+        # one group per sequence.
+        groups = h.reshape(1, B * S, D) if pos is not None else h
+        y, _ = moe_ffn(
+            groups, layer["moe/router"], layer["moe/w_gate"], layer["moe/w_up"],
+            layer["moe/w_down"], top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+        )
+        y = y.reshape(B, S, D)
+        if cfg.n_shared_experts:
+            y = y + glu_mlp(h, layer["shared/w_gate"], layer["shared/w_up"],
+                            layer["shared/w_down"])
+        h = y
+    return x + h
+
+
+def _embed_lookup(cfg: TransformerConfig, embed: torch.Tensor, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    """Token embedding. ``embed_onehot``: the lookup as a one-hot matmul
+    (the reference's layout for a vocab-sharded table; exact, since each
+    output sums one product)."""
+    if not cfg.embed_onehot:
+        return F.embedding(tokens.long(), embed)
+    onehot = F.one_hot(tokens.reshape(-1).long(), embed.shape[0]).to(embed.dtype)
+    return (onehot @ embed).reshape(*tokens.shape, embed.shape[1])
+
+
+def _forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, positions,
+             caches: Caches, pos: int | None = None) -> torch.Tensor:
+    """The stacks over ``tokens``; ``caches`` are written as
+    :func:`_attention` says. Returns the final-normed hidden states."""
+    x = _embed_lookup(cfg, params["embed"], tokens).to(_dtype(cfg))
+    for name, n_layers, moe in _stacks(cfg):
+        stack = {k[len(name) + 1:]: v for k, v in params.items() if k.startswith(name + "/")}
+        k_all, v_all = caches[name]["k"], caches[name]["v"]
+        for i in range(n_layers):
+            layer = {k: v[i] for k, v in stack.items()}
+            x = _layer(cfg, layer, x, positions, pos, k_all[i], v_all[i], moe)
+    return rms_norm(x, params["final_norm"])
+
+
+# ---------------------------------------------------------------------------
+# Public steps.
+# ---------------------------------------------------------------------------
+
+
+def _zeros_caches(cfg: TransformerConfig, batch: int, length: int, device) -> Caches:
+    def zeros(n_layers):
+        shape = (n_layers, batch, length, cfg.n_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+                "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
+
+    return {name: zeros(n) for name, n, _ in _stacks(cfg)}
+
+
+@torch.no_grad()
+def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, cache_len: int
+            ) -> tuple[torch.Tensor, Caches]:
+    """Full-sequence prefill; returns (last-token logits [B, V] float32,
+    KV caches padded or cut to ``cache_len``)."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)
+    caches = _zeros_caches(cfg, B, S, tokens.device)
+    h = _forward(cfg, params, tokens, positions, caches)
+    logits = (h[:, -1] @ params["lm_head"]).float()
+    return logits, _pad_caches(cfg, caches, cache_len)
+
+
+def _pad_caches(cfg: TransformerConfig, caches: Caches, cache_len: int) -> Caches:
+    def pad(x):
+        S = x.shape[2]
+        if S >= cache_len:
+            return x[:, :, :cache_len]
+        return F.pad(x, (0, 0, 0, 0, 0, cache_len - S))
+
+    return {name: {kv: pad(t) for kv, t in c.items()} for name, c in caches.items()}
+
+
+def make_decode_caches(cfg: TransformerConfig, batch: int, cache_len: int,
+                       device: str | torch.device | None = None) -> Caches:
+    """Zero caches for ``batch`` sequences of ``cache_len`` tokens on
+    ``device`` (``None`` → the card; ``meta`` for shapes only)."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    return _zeros_caches(cfg, batch, cache_len, dev)
+
+
+@torch.no_grad()
+def decode_step(cfg: TransformerConfig, params: Params, token: torch.Tensor, caches: Caches,
+                pos: int | torch.Tensor) -> tuple[torch.Tensor, Caches]:
+    """One token for every sequence. token: [B, 1]; pos: the position it
+    takes (an int or a 0-d tensor). Writes its keys and values into
+    ``caches`` in place and returns (logits [B, V] float32, ``caches``)."""
+    pos = int(pos)
+    positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32, device=token.device)
+    h = _forward(cfg, params, token, positions, caches, pos=pos)
+    logits = (h[:, -1] @ params["lm_head"]).float()
+    return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# The weight converter.
+# ---------------------------------------------------------------------------
+
+
+def _leaf_to_tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A copy of a numpy leaf as a tensor, bit for bit; bfloat16
+    (``ml_dtypes``, which ``torch.from_numpy`` rejects) goes through its
+    16-bit pattern."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def transformer_params_from_numpy(cfg: TransformerConfig, tree: Any,
+                                  device: str | torch.device | None = None) -> Params:
+    """The port's flat parameters on ``device`` (``None`` → the card) from
+    the reference's parameter pytree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``). Paths, shapes and dtypes must be
+    exactly those of ``cfg``."""
+    dev = resolve_device(device)
+    flat = {path: np.asarray(leaf) for path, leaf in tree_items(tree)}
+    want = abstract_params(cfg)
+    if set(flat) != set(want):
+        raise ValueError(
+            f"{cfg.name}: parameter paths differ from the reference's: missing "
+            f"{sorted(set(want) - set(flat))}, unexpected {sorted(set(flat) - set(want))}"
+        )
+    out = {}
+    for path, leaf in flat.items():
+        t = _leaf_to_tensor(leaf, dev)
+        if t.shape != want[path].shape or t.dtype != want[path].dtype:
+            raise ValueError(f"{cfg.name}: {path} is {t.dtype}{list(t.shape)}, want "
+                             f"{want[path].dtype}{list(want[path].shape)}")
+        out[path] = t
+    return out
+
+
+def transformer_params_to_numpy(cfg: TransformerConfig, params: Mapping[str, torch.Tensor]
+                                ) -> dict:
+    """The reference's parameter pytree (nested dicts) with numpy leaves,
+    the inverse of :func:`transformer_params_from_numpy`. bfloat16 leaves
+    come out as ``ml_dtypes.bfloat16`` arrays (numpy has no bfloat16), so
+    this direction needs the ``ml_dtypes`` package for bfloat16 models."""
+    nested: dict = {}
+    for path, t in params.items():
+        node = nested
+        *parents, last = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            node[last] = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            node[last] = t.numpy()
+    return nested

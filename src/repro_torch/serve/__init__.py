@@ -1,5 +1,6 @@
 """The serving tier: ranking service, continuous batcher, supervision,
-degradation rungs, warmup and placement (one device)."""
+degradation rungs, warmup and placement (one device); and LM
+generation (``generate``)."""
 
 from repro_torch.serve.batching import (
     BatcherHooks,
@@ -21,6 +22,7 @@ from repro_torch.serve.errors import (
     WorkerCrashed,
     WorkerFailed,
 )
+from repro_torch.serve.lm_serve import generate
 from repro_torch.serve.placement import ServePlacement
 from repro_torch.serve.ranking_service import (
     RankingService,
@@ -56,5 +58,6 @@ __all__ = [
     "WorkerFailed",
     "WorkerSupervisor",
     "enable_persistent_cache",
+    "generate",
     "warmup_service",
 ]

@@ -770,3 +770,103 @@ def test_recsys_train_step_on_the_card_equals_the_cpu(dev, arch):
     for k, v in cpu.items():
         np.testing.assert_allclose(card[k].cpu().numpy(), v.numpy(), rtol=1e-6, atol=1e-6,
                                    err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path: the card against the CPU port, at smoke size.
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ["qwen2.5-14b", "minitron-4b", "qwen3-4b", "deepseek-moe-16b",
+            "llama4-maverick-400b-a17b"]
+
+
+def _lm_run(cfg, params, prompt, steps, device, calls, feed=None):
+    """Prefill then ``steps`` decode steps on ``device``, fed ``feed`` (else
+    its own greedy tokens); (logits per step, final caches, tokens fed)."""
+    from lm_parity import record_port
+    from repro_torch.models import transformer as tfm
+
+    p = {k: v.to(device) for k, v in params.items()}
+    B, S = prompt.shape
+    feed, logits = list(feed or []), []
+    with record_port(calls):
+        lg, caches = tfm.prefill(cfg, p, prompt.to(device), S + steps)
+        logits.append(lg.cpu())
+        for i in range(steps):
+            if len(feed) == i:
+                feed.append(torch.argmax(logits[-1], dim=-1).to(torch.int32)[:, None])
+            lg, caches = tfm.decode_step(cfg, p, feed[i].to(device), caches, S + i)
+            logits.append(lg.cpu())
+    return logits, {n: {k: t.cpu() for k, t in c.items()} for n, c in caches.items()}, feed
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_prefill_and_decode_on_the_card_equal_the_cpu(dev, arch, monkeypatch):
+    """bfloat16 smoke configs: the card within the tolerances of
+    tests/lm_parity.py of the CPU port, the CPU fed the card's greedy
+    tokens; sequences re-routed at a near tie set aside. bf16 GEMMs
+    accumulate in float32 throughout, as the reference's and the CPU's do
+    (``chip_smoke.py`` sets the same)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction",
+                        False)
+    from lm_parity import BF16_LOGIT_TOL, hold, hold_caches, set_aside
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_smoke_config(arch)
+    params = tfm.init(cfg, 0, device="cpu")
+    B, S, steps = 4, 16, 6
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S)),
+                             dtype=torch.int32)
+    card_calls, cpu_calls = [], []
+    card_lg, card_c, feed = _lm_run(cfg, params, prompt, steps, dev, card_calls)
+    cpu_lg, cpu_c, _ = _lm_run(cfg, params, prompt, steps, "cpu", cpu_calls, feed)
+    aside = set()
+    for i in range(steps + 1):
+        set_aside(card_calls, cpu_calls, B, aside, 0, (i + 1) * cfg.n_moe_layers)
+        rows = [b for b in range(B) if b not in aside]
+        hold(cpu_lg[i], card_lg[i], rows, "bfloat16", f"logits step {i}")
+        for b in rows:
+            want, got = int(card_lg[i][b].argmax()), int(cpu_lg[i][b].argmax())
+            assert want == got or card_lg[i][b, want] - card_lg[i][b, got] <= BF16_LOGIT_TOL
+    hold_caches(cpu_c, card_c, [b for b in range(B) if b not in aside], "bfloat16", "final")
+    assert len(aside) < B
+
+
+def test_lm_decode_writes_the_cache_in_place_on_the_card(dev):
+    """decode_step returns the caches it was given, changed at ``pos`` only."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_smoke_config("deepseek-moe-16b")
+    params = tfm.init(cfg, 0, device=dev)
+    caches = tfm.make_decode_caches(cfg, 2, 32, dev)
+    for c in caches.values():
+        for t in c.values():
+            t.normal_(generator=torch.Generator(device=dev).manual_seed(1))
+    before = {n: {k: t.clone() for k, t in c.items()} for n, c in caches.items()}
+    ptrs = {(n, k): t.data_ptr() for n, c in caches.items() for k, t in c.items()}
+    token = torch.tensor([[5], [7]], dtype=torch.int32, device=dev)
+    logits, out = tfm.decode_step(cfg, params, token, caches, 9)
+    assert torch.isfinite(logits).all()
+    for n, c in out.items():
+        for k, t in c.items():
+            assert t is caches[n][k] and t.data_ptr() == ptrs[(n, k)]
+            changed = (t != before[n][k]).flatten(3).any(-1).any(0).any(0)   # per position
+            assert changed.nonzero().flatten().tolist() == [9], (n, k)
+
+
+def test_lm_moe_prefill_rerun_is_bit_equal_on_the_card(dev):
+    """Each token sums its experts in a fixed order (no float atomics), so
+    the same MoE prefill twice gives the same bits."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+
+    for arch in ("deepseek-moe-16b", "llama4-maverick-400b-a17b"):
+        cfg = get_smoke_config(arch)
+        params = tfm.init(cfg, 0, device=dev)
+        tokens = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 64)),
+                                 dtype=torch.int32, device=dev)
+        (la, ca), (lb, cb) = (tfm.prefill(cfg, params, tokens, 64) for _ in range(2))
+        assert torch.equal(la, lb)
+        assert all(torch.equal(ca[n][k], cb[n][k]) for n in ca for k in "kv")

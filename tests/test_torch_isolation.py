@@ -3,7 +3,8 @@
 In a fresh interpreter, import every module of ``repro_torch`` (the serving
 tier's, the dense scorer's, the distiller's, the training pipeline's —
 data, binning, GBDT, λ-MART, LEAR training, reordering — and the model-cell
-path's — configs, RecSys, cells, trainer, checkpoints, launchers — among
+path's — configs, RecSys, cells, trainer, checkpoints, launchers — and
+the LM serving path's — layers, transformer, MoE, generation — among
 them) and the
 ``chip_smoke`` script (without running it) and
 check that no ``jax*`` or ``repro.*`` module was loaded. Without a card, ``chip_smoke.py`` must fail
@@ -71,6 +72,13 @@ from repro_torch.train import adafactor, adagrad_rowwise, get_optimizer, make_tr
 from repro_torch.train import save_checkpoint, restore_checkpoint, latest_step
 from repro_torch.data import QueryBatcher, TokenPipeline
 from repro_torch.launch import serve, train
+lm = {"repro_torch." + m for m in ("models.transformer", "models.moe", "serve.lm_serve")}
+assert lm <= set(names), sorted(lm - set(names))
+from repro_torch.models import transformer_params_from_numpy, transformer_params_to_numpy
+from repro_torch.models.transformer import init, prefill, decode_step, make_decode_caches
+from repro_torch.models.layers import apply_rope, blockwise_attention, decode_attention, glu_mlp
+from repro_torch.models.moe import moe_ffn, route
+from repro_torch.serve import generate
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
