@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the LEAR serving path, its training
-pipeline, the model cells and the LM serving path once on one card.
+pipeline, the model cells, the LM serving and training paths and NequIP
+once on one card.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc`` in ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
@@ -162,8 +163,41 @@ Phases, each of which must pass:
   Values must be finite, TF32 and reduced-precision bf16 reductions off,
   and no forest kernel launched.
 
+- ``lm_train``: the LM training path (``transformer.loss_fn``: chunked
+  cross-entropy, per-layer remat, the MoE aux loss; the train cells,
+  AdamW from the config) for Qwen3-4B and DeepSeek-MoE-16B at full width
+  and the ``train_4k`` sequence length of 4,096. First a compact copy of
+  each (2 layers of full width, DeepSeek's dense layer and one MoE layer;
+  batch 2 × 256) takes one train step on the card and on the CPU port from
+  the same parameters and batch: loss within 0.02, grad norm within 2%,
+  every gradient within 1/16 of its leaf's max; MoE routes that differ
+  must sit at a near tie (``tests/lm_parity.py``, margin < 0.1) and the
+  CPU then replays the card's routing; and the card's optimizer step on
+  the CPU's gradients must give the CPU's parameters within one bfloat16
+  unit and its m and v within 1e-6. On the card the compact loss and
+  every gradient must be bit-equal with remat ``nothing`` twice, ``dots``
+  and no remat, and Qwen3-4B's compact train state (9.8 GB) must save and
+  restore bit-equal through ``train/checkpoint.py``. Then full width with
+  depth and batch cut so a functional AdamW step fits (printed: Qwen3-4B
+  36 → 12 layers, DeepSeek 28 → 3; batch 256 / microbatch 32 → 4 / 2):
+  3 steps on one batch, the loss finite and falling, step time, tokens/s
+  and peak memory beside their bound and the reckoned 26 bytes a
+  parameter. Then ``launch.train --arch qwen3-4b --steps 4 --ckpt-every
+  2`` on the card and again with ``--steps 6``, which must resume from
+  step 4.
+- ``nequip``: the full NequIP config (5 layers, d_hidden 32, l_max 2,
+  n_rbf 8, cutoff 5.0). ``molecule`` on a batch of its shape built as 128
+  molecules of 30 atoms (``tests/nequip_parity.py``): energies, forces,
+  loss and every gradient on the card within 1e-4 of the CPU port's
+  (relative to each tensor's max), a rerun bit-equal, rotation
+  equivariance at ``tests/test_property.py``'s tolerances, one train step.
+  ``minibatch_lg`` (N 170,496, E 169,472, forces and the double backward)
+  and ``full_graph_sm`` train on their synthesized inputs (loss finite;
+  step time and peak printed; loss-and-gradient reruns compared);
+  ``ogb_products`` by shape on ``meta``.
+
 The last lines are a one-line summary of the tier, the gated tail, the
-hybrid, the training, the cell and the LM runs, the
+hybrid, the training, the cell, the LM and the NequIP runs, the
 card's name and power limit, one JSON line with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
@@ -173,8 +207,10 @@ directory without the repository's ``src/repro_torch``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2577,6 +2613,7 @@ def _lm_shapes_only() -> str:
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
     from repro_torch.models.api import make_cell
+    from repro_torch.utils import tree_items
 
     parts = []
     for arch in LM_SHAPES_ONLY:
@@ -2586,16 +2623,12 @@ def _lm_shapes_only() -> str:
         size = sum(t.numel() * t.element_size() for t in abstract.values())
         cells = []
         for shape in cfg.shapes:
-            if shape.kind == "train":
-                try:
-                    make_cell(cfg, shape)
-                    raise AssertionError(f"[lm] {arch}: the LM train cell should raise")
-                except NotImplementedError:
-                    continue
+            if shape.skip_reason:
+                continue
             cell = make_cell(cfg, shape)
             state = cell.abstract_state()
             specs = cell.input_specs()
-            if any(t.device.type != "meta" for t in state.values()):
+            if any(t.device.type != "meta" for _, t in tree_items(state)):
                 raise AssertionError(f"[lm] {arch} {shape.name}: state not on meta")
             caches = specs.get("caches", {})
             c_bytes = sum(t.numel() * t.element_size() for c in caches.values() for t in c.values())
@@ -2603,7 +2636,7 @@ def _lm_shapes_only() -> str:
                          + (f", caches {_gib(c_bytes)}" if caches else "") + ")")
         parts.append(f"{arch} {n / 1e9:.2f} B parameters ({_gib(size)})")
         log(f"[lm] {arch} by shape only, on meta: {n / 1e9:.2f} B parameters, {_gib(size)}; "
-            f"cells {', '.join(cells)}; train raises (ROADMAP.md A7)")
+            f"cells {', '.join(cells)}")
     return "; ".join(parts)
 
 
@@ -2640,6 +2673,556 @@ def phase_lm(card: str) -> dict:
         f"decode B=4 {d['decode']['ms']:.2f} ms/step"
     )
     return {"results": results, "summary": summary}
+
+
+# The [lm_train] phase: Qwen3-4B and DeepSeek-MoE-16B train at full width
+# and the train_4k sequence length. A functional AdamW step holds 16 bytes
+# a parameter through the step (bf16 parameter and gradient, float32
+# accumulator, float32 m and v) and 26 while the update builds the new
+# parameters, m and v beside the old: full depth would need 114.7 GB
+# (Qwen3-4B, 4.41 B) and 425.8 GB (DeepSeek, 16.38 B), so depth is cut to
+# what one card holds, and the batch to 4 with microbatch 2 (PERF.md §4).
+LM_TRAIN_LAYERS = {"qwen3-4b": 12, "deepseek-moe-16b": 3}
+LM_TRAIN_BATCH = (4, 2)        # global batch, microbatch (published: 256, 32)
+LM_TRAIN_STEPS = 3             # on one fixed batch; the loss must fall
+LM_TRAIN_COMPACT = (2, 256)    # batch, sequence: 2 layers at full width, card vs CPU
+LM_TRAIN_CKPT = ("qwen3-4b",)  # compact train states saved and restored (10 GB each)
+ADAMW_STEP_BYTES = (16, 26)    # per parameter: held through the step, peak of the update
+# Card against the CPU port on the compact copy, bfloat16 (PERF.md §6):
+LM_TRAIN_LOSS_TOL = 0.02       # absolute; the loss is ~ln V ≈ 11.5-12
+LM_TRAIN_NORM_TOL = 0.02       # relative, the global gradient norm
+LM_TRAIN_GRAD_TOL = 1 / 16     # gradients (m = 0.1·g after step 1), of each leaf's max |m|
+
+
+def _lm_train_ops(cfg, B: int, S: int) -> tuple[float, float]:
+    """(bf16 FLOPs, float32 FLOPs) one training step on B × S tokens must
+    do: three times a prefill's (the forward, and the backward's two
+    products for each forward product), lm_head over every token. The
+    recomputation of remat is not counted: it is not needed work."""
+    bf16, f32 = _lm_prefill_ops(cfg, B, S)
+    bf16 += 2.0 * B * (S - 1) * cfg.d_model * cfg.vocab_size
+    return 3 * bf16, 3 * f32
+
+
+def _lm_train_batch(vocab: int, B: int, S: int, seed: int) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, vocab, (B, S)).astype(np.int32) for k in ("tokens", "labels")}
+
+
+def _bf16_ulp(x):
+    """bfloat16's unit in the last place at ``x`` (float32 tensor)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+@contextlib.contextmanager
+def _grads_of_step(out: dict, replace: dict | None = None):
+    """While a train step runs, record its gradients (by parameter path) in
+    ``out``; with ``replace``, the step uses those gradients instead of its
+    own (moved to its device)."""
+    from repro_torch.train import trainer
+
+    own = trainer._grads
+
+    def recording(loss_fn, params, batch):
+        loss, grads = own(loss_fn, params, batch)
+        if replace is not None:
+            grads = {k: replace[k].to(grads[k].device) for k in grads}
+        out.update(grads)
+        return loss, grads
+
+    trainer._grads = recording
+    try:
+        yield out
+    finally:
+        trainer._grads = own
+
+
+def _rel_max(got, want) -> float:
+    """max |got − want| over max |want|, in float64 on ``got``'s device."""
+    got, want = got.detach().double(), want.detach().to(got.device).double()
+    return float((got - want).abs().max()) / (float(want.abs().max()) or 1.0)
+
+
+def _lm_train_hold(arch: str, m_card, m_cpu, g_card, g_cpu, st_inj, st_cpu) -> dict:
+    """Step 1 on the card against the CPU port: loss, grad norm and every
+    gradient at their tolerances; and the card's update applied to the
+    CPU's gradients against the CPU's step: every parameter within one
+    bfloat16 unit, every float32 optimizer entry within 1e-6 of its
+    leaf's max. (On its own gradients the card's first AdamW step moves a
+    parameter by ``lr · g / (|g| + eps)``: a sign where |g| is large, and
+    where it is small, or the two gradients differ in sign, a step that
+    follows the gradients' difference; so the whole steps are not held
+    entry by entry, and the entries that differ by more than one unit are
+    counted.)"""
+    import torch
+
+    from repro_torch.utils import tree_items
+
+    loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+    norm_err = abs(float(m_card["grad_norm"]) / float(m_cpu["grad_norm"]) - 1)
+    # Compared on the card: a billion entries are seconds on the host.
+    grad_err = max(_rel_max(g_card[k], g) for k, g in g_cpu.items())
+    checks = ((loss_err, LM_TRAIN_LOSS_TOL, "loss"), (norm_err, LM_TRAIN_NORM_TOL, "grad norm"),
+              (grad_err, LM_TRAIN_GRAD_TOL, "gradients"))
+    for err, tol, what in checks:
+        if not err <= tol:
+            raise AssertionError(f"[lm_train] {arch} compact card vs CPU: {what} {err:.4g} > {tol}")
+    param_err, opt_err = 0.0, 0.0
+    got = dict(tree_items(st_inj))
+    for k, want in tree_items(st_cpu):
+        g, w = got[k], want.to(got[k].device)
+        if k.startswith("params/"):
+            d = (g.float() - w.float()).abs()
+            if bool((d > _bf16_ulp(w.float())).any()):
+                raise AssertionError(f"[lm_train] {arch} compact {k}: the card's update on the "
+                                     f"CPU's gradients differs by more than one bfloat16 unit")
+            param_err = max(param_err, float(d.max()))
+        else:
+            err = _rel_max(g, w)
+            if not err <= 1e-6:
+                raise AssertionError(f"[lm_train] {arch} compact {k}: the card's update on the "
+                                     f"CPU's gradients is {err:.3g} off")
+            opt_err = max(opt_err, err)
+    return {"loss": loss_err, "norm": norm_err, "grads": grad_err, "params": param_err,
+            "opt": opt_err}
+
+
+def _lm_train_compact(arch: str, cfg) -> dict:
+    """2 layers at full width (DeepSeek: the dense layer and one MoE
+    layer), full embedding and lm_head, batch 2 × 256: one train step on
+    the card and on the CPU port from the same parameters and batch, held
+    by :func:`_lm_train_hold`. A MoE token the card and the CPU route
+    differently must sit at a near tie (tests/lm_parity.py's rule, margin
+    < 0.1); the CPU step then replays the card's routing, so the two are
+    held on the same experts. Then, on the card: the loss and gradients
+    with remat "nothing" twice, "dots" and no remat, bit-equal; and the
+    train state saved and restored through train/checkpoint.py,
+    bit-equal."""
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+
+    from lm_parity import record_routes, replay_routes, rerouted
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors
+    from repro_torch.train import checkpoint, trainer
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.utils import tree_items, tree_map
+
+    B, S = LM_TRAIN_COMPACT
+    ccfg = dataclasses.replace(cfg, n_layers=2)
+    cell = make_cell(ccfg, ShapeSpec(name="compact", kind="train", seq_len=S, global_batch=B))
+    opt = get_optimizer(ccfg.optimizer)
+    params = tfm.init(ccfg, torch.Generator(device=DEVICE).manual_seed(SEED + 70), DEVICE)
+    raw = _lm_train_batch(cfg.vocab_size, B, S, SEED + 70)
+    batch = as_tensors(raw, DEVICE)
+
+    routes, g_card, g_cpu = [], {}, {}
+    t0 = time.perf_counter()
+    record = record_routes(routes, passes=2 if ccfg.remat else 1)
+    with record if ccfg.is_moe else contextlib.nullcontext(), _grads_of_step(g_card):
+        st_card, m_card = cell.step(trainer.init_state(params, opt), batch)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    own = []
+    params_cpu = {k: v.cpu() for k, v in params.items()}
+    t0 = time.perf_counter()
+    replay = replay_routes(routes, own, passes=2 if ccfg.remat else 1)
+    with replay if ccfg.is_moe else contextlib.nullcontext(), _grads_of_step(g_cpu):
+        st_cpu, m_cpu = cell.step(trainer.init_state(params_cpu, opt), as_tensors(raw, "cpu"))
+    t_cpu = time.perf_counter() - t0
+    moved = 0
+    for card_dec, cpu_dec in zip(routes, own, strict=True):
+        for seq, msg in rerouted(card_dec, cpu_dec, B).items():
+            if msg:
+                raise AssertionError(f"[lm_train] {arch} compact, sequence {seq}: {msg}")
+        moved += int((card_dec.top != cpu_dec.top).any(-1).sum())
+    with _grads_of_step({}, replace=g_cpu):
+        st_inj, _ = cell.step(trainer.init_state(params, opt), batch)
+    held = _lm_train_hold(arch, m_card, m_cpu, g_card, g_cpu, st_inj, st_cpu)
+    del st_inj, g_card
+    off, off_g = 0, 0.0   # whole-step entries off by more than one unit, and their largest |g|
+    for k, p in st_cpu.params.items():
+        p = p.to(DEVICE).float()
+        bad = (st_card.params[k].float() - p).abs() > _bf16_ulp(p)
+        off += int(bad.sum())
+        if bool(bad.any()):
+            g = g_cpu[k].to(DEVICE).float().abs()
+            off_g = max(off_g, float(g[bad].max()) / (float(g.max()) or 1.0))
+    del g_cpu
+    n = sum(t.numel() for t in params.values())
+    log(f"[lm_train] {arch} compact copy (2 layers of full width, full embedding and lm_head, "
+        f"{n / 1e9:.2f} B parameters; batch {B} x {S}, {ccfg.optimizer}) step 1, card vs CPU: "
+        f"loss {float(m_card['loss']):.6f} vs {float(m_cpu['loss']):.6f} (|d| {held['loss']:.3g}, "
+        f"tolerance {LM_TRAIN_LOSS_TOL}); grad norm {float(m_card['grad_norm']):.6g} vs "
+        f"{float(m_cpu['grad_norm']):.6g} (rel {held['norm']:.3g}, tolerance {LM_TRAIN_NORM_TOL}); "
+        f"gradients {held['grads']:.4g} of each leaf's max (tolerance {LM_TRAIN_GRAD_TOL:.4g}); "
+        f"the card's update on the CPU's gradients: parameters max |d| {held['params']:.3g} "
+        f"(within one bf16 unit), m and v {held['opt']:.3g} of their max (tolerance 1e-6); the "
+        f"whole steps' parameters differ by more than one bf16 unit in {off} of {n} entries, at "
+        f"|g| <= {off_g:.3g} of the leaf's max"
+        + (f"; tokens routed to other experts at a near tie: {moved} of "
+           f"{sum(r.top.shape[0] * r.top.shape[1] for r in routes)} (the CPU replays the card's "
+           f"routing)" if ccfg.is_moe else "")
+        + f"; card {t_card:.2f} s, CPU {t_cpu:.2f} s")
+    del st_cpu, m_cpu, params_cpu
+
+    # Remat and reruns on the card: loss and every gradient bit-equal.
+    def run(**kw):
+        c = dataclasses.replace(ccfg, **kw)
+        return trainer._grads(functools.partial(tfm.loss_fn, c), params, batch)
+
+    base = run(remat=True, remat_policy="nothing")
+    same = {}
+    for name, kw in (("rerun", dict(remat=True, remat_policy="nothing")),
+                     ("dots", dict(remat=True, remat_policy="dots")), ("no remat", dict(remat=False))):
+        loss, grads = run(**kw)
+        same[name] = torch.equal(loss, base[0]) and all(torch.equal(grads[k], base[1][k]) for k in grads)
+        del grads
+    if not all(same.values()):
+        raise AssertionError(f"[lm_train] {arch} compact: loss and gradients not bit-equal: {same}")
+    log(f"[lm_train] {arch} compact on the card: loss {float(base[0]):.6f} and every gradient "
+        f"bit-equal across remat 'nothing', a rerun, 'dots' and no remat")
+    del base
+
+    if arch in LM_TRAIN_CKPT:
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        d = tempfile.mkdtemp(prefix="lm_train_ckpt_", dir=os.path.join(ROOT, "build"))
+        try:
+            t0 = time.perf_counter()
+            path = checkpoint.save_checkpoint(d, 1, st_card, extra={"step": 1})
+            t_save = time.perf_counter() - t0
+            template = tree_map(lambda _, t: torch.empty_like(t), st_card)
+            t0 = time.perf_counter()
+            restored, extra = checkpoint.restore_checkpoint(d, template)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            want = dict(tree_items(st_card))
+            bad = [k for k, t in tree_items(restored)
+                   if t.dtype != want[k].dtype or not torch.equal(t, want[k])]
+            if bad or extra != {"step": 1}:
+                raise AssertionError(f"[lm_train] {arch} checkpoint: restored leaves differ: {bad[:5]}")
+            log(f"[lm_train] {arch} compact train state ({len(want)} leaves, bfloat16 parameters, "
+                f"float32 m and v; {_gib(os.path.getsize(path))} on disk) saved in {t_save:.1f} s and "
+                f"restored in {t_restore:.1f} s through train/checkpoint.py: bit-equal")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    return {"held": held, "moved": moved, "t_cpu": t_cpu}
+
+
+def _lm_train_full(arch: str, cfg, card: str) -> dict:
+    """Full width at the train_4k sequence length, depth and batch cut
+    (printed): ``LM_TRAIN_STEPS`` steps through the train cell on one fixed
+    batch; the loss must be finite and fall."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors
+
+    shape = next(s for s in cfg.shapes if s.name == "train_4k")
+    L, (B, mb), S = LM_TRAIN_LAYERS[arch], LM_TRAIN_BATCH, shape.seq_len
+    fcfg = dataclasses.replace(cfg, n_layers=L)
+    n_full = sum(t.numel() for t in tfm.abstract_params(cfg).values())
+    n = sum(t.numel() for t in tfm.abstract_params(fcfg).values())
+    held, peak_b = ADAMW_STEP_BYTES
+    log(f"[lm_train] {arch} cuts: depth {cfg.n_layers} -> {L} layers"
+        + (f" ({fcfg.n_dense_layers} dense + {fcfg.n_moe_layers} MoE)" if cfg.is_moe else "")
+        + f": {n_full / 1e9:.2f} -> {n / 1e9:.2f} B parameters, a functional AdamW step "
+        f"{_gib(peak_b * n_full)} -> {_gib(peak_b * n)} at {peak_b} B a parameter ({held} held "
+        f"through the step) before activations; batch {shape.global_batch} / microbatch "
+        f"{shape.microbatch} -> {B} / {mb}; sequence {S} as published; {fcfg.optimizer}, remat "
+        f"'{fcfg.remat_policy}'")
+    cell = make_cell(fcfg, dataclasses.replace(shape, global_batch=B, microbatch=mb))
+    torch.cuda.reset_peak_memory_stats()
+    state = cell.init_state(torch.Generator(device=DEVICE).manual_seed(SEED + 71), DEVICE)
+    batch = as_tensors(_lm_train_batch(cfg.vocab_size, B, S, SEED + 71), DEVICE)
+    losses, times = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = cell.step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    del state, metrics
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[lm_train] {arch}: losses {losses} are not finite and falling")
+    step_s = statistics.median(times[1:])
+    bf16, f32 = _lm_train_ops(fcfg, B, S)
+    bound = bf16 / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+    log(f"[lm_train] {arch} {L} layers, batch {B} x {S} (microbatch {mb}), {LM_TRAIN_STEPS} steps "
+        f"on one batch: loss " + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; step {step_s * 1e3:.1f} ms (median of steps 2-{LM_TRAIN_STEPS}; step 1 "
+        f"{times[0] * 1e3:.1f} ms), {B * S / step_s:,.0f} tokens/s; peak {_gib(peak)} (reckoned "
+        f"{_gib(peak_b * n)} before activations); bound {bound * 1e3:.1f} ms (bf16 {bf16:.4g} FLOP "
+        f"/ 989 TFLOP/s = {bf16 / BF16_OPS_PER_S * 1e3:.1f} ms + f32 attention {f32:.4g} FLOP / "
+        f"67 TFLOP/s = {f32 / F32_OPS_PER_S * 1e3:.1f} ms), {step_s / bound:.2f}x the bound; {card}")
+    return {"step_ms": step_s * 1e3, "tokens_s": B * S / step_s, "peak": peak,
+            "bound_ms": bound * 1e3, "losses": losses, "reckoned": peak_b * n}
+
+
+def _lm_train_launcher() -> None:
+    """``launch.train --arch qwen3-4b --steps 4 --ckpt-every 2`` on the card
+    (smoke config, bfloat16 leaves in its checkpoints), then again with
+    ``--steps 6``: it must resume from step 4."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="lm_train_launch_", dir=os.path.join(ROOT, "build"))
+    try:
+        args = ["--arch", "qwen3-4b", "--ckpt-every", "2", "--ckpt-dir", d, "--device", DEVICE]
+        outs = []
+        for steps in ("4", "6"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                train.main([*args, "--steps", steps])
+            outs.append(buf.getvalue())
+        if "resumed" in outs[0] or "resumed from step 4" not in outs[1] or "step    5" not in outs[1]:
+            raise AssertionError(f"[lm_train] launch.train did not resume: {outs}")
+        ckpts = sorted(f for f in os.listdir(d) if f.endswith(".npz"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[lm_train] launch.train --arch qwen3-4b --steps 4 --ckpt-every 2 on the card, then "
+        f"--steps 6: resumed from step 4 (checkpoints {', '.join(ckpts)}); "
+        + outs[1].strip().splitlines()[-2].strip())
+
+
+def phase_lm_train(card: str) -> dict:
+    """The LM training path: Qwen3-4B and DeepSeek-MoE-16B, a compact copy
+    of each against the CPU port, then full width with the depth cut; the
+    launcher with a resume. Adds no forest kernel launch."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import forest_score as fs
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))   # lm_parity: the routing rule
+    t_phase = time.perf_counter()
+    before = fs.kernel_launches()
+    results = {}
+    for arch in LM_FULL:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        results[arch] = {"compact": _lm_train_compact(arch, cfg)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        results[arch]["full"] = _lm_train_full(arch, cfg, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _lm_train_launcher()
+    if fs.kernel_launches() != before:
+        raise AssertionError(f"[lm_train] the LM path launched forest kernels: {fs.kernel_launches()}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[lm_train] done in {seconds:.1f} s on {card}")
+    q, d = results["qwen3-4b"]["full"], results["deepseek-moe-16b"]["full"]
+    summary = (f"lm_train: qwen3-4b {LM_TRAIN_LAYERS['qwen3-4b']} layers {q['step_ms']:.0f} ms/step "
+               f"({q['tokens_s']:,.0f} tokens/s, peak {_gib(q['peak'])}); deepseek-moe-16b "
+               f"{LM_TRAIN_LAYERS['deepseek-moe-16b']} layers {d['step_ms']:.0f} ms/step "
+               f"({d['tokens_s']:,.0f} tokens/s, peak {_gib(d['peak'])})")
+    return {"results": results, "summary": summary, "seconds": seconds}
+
+
+# The [nequip] phase: the full config (5 layers, d_hidden 32, l_max 2,
+# n_rbf 8, cutoff 5.0) at its published graph shapes. Card against the CPU
+# port in float32: relative to each compared tensor's largest |value|.
+NEQUIP_TOL = 1e-4
+# Rotation: tests/test_property.py's tolerances (energy rtol, atol; forces rtol, atol).
+NEQUIP_ROT_TOL = (2e-4, 2e-5, 2e-3, 2e-4)
+
+
+def _nequip_terms(cfg, params, batch, with_forces: bool) -> dict:
+    """Energies, forces, loss and every gradient of one batch."""
+    import functools
+
+    from repro_torch.models import nequip
+    from repro_torch.train import trainer
+
+    e = nequip.forward_energy(cfg, params, batch["positions"], batch["species"], batch["edge_src"],
+                              batch["edge_dst"], batch.get("graph_id"),
+                              int(batch["energy"].shape[0]), batch.get("node_feat"))
+    loss, grads = trainer._grads(
+        functools.partial(nequip.loss_fn, cfg, with_forces=with_forces), params, batch)
+    out = {"energy": e.detach(), "loss": loss, **{f"grad {k}": g for k, g in grads.items()}}
+    if with_forces:
+        out["forces"] = nequip.forces(cfg, params, batch)
+    return out
+
+
+def _nequip_molecule(cfg, card: str) -> dict:
+    """``molecule`` (with forces), on a batch of its shape built as 128
+    molecules of 30 atoms and 64 edges with ghost padding
+    (tests/nequip_parity.py; the cell's synthesized inputs pile ~270 edges
+    on each of 30 nodes, where float32 forces lose the reference's own
+    rotation tolerance): energies, forces, loss and every gradient on the
+    card against the CPU port; a rerun on the card bit-equal; rotation
+    equivariance on the card; one train step through the cell."""
+    import numpy as np
+    import torch
+
+    from nequip_parity import molecule_batch
+    from repro_torch.models import nequip, so3
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors
+
+    shape = next(s for s in cfg.shapes if s.name == "molecule")
+    cell = make_cell(cfg, shape)
+    specs = cell.input_specs()
+    raw = molecule_batch(shape.graph_batch, shape.n_nodes, shape.n_edges,
+                         specs["positions"].shape[0], specs["edge_src"].shape[0],
+                         cfg.n_species, SEED + 80)
+    params = nequip.init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 80), DEVICE)
+    batch = as_tensors(raw, DEVICE)
+    t0 = time.perf_counter()
+    card_t = _nequip_terms(cfg, params, batch, True)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    cpu_t = _nequip_terms(cfg, {k: v.cpu() for k, v in params.items()}, as_tensors(raw, "cpu"), True)
+    errs = {k: _rel_max(card_t[k], cpu_t[k]) for k in cpu_t}
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= NEQUIP_TOL:
+        raise AssertionError(f"[nequip] molecule card vs CPU: {worst} {errs[worst]:.4g} > {NEQUIP_TOL}")
+    again = _nequip_terms(cfg, params, batch, True)
+    rerun_equal = all(torch.equal(again[k], card_t[k]) for k in card_t)
+    if not all(bool(torch.isfinite(t).all()) for t in card_t.values()):
+        raise AssertionError("[nequip] molecule: non-finite values")
+    # Rotation: E(R x) = E(x) and F(R x) = R F(x).
+    R = torch.as_tensor(so3._random_rotation(np.random.default_rng(SEED + 81)).astype(np.float32),
+                        device=DEVICE)
+    rot = dict(batch, positions=batch["positions"] @ R.T)
+    e1, e2 = card_t["energy"], nequip.forward_energy(
+        cfg, params, rot["positions"], rot["species"], rot["edge_src"], rot["edge_dst"],
+        rot["graph_id"], int(rot["energy"].shape[0]))
+    f1, f2 = card_t["forces"], nequip.forces(cfg, params, rot)
+    rt_e, at_e, rt_f, at_f = NEQUIP_ROT_TOL
+    e_err = float((e2 - e1).abs().max())
+    f_err = float((f2 - f1 @ R.T).abs().max())
+    torch.testing.assert_close(e2, e1, rtol=rt_e, atol=at_e)
+    torch.testing.assert_close(f2, f1 @ R.T, rtol=rt_f, atol=at_f)
+    ms, (state, metrics) = _events_ms(
+        lambda: cell.step(cell.init_state(SEED + 82, DEVICE), batch), 1)
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError("[nequip] molecule step: non-finite loss")
+    N, E = batch["positions"].shape[0], batch["edge_src"].shape[0]
+    log(f"[nequip] molecule (N {N}, E {E}: {shape.graph_batch} molecules of {shape.n_nodes} atoms "
+        f"and {shape.n_edges} edges, ghost padding; forces): card vs CPU, relative to each "
+        f"tensor's max: energy {errs['energy']:.3g}, forces {errs['forces']:.3g}, loss "
+        f"{errs['loss']:.3g}, gradients {max(v for k, v in errs.items() if k.startswith('grad')):.3g} "
+        f"(worst {worst}; tolerance {NEQUIP_TOL}); card {t_card:.2f} s; rerun on the card "
+        f"bit-equal: {rerun_equal}; rotation: max |dE| {e_err:.3g}, max |dF| {f_err:.3g} "
+        f"(rtol/atol {rt_e}/{at_e}, {rt_f}/{at_f}); one train step {ms:.1f} ms (with init), "
+        f"loss {float(metrics['loss']):.5g}; {card}")
+    return {"errs": errs, "rerun_equal": rerun_equal, "rot": (e_err, f_err)}
+
+
+def _nequip_message_bytes(cfg, n_edges: int) -> int:
+    """One layer's float32 messages: every path's ``[E, mul, 2·l3 + 1]``."""
+    from repro_torch.models import so3
+
+    return n_edges * cfg.d_hidden * sum(2 * l3 + 1 for *_, l3 in so3.allowed_paths(cfg.l_max)) * 4
+
+
+def _nequip_big(cfg, name: str, card: str, steps: int) -> dict:
+    """``name`` at its published size: ``steps`` train steps on one batch
+    (the first is the warm one), step time and peak; the loss must be
+    finite. Also reports whether two loss-and-gradient runs are bit-equal."""
+    import torch
+
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+
+    shape = next(s for s in cfg.shapes if s.name == name)
+    cell = make_cell(cfg, shape)
+    with_forces = bool(shape.graph_batch)
+    t0 = time.perf_counter()
+    batch = as_tensors(synthesize_inputs(cell, seed=SEED + 83), DEVICE)
+    t_data = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    state = cell.init_state(SEED + 83, DEVICE)
+    times, losses = [], []
+    for _ in range(steps):
+        ms, (state, metrics) = _events_ms(lambda: cell.step(state, batch), 1)
+        times.append(ms)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[nequip] {name}: losses {losses}")
+    a, b = (_nequip_terms(cfg, state.params, batch, with_forces) for _ in range(2))
+    rerun_equal = all(torch.equal(a[k], b[k]) for k in a)
+    del a, b, state
+    N, E = batch["positions"].shape[0], batch["edge_src"].shape[0]
+    step_ms = statistics.median(times[1:]) if steps > 1 else times[0]
+    log(f"[nequip] {name} (N {N}, E {E}, d_feat {shape.d_feat}"
+        + (f", {shape.graph_batch} graphs, forces and the double backward" if with_forces else ", no forces")
+        + f"; messages {_gib(_nequip_message_bytes(cfg, E))} a layer): {steps} step(s), step "
+        f"{step_ms:.1f} ms" + (f" (after a first of {times[0]:.1f} ms)" if steps > 1 else "")
+        + ", loss " + " -> ".join(f"{x:.5g}" for x in losses)
+        + f"; peak {_gib(peak)}; inputs drawn in {t_data:.1f} s; two loss-and-gradient runs "
+        f"bit-equal: {rerun_equal}; {card}")
+    return {"step_ms": step_ms, "peak": peak, "rerun_equal": rerun_equal, "losses": losses}
+
+
+def phase_nequip(card: str) -> dict:
+    """NequIP at the full config: molecule against the CPU port with
+    forces and rotation; minibatch_lg (forces, double backward) and
+    full_graph_sm trained; ogb_products by shape on ``meta``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.models.api import make_cell
+    from repro_torch.utils import tree_items
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))   # nequip_parity: the molecule batch
+    t_phase = time.perf_counter()
+    before = fs.kernel_launches()
+    cfg = get_config("nequip")
+    log(f"[nequip] {cfg.name}: {cfg.n_layers} layers, d_hidden {cfg.d_hidden}, l_max {cfg.l_max}, "
+        f"n_rbf {cfg.n_rbf}, cutoff {cfg.cutoff}, {cfg.dtype}; segment sums by index_put "
+        f"(accumulate, sorted) on the card")
+    out = {"molecule": _nequip_molecule(cfg, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["minibatch_lg"] = _nequip_big(cfg, "minibatch_lg", card, 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["full_graph_sm"] = _nequip_big(cfg, "full_graph_sm", card, 1)
+    ogb = next(s for s in cfg.shapes if s.name == "ogb_products")
+    cell = make_cell(cfg, ogb)
+    state, specs = cell.abstract_state(), cell.input_specs()
+    if any(t.device.type != "meta" for _, t in tree_items(state)):
+        raise AssertionError("[nequip] ogb_products: state not on meta")
+    E = specs["edge_src"].shape[0]
+    log(f"[nequip] ogb_products by shape only, on meta: N {specs['positions'].shape[0]}, E {E}, "
+        f"d_feat {ogb.d_feat}; {sum(t.numel() for t in state.params.values()):,} parameters; "
+        f"messages {_gib(_nequip_message_bytes(cfg, E))} a layer")
+    if fs.kernel_launches() != before:
+        raise AssertionError(f"[nequip] launched forest kernels: {fs.kernel_launches()}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[nequip] done in {seconds:.1f} s on {card}")
+    m = out["minibatch_lg"]
+    summary = (f"nequip: minibatch_lg {m['step_ms']:.0f} ms/step, peak {_gib(m['peak'])}; "
+               f"molecule card vs CPU {max(out['molecule']['errs'].values()):.2g}")
+    return {"results": out, "summary": summary, "seconds": seconds}
 
 
 def main() -> int:
@@ -2685,6 +3268,10 @@ def main() -> int:
         elapsed("cells")
         lm = phase_lm(card)
         elapsed("lm")
+        lm_train = phase_lm_train(card)
+        elapsed("lm_train")
+        nequip = phase_nequip(card)
+        elapsed("nequip")
         kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"], cells["cases"])
         gated = phase_gated()
         elapsed("kernels")
@@ -2724,6 +3311,7 @@ def main() -> int:
     log(f"[summary] {tier['summary']}; gated tail at a full count "
         + ", ".join(f"B={B} {ms:.4f} ms" for B, ms in sorted(full.items()))
         + f"; {hybrid['summary']}; {train['summary']}; {cells['summary']}; {lm['summary']}; "
+        f"{lm_train['summary']}; {nequip['summary']}; "
         f"run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

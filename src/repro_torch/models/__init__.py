@@ -1,6 +1,6 @@
 """Models of the port: the hybrid cascade's distilled dense scorer, the
-RecSys family, the LM decoder (dense and MoE), and the model-cell API
-(``make_cell``) over them and the paper's forest."""
+RecSys family, the LM decoder (dense and MoE), NequIP, and the model-cell
+API (``make_cell``) over them and the paper's forest."""
 
 from repro_torch.models.dense_scorer import (
     DenseScorer,
@@ -8,6 +8,7 @@ from repro_torch.models.dense_scorer import (
     dense_score,
     init_dense_scorer,
 )
+from repro_torch.models.nequip import nequip_params_from_numpy, nequip_params_to_numpy
 from repro_torch.models.recsys import recsys_params_from_numpy, recsys_params_to_numpy
 from repro_torch.models.transformer import (
     transformer_params_from_numpy,
@@ -16,6 +17,7 @@ from repro_torch.models.transformer import (
 
 __all__ = [
     "DenseScorer", "dense_params_from_numpy", "dense_score", "init_dense_scorer",
+    "nequip_params_from_numpy", "nequip_params_to_numpy",
     "recsys_params_from_numpy", "recsys_params_to_numpy",
     "transformer_params_from_numpy", "transformer_params_to_numpy",
 ]

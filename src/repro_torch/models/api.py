@@ -18,12 +18,14 @@ The port of :mod:`repro.models.api`. ``make_cell(cfg, shape)`` returns a
   a JAX key).
 
 Parameters are flat ``dict[str, Tensor]`` keyed by the reference's pytree
-paths. The RecSys cells (:mod:`repro_torch.models.recsys`), the LM
-serving cells (``prefill`` and ``decode``, :mod:`repro_torch.models.transformer`)
-and the paper's forest cell are ported; an LM ``train`` shape and the
-NequIP cells raise ``NotImplementedError`` until their slices land
-(``ROADMAP.md`` A7, A8). A decode step writes its token's keys and values
-into the input caches in place and returns them.
+paths. Every family of the registry has its cells: RecSys
+(:mod:`repro_torch.models.recsys`), the LM's ``train``, ``prefill`` and
+``decode`` (:mod:`repro_torch.models.transformer`; a train cell
+accumulates microbatch gradients in bfloat16 under Adafactor, float32
+otherwise, as the reference), NequIP's train cells
+(:mod:`repro_torch.models.nequip`; with forces where the shape batches
+graphs) and the paper's forest. A decode step writes its token's keys and
+values into the input caches in place and returns them.
 
 The forest cell serves the LEAR cascade over a padded ``[Q, D, F]`` block
 through the hand-written forest kernel
@@ -52,6 +54,7 @@ from repro_torch.configs.base import (
     ShapeSpec,
     TransformerConfig,
 )
+from repro_torch.models import nequip as nequip_mod
 from repro_torch.models import recsys as recsys_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.train.optimizer import get_optimizer, is_rowwise_table
@@ -151,7 +154,7 @@ def _pad512(n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# LM transformers (serving).
+# LM transformers.
 # ---------------------------------------------------------------------------
 
 
@@ -160,9 +163,19 @@ def _lm_cell(cfg: TransformerConfig, shape: ShapeSpec) -> Cell:
     plogical = tfm.param_logical(cfg)
 
     if shape.kind == "train":
-        raise NotImplementedError(
-            f"{cfg.name}: the LM train cell (loss_fn, chunked cross-entropy, remat) "
-            "is not ported yet (ROADMAP.md A7)"
+        def inputs():
+            return {"tokens": _sds((B, S), I32), "labels": _sds((B, S), I32)}
+
+        def inputs_logical():
+            return {"tokens": ("batch", None), "labels": ("batch", None)}
+
+        accum = torch.bfloat16 if cfg.optimizer == "adafactor" else F32
+        return _train_cell(
+            cfg, shape, partial(tfm.loss_fn, cfg),
+            lambda: tfm.abstract_params(cfg), plogical,
+            lambda gen, dev: tfm.init(cfg, gen, dev),
+            inputs, inputs_logical,
+            microbatch=shape.microbatch, accum_dtype=accum,
         )
 
     def init(seed, device=None):
@@ -200,6 +213,57 @@ def _lm_cell(cfg: TransformerConfig, shape: ShapeSpec) -> Cell:
         return {"token": ("batch", None), "caches": cache_lg, "pos": ()}
 
     return cell(step, inputs, inputs_logical)
+
+
+# ---------------------------------------------------------------------------
+# NequIP.
+# ---------------------------------------------------------------------------
+
+
+def _nequip_inputs(shape: ShapeSpec):
+    if shape.graph_batch and shape.n_nodes < 10_000:
+        # batched-small-graphs: totals = per-graph size × batch
+        N = _pad512(shape.n_nodes * shape.graph_batch)
+        E = _pad512(shape.n_edges * shape.graph_batch)
+    else:
+        N, E = _pad512(shape.n_nodes), _pad512(shape.n_edges)
+    n_graphs = shape.graph_batch or 1
+    specs = {
+        "positions": _sds((N, 3), F32),
+        "species": _sds((N,), I32),
+        "edge_src": _sds((E,), I32),
+        "edge_dst": _sds((E,), I32),
+        "energy": _sds((n_graphs,), F32),
+    }
+    logical = {
+        "positions": ("nodes", None),
+        "species": ("nodes",),
+        "edge_src": ("edges",),
+        "edge_dst": ("edges",),
+        "energy": (None,),
+    }
+    if shape.graph_batch:
+        specs["graph_id"] = _sds((N,), I32)
+        logical["graph_id"] = ("nodes",)
+        specs["forces"] = _sds((N, 3), F32)
+        logical["forces"] = ("nodes", None)
+    if shape.d_feat:
+        specs["node_feat"] = _sds((N, shape.d_feat), F32)
+        logical["node_feat"] = ("nodes", None)
+    return specs, logical
+
+
+def _nequip_cell(cfg: NequIPConfig, shape: ShapeSpec) -> Cell:
+    d_feat = shape.d_feat
+    specs, logical = _nequip_inputs(shape)
+    return _train_cell(
+        cfg, shape,
+        partial(nequip_mod.loss_fn, cfg, with_forces=bool(shape.graph_batch)),
+        lambda: nequip_mod.init(cfg, None, "meta", d_feat),
+        nequip_mod.param_logical(cfg, d_feat),
+        lambda gen, dev: nequip_mod.init(cfg, gen, dev, d_feat),
+        lambda: specs, lambda: logical,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -493,9 +557,7 @@ def make_cell(cfg, shape: ShapeSpec) -> Cell:
     if isinstance(cfg, TransformerConfig):
         return _lm_cell(cfg, shape)
     if isinstance(cfg, NequIPConfig):
-        raise NotImplementedError(
-            f"{cfg.name}: the NequIP cells are not ported yet (ROADMAP.md A8)"
-        )
+        return _nequip_cell(cfg, shape)
     if isinstance(cfg, RecSysConfig):
         return _recsys_cell(cfg, shape)
     if isinstance(cfg, ForestConfig):

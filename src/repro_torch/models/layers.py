@@ -109,9 +109,11 @@ def blockwise_attention(
     qr = q.reshape(B, Sq, Hkv, G, Dh).transpose(1, 2).float().reshape(B, Hkv, Sq * G, Dh)
     kr = k.transpose(1, 2).float().contiguous()                # [B, Hkv, Skv, Dh]
     vr = v.transpose(1, 2).float().contiguous()
-    acc = torch.zeros((B, Hkv, Sq * G, Dh), dtype=torch.float32, device=q.device)
-    row_max = torch.full((B, Hkv, Sq * G), NEG_INF, dtype=torch.float32, device=q.device)
-    row_sum = torch.zeros((B, Hkv, Sq * G), dtype=torch.float32, device=q.device)
+    carry = (
+        torch.zeros((B, Hkv, Sq * G, Dh), dtype=torch.float32, device=q.device),
+        torch.full((B, Hkv, Sq * G), NEG_INF, dtype=torch.float32, device=q.device),
+        torch.zeros((B, Hkv, Sq * G), dtype=torch.float32, device=q.device),
+    )
 
     # Per query block, the key/value blocks it scans (the reference's n_kv).
     n_kv = [nk] * nq
@@ -127,10 +129,13 @@ def blockwise_attention(
         if causal:
             kpos = j * kv_block + torch.arange(kv_block, device=q.device)
             scores = torch.where(qpos[r0:, None] >= kpos[None, :], scores, NEG_INF)
-        carry = (acc[:, :, r0:], row_max[:, :, r0:], row_sum[:, :, r0:])
-        acc[:, :, r0:], row_max[:, :, r0:], row_sum[:, :, r0:] = _online_softmax_block(
-            carry, scores, vr[:, :, kv]
+        # Out of place, so autograd can differentiate it: rows above r0
+        # keep their carries, the rest take the block's update.
+        new = _online_softmax_block(tuple(c[:, :, r0:] for c in carry), scores, vr[:, :, kv])
+        carry = new if r0 == 0 else tuple(
+            torch.cat([c[:, :, :r0], n], dim=2) for c, n in zip(carry, new)
         )
+    acc, _, row_sum = carry
     out = acc / torch.clamp_min(row_sum[..., None], 1e-30)
     # [B, Hkv, Sq·G, Dh] → [B, Sq, H, Dh]
     return out.reshape(B, Hkv, Sq, G, Dh).transpose(1, 2).reshape(B, Sq, H, Dh).to(q.dtype)
@@ -158,13 +163,31 @@ def decode_attention(
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
+class _Silu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        # JAX's: the product rule, the logistic's derivative from its value.
+        return g * s + ((g * x) * s) * (1 - s)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x · σ(x)`` with σ written ``1 / (1 + exp(-x))``, one op at a time in
     ``x``'s dtype: the expansion XLA gives ``jax.nn.silu``'s logistic. In
     bfloat16 each op rounds, as there, so the port's bfloat16 activations
     equal the reference's on the CPU (``F.silu`` rounds once and differs in
-    about a third of them)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    about a third of them). The backward is JAX's,
+    ``g·σ + g·x·σ·(1 − σ)`` from the forward's σ: differentiating the ops
+    themselves would give ``0 · inf`` = NaN where ``exp(-x)`` overflows
+    (x < −88). Differentiable once."""
+    return _Silu.apply(x)
 
 
 def glu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -1,8 +1,8 @@
 """Decoder LM: GQA attention, optional QK-norm / QKV bias / MoE FFN.
 
-The port of :mod:`repro.models.transformer`, serving half: ``init``,
-``prefill`` and ``decode_step`` (the training loss and remat are not
-ported yet, ``ROADMAP.md`` A7).
+The port of :mod:`repro.models.transformer`: ``init``, ``prefill``,
+``decode_step`` and the training loss ``loss_fn`` (chunked cross-entropy
+plus the MoE aux loss, with per-layer remat).
 
 Parameters are one flat ``dict[str, Tensor]`` keyed by the reference's
 pytree paths, with the layers stacked on a leading axis as the reference
@@ -11,6 +11,17 @@ scans them: ``embed`` ``[V, D]``, ``dense_stack/attn/wq`` ``[L, D, H·Dh]``,
 stacks: ``n_dense_layers`` leading dense layers (DeepSeek-MoE places a
 dense FFN first) and the MoE stack. The port runs the layers in a Python
 loop over views of the stacked tensors.
+
+Training (``loss_fn``) runs the same layers without caches. Under
+``cfg.remat`` each layer is checkpointed (``torch.utils.checkpoint``,
+non-reentrant): ``remat_policy="nothing"`` recomputes the whole layer in the
+backward pass; ``"dots"`` keeps the outputs of the plain 2-D matmuls
+(``aten.mm``: the projections, the dense FFN, the router) and recomputes
+the rest, as the reference's ``dots_with_no_batch_dims_saveable`` keeps
+its dot products without batch dimensions. Recomputation repeats the same
+ops on the same inputs, so a loss and its gradients are bit-equal with and
+without remat. :func:`chunked_cross_entropy` checkpoints each chunk of 512
+positions, so the ``[B, S, V]`` logits never exist at once.
 
 KV caches are nested dicts ``{stack: {"k": [L, B, S, Hkv, Dh], "v": …}}``
 in the model's dtype, as in the reference. ``decode_step`` writes the new
@@ -31,12 +42,19 @@ dropped (one device); the logical-axis tables stay as data.
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Mapping
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.models.layers import (
@@ -166,16 +184,17 @@ def abstract_params(cfg: TransformerConfig) -> Params:
 
 
 # ---------------------------------------------------------------------------
-# Layer body (prefill / decode).
+# Layer body (train / prefill / decode).
 # ---------------------------------------------------------------------------
 
 
 def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positions,
-               pos: int | None, k_cache: torch.Tensor, v_cache: torch.Tensor):
+               pos: int | None, k_cache: torch.Tensor | None, v_cache: torch.Tensor | None):
     """Prefill (``pos`` None): attention over ``x``'s sequence, whose keys
-    and values are written to ``k_cache`` / ``v_cache`` ``[B, S, Hkv, Dh]``.
-    Decode: the token's keys and values are written at ``pos`` and it
-    attends the cache up to and including them."""
+    and values are written to ``k_cache`` / ``v_cache`` ``[B, S, Hkv, Dh]``;
+    training passes no caches and writes none. Decode: the token's keys and
+    values are written at ``pos`` and it attends the cache up to and
+    including them."""
     B, S, D = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = x @ layer["attn/wq"]
@@ -199,8 +218,9 @@ def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, pos
         v_cache[:, at] = v[:, 0]
         out = decode_attention(q, k_cache, v_cache, pos + 1)
     else:
-        k_cache.copy_(k)
-        v_cache.copy_(v)
+        if k_cache is not None:
+            k_cache.copy_(k)
+            v_cache.copy_(v)
         out = blockwise_attention(
             q, k, v,
             causal=cfg.causal,
@@ -212,9 +232,11 @@ def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, pos
 
 
 def _layer(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positions,
-           pos: int | None, k_cache, v_cache, moe: bool) -> torch.Tensor:
+           pos: int | None, k_cache, v_cache, moe: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer; returns (x, the MoE aux loss, 0 for a dense layer)."""
     x = x + _attention(cfg, layer, rms_norm(x, layer["ln1"]), positions, pos, k_cache, v_cache)
     h = rms_norm(x, layer["ln2"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not moe:
         h = glu_mlp(h, layer["mlp/w_gate"], layer["mlp/w_up"], layer["mlp/w_down"])
     else:
@@ -222,7 +244,7 @@ def _layer(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positio
         # Decode: one dispatch group of every sequence's token; prefill:
         # one group per sequence.
         groups = h.reshape(1, B * S, D) if pos is not None else h
-        y, _ = moe_ffn(
+        y, aux = moe_ffn(
             groups, layer["moe/router"], layer["moe/w_gate"], layer["moe/w_up"],
             layer["moe/w_down"], top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
         )
@@ -231,7 +253,24 @@ def _layer(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positio
             y = y + glu_mlp(h, layer["shared/w_gate"], layer["shared/w_up"],
                             layer["shared/w_down"])
         h = y
-    return x + h
+    return x + h, aux
+
+
+def _save_mm(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat_policy="dots"``: keep plain 2-D matmul outputs, recompute
+    everything else (batched products included)."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: TransformerConfig, fn):
+    """``fn`` checkpointed per ``cfg.remat_policy``."""
+    if cfg.remat_policy not in ("nothing", "dots"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: want 'nothing' or 'dots'")
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_mm)
+                  if cfg.remat_policy == "dots" else noop_context_fn)
+    return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=context_fn)
 
 
 def _embed_lookup(cfg: TransformerConfig, embed: torch.Tensor, tokens: torch.Tensor
@@ -246,22 +285,77 @@ def _embed_lookup(cfg: TransformerConfig, embed: torch.Tensor, tokens: torch.Ten
 
 
 def _forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, positions,
-             caches: Caches, pos: int | None = None) -> torch.Tensor:
+             caches: Caches | None, pos: int | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The stacks over ``tokens``; ``caches`` are written as
-    :func:`_attention` says. Returns the final-normed hidden states."""
+    :func:`_attention` says, or, ``None``, the training mode: no cache, and
+    each layer checkpointed under ``cfg.remat`` while autograd records.
+    Returns (the final-normed hidden states, the MoE aux loss summed over
+    the layers, float32)."""
     x = _embed_lookup(cfg, params["embed"], tokens).to(_dtype(cfg))
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = caches is None and cfg.remat and torch.is_grad_enabled()
     for name, n_layers, moe in _stacks(cfg):
         stack = {k[len(name) + 1:]: v for k, v in params.items() if k.startswith(name + "/")}
-        k_all, v_all = caches[name]["k"], caches[name]["v"]
+        keys = tuple(stack)
+
+        def body(x, *weights, moe=moe, keys=keys):
+            return _layer(cfg, dict(zip(keys, weights)), x, positions, None, None, None, moe)
+
+        body = _remat(cfg, body) if remat else body
         for i in range(n_layers):
-            layer = {k: v[i] for k, v in stack.items()}
-            x = _layer(cfg, layer, x, positions, pos, k_all[i], v_all[i], moe)
-    return rms_norm(x, params["final_norm"])
+            if caches is None:
+                x, aux = body(x, *(stack[k][i] for k in keys))
+            else:
+                x, aux = _layer(cfg, {k: v[i] for k, v in stack.items()}, x, positions, pos,
+                                caches[name]["k"][i], caches[name]["v"][i], moe)
+            aux_total = aux_total + aux
+    return rms_norm(x, params["final_norm"]), aux_total
 
 
 # ---------------------------------------------------------------------------
 # Public steps.
 # ---------------------------------------------------------------------------
+
+
+def _ce_chunk(hb: torch.Tensor, lm_head: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+    logits = (hb @ lm_head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lb.long()[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
+                          chunk: int = 512) -> torch.Tensor:
+    """Mean next-token CE without materializing ``[B, S, V]``: per chunk of
+    ``chunk`` positions (every sequence's), float32 logits, their
+    logsumexp and the gold logit; each chunk is checkpointed (recomputed in
+    the backward pass) and the chunk totals are summed in order, then
+    divided by ``B·S``."""
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        if torch.is_grad_enabled():
+            part = checkpoint(_ce_chunk, h[:, sl], lm_head, labels[:, sl], use_reentrant=False)
+        else:
+            part = _ce_chunk(h[:, sl], lm_head, labels[:, sl])
+        total = total + part
+    return total / (B * S)
+
+
+def loss_fn(cfg: TransformerConfig, params: Params, batch: Mapping[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """``chunked_cross_entropy + 0.01 · aux`` over ``batch["tokens"]`` and
+    ``batch["labels"]`` ``[B, S]``."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    h, aux = _forward(cfg, params, tokens, positions, None)
+    ce = chunked_cross_entropy(h, params["lm_head"], labels)
+    return ce + 0.01 * aux
 
 
 def _zeros_caches(cfg: TransformerConfig, batch: int, length: int, device) -> Caches:
@@ -281,7 +375,7 @@ def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, cache_
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
     caches = _zeros_caches(cfg, B, S, tokens.device)
-    h = _forward(cfg, params, tokens, positions, caches)
+    h, _ = _forward(cfg, params, tokens, positions, caches)
     logits = (h[:, -1] @ params["lm_head"]).float()
     return logits, _pad_caches(cfg, caches, cache_len)
 
@@ -312,7 +406,7 @@ def decode_step(cfg: TransformerConfig, params: Params, token: torch.Tensor, cac
     ``caches`` in place and returns (logits [B, V] float32, ``caches``)."""
     pos = int(pos)
     positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32, device=token.device)
-    h = _forward(cfg, params, token, positions, caches, pos=pos)
+    h, _ = _forward(cfg, params, token, positions, caches, pos=pos)
     logits = (h[:, -1] @ params["lm_head"]).float()
     return logits, caches
 

@@ -16,6 +16,14 @@ in place into the template's own tensor (its device and dtype): the host
 holds one leaf at a time and the card no second copy of the state, so a
 state of most of the card (DLRM-RM2's 45.56 GB of tables) saves and
 restores.
+
+A bfloat16 leaf (numpy has none) is written as the reference writes one:
+``np.savez`` stores an ``ml_dtypes.bfloat16`` array as the raw 2-byte
+pattern under the descriptor ``<V2``, and the port writes the same header
+and the same bytes from the tensor's int16 view. A restore reads a 2-byte
+void or int16 leaf back into a bfloat16 template bit for bit. (The
+reference's own restore casts such a leaf with ``astype`` and raises, so it
+cannot reopen its bfloat16 checkpoints; ``ROADMAP.md`` C10.)
 """
 
 from __future__ import annotations
@@ -33,8 +41,15 @@ import torch
 from repro_torch.utils import tree_items, tree_map
 
 
-def _host(leaf: Any) -> np.ndarray:
-    return leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+def _write_leaf(f, leaf: Any) -> None:
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        raw = leaf.detach().cpu().contiguous().view(torch.int16).numpy()
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": raw.shape})
+        f.write(memoryview(raw).cast("B"))
+        return
+    host = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+    np.lib.format.write_array(f, host, allow_pickle=False)
 
 
 def _write_npz(path: str, items) -> list[str]:
@@ -44,9 +59,17 @@ def _write_npz(path: str, items) -> list[str]:
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
         for key, leaf in items:
             with zf.open(f"{key}.npy", "w", force_zip64=True) as f:
-                np.lib.format.write_array(f, _host(leaf), allow_pickle=False)
+                _write_leaf(f, leaf)
             keys.append(key)
     return keys
+
+
+def _as_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A loaded leaf as a tensor to copy into ``like``; a bfloat16 template
+    takes a 2-byte void or int16 leaf as its bit pattern."""
+    if like.dtype == torch.bfloat16 and arr.dtype.itemsize == 2 and arr.dtype.kind in "Vi":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save_checkpoint(
@@ -117,7 +140,7 @@ def restore_checkpoint(directory: str, target: Any, step: int | None = None):
             if tuple(arr.shape) != tuple(like.shape):
                 raise ValueError(f"{key}: saved shape {arr.shape}, template {tuple(like.shape)}")
             with torch.no_grad():
-                like.copy_(torch.from_numpy(arr))
+                like.copy_(_as_tensor(arr, like))
             return like
 
         state = tree_map(leaf, target)

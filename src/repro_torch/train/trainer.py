@@ -90,11 +90,16 @@ def make_train_step(
                     else:
                         acc = gsum.get(k, torch.zeros(gk.shape, dtype=accum_dtype, device=gk.device))
                         gsum[k] = acc + gk.to(accum_dtype)
+                del g   # the next chunk's backward runs without this one's gradients
             loss = loss_sum / n_chunks
+            # Dense sums are divided in place (the same arithmetic): a second
+            # float32 copy of every gradient would not fit beside an LM's state.
             grads = {
-                k: _values(g.coalesce() if g.is_sparse else g, lambda v: v / n_chunks)
+                k: _values(g.coalesce(), lambda v: v / n_chunks) if g.is_sparse
+                else g.div_(n_chunks)
                 for k, g in gsum.items()
             }
+            del gsum
         else:
             loss, grads = _grads(loss_fn, params, batch)
             grads = {k: g.coalesce() if g.is_sparse else g for k, g in grads.items()}

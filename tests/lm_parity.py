@@ -106,10 +106,10 @@ def _kept(weight: np.ndarray, token_idx: np.ndarray) -> np.ndarray:
 
 
 def port_decisions(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
-                   capacity_factor: float) -> Decisions:
+                   capacity_factor: float, route=None) -> Decisions:
     from repro_torch.models import moe
 
-    probs, top_idx, weight, token_idx = moe.route(
+    probs, top_idx, weight, token_idx = (route or moe.route)(
         x, router_w, top_k=top_k, capacity_factor=capacity_factor)
     probs, weight = probs.double().cpu().numpy(), weight.double().cpu().numpy()
     logp = np.log(np.sort(probs, axis=-1)[..., ::-1])
@@ -243,3 +243,149 @@ def set_aside(a_calls: list, b_calls: list, batch: int, out: set, lo: int = 0,
                 assert not msg, msg
                 out.add(seq)
     return out
+
+
+
+def _concat(parts: list) -> list:
+    """Per layer, its microbatches' :class:`Decisions` joined along the
+    group axis."""
+    return [Decisions(*(None if getattr(ds[0], f.name) is None
+                        else np.concatenate([getattr(d, f.name) for d in ds])
+                        for f in dataclasses.fields(Decisions)))
+            for ds in parts]
+
+
+@contextlib.contextmanager
+def record_routes(decisions: list, passes: int = 1):
+    """Append each MoE layer's routing (:class:`Decisions`, no margins)
+    over the whole batch to ``decisions`` when the context exits, one per
+    layer in the order the layers first run. A layer is known by its
+    router's storage; of its calls, every ``passes``-th is recorded (a
+    training step runs each layer ``passes`` times a microbatch: 2 under
+    remat, the forward and its recomputation), and the microbatches'
+    decisions are joined in order."""
+    from repro_torch.models import moe
+
+    real = moe.route
+    layer_of: dict[int, int] = {}
+    calls: list[int] = []
+    parts: list[list[Decisions]] = []
+
+    def recording(x, router_w, *, top_k, capacity_factor):
+        out = real(x, router_w, top_k=top_k, capacity_factor=capacity_factor)
+        key = router_w.data_ptr()
+        if key not in layer_of:
+            layer_of[key] = len(layer_of)
+            calls.append(0)
+            parts.append([])
+        layer = layer_of[key]
+        if calls[layer] % passes == 0:
+            _, top_idx, weight, token_idx = (t.detach().cpu() for t in out)
+            parts[layer].append(Decisions(np.sort(top_idx.numpy(), -1),
+                                          _kept(weight.double().numpy(), token_idx.numpy())))
+        calls[layer] += 1
+        return out
+
+    moe.route = recording
+    try:
+        yield decisions
+    finally:
+        moe.route = real
+        decisions.extend(_concat(parts))
+
+
+@contextlib.contextmanager
+def replay_routes(decisions: list, own: list, passes: int = 1):
+    """While the port runs, each MoE layer takes its experts and the tokens
+    each expert keeps from ``decisions`` (one :class:`Decisions` per layer
+    over the whole batch, in the order the layers first run:
+    :func:`record_routes` of another run, or :func:`record_reference`) and
+    computes only their weights from its own router probabilities, in
+    ``moe.route``'s arithmetic. Its own decisions, with margins, go to
+    ``own`` (one per layer, over the whole batch, when the context exits).
+    So two runs whose routers drift across a near tie are held on the same
+    routing, once :func:`rerouted` has found, on ``own`` against
+    ``decisions``, that each decision that differs is a near tie.
+
+    A layer is known by its router's storage. A training step may run the
+    batch in microbatches, and each layer ``passes`` times a microbatch (2
+    under remat: the forward and its recomputation): the n-th call of a
+    layer routes groups ``[c·G, (c+1)·G)`` of the batch, ``c = n //
+    passes``."""
+    from repro_torch.models import moe
+
+    real = moe.route
+    layer_of: dict[int, int] = {}
+    calls: list[int] = []
+    parts: list[list[Decisions]] = []
+
+    def replaying(x, router_w, *, top_k, capacity_factor):
+        key = router_w.data_ptr()
+        if key not in layer_of:
+            layer_of[key] = len(layer_of)
+            calls.append(0)
+            parts.append([])
+        layer = layer_of[key]
+        chunk, first = divmod(calls[layer], passes)
+        calls[layer] += 1
+        if first == 0:
+            parts[layer].append(port_decisions(x.detach(), router_w.detach(), top_k,
+                                               capacity_factor, real))
+        G = x.shape[0]
+        rows = slice(chunk * G, (chunk + 1) * G)
+        dec = decisions[layer]
+        C = moe._capacity(x.shape[1], router_w.shape[1], top_k, capacity_factor)
+        top_idx = torch.as_tensor(dec.top[rows], device=x.device).long()
+        # Each expert's kept tokens first, then tokens that did not choose it
+        # (weight 0), as route's capacity slots hold them.
+        kept = torch.as_tensor(dec.kept[rows], device=x.device)
+        token_idx = torch.argsort((~kept).to(torch.uint8), dim=-1, stable=True)[..., :C]
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        top_p = torch.gather(probs, -1, top_idx)
+        top_p = top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9)
+        weight = torch.zeros_like(probs).scatter_(-1, top_idx, top_p)
+        return probs, top_idx, weight, token_idx
+
+    moe.route = replaying
+    try:
+        yield own
+    finally:
+        moe.route = real
+        own.extend(_concat(parts))
+
+
+# ---------------------------------------------------------------------------
+# A bfloat16 embedding's gradient (ROADMAP C11).
+# ---------------------------------------------------------------------------
+
+
+def embedding_case() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A 32-token table of width 16, 512 lookups (~16 repeats a token) and
+    the cotangent of each looked-up row."""
+    rng = np.random.default_rng(5)
+    V, D, n = 32, 16, 512
+    table = rng.normal(size=(V, D)).astype(np.float32)
+    tokens = rng.integers(0, V, n).astype(np.int32)
+    up = rng.normal(size=(n, D)).astype(np.float32)
+    return table, tokens, up
+
+
+def embedding_grad(table, tokens, up, device) -> torch.Tensor:
+    """The gradient of a bfloat16 ``F.embedding`` lookup on ``device``."""
+    t = torch.as_tensor(table, device=device).bfloat16().requires_grad_()
+    out = torch.nn.functional.embedding(torch.as_tensor(tokens, device=device).long(), t)
+    (g,) = torch.autograd.grad((out.float() * torch.as_tensor(up, device=device)).sum(), t)
+    return g.cpu()
+
+
+def bf16_sums(tokens, up, V: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each token's cotangent rows (rounded to bfloat16) summed in token
+    order two ways: one bfloat16 rounding per add, and in float32 rounded
+    once."""
+    rows = torch.as_tensor(up).bfloat16()
+    tok = torch.as_tensor(tokens).long()
+    seq = torch.zeros(V, rows.shape[1], dtype=torch.bfloat16)
+    for i in range(len(tokens)):
+        seq[tok[i]] += rows[i]
+    once = torch.zeros(V, rows.shape[1]).index_add_(0, tok, rows.float()).bfloat16()
+    return seq, once

@@ -1,13 +1,17 @@
 """The port's model cells against the reference's: ``make_cell`` for the
-RecSys family and the paper's forest, ``synthesize_inputs``, and the
-serve/train launchers.
+RecSys family, the LM and NequIP train cells and the paper's forest,
+``synthesize_inputs``, and the serve/train launchers.
 
-- **Meta shapes**: at every FULL config and published shape, the port's
-  ``abstract_state()`` (tensors on the ``meta`` device, no memory) has the
-  paths, shapes and dtypes of the reference's ``jax.eval_shape`` state, and
-  its ``input_specs()`` those of the reference's.
+- **Meta shapes**: at every FULL config and published shape (the LM's
+  ``train_4k``; its serving shapes are in ``tests/test_torch_lm.py``), the
+  port's ``abstract_state()`` (tensors on the ``meta`` device, no memory;
+  a train cell's whole ``TrainState``, optimizer state included) has the
+  paths, shapes and dtypes of the reference's ``jax.eval_shape`` state,
+  and its ``input_specs()`` those of the reference's. Every (config,
+  shape) of the registry without a ``skip_reason`` builds.
 - **Inputs**: ``synthesize_inputs`` draws bit-identical arrays in both
-  packages for every cell and several seeds.
+  packages for every cell and several seeds (NequIP's ``ogb_products`` at a
+  hundredth of its size).
 - **Forest cell**: the port's step (the forest kernel's plain version on
   the CPU) is held to the reference's (``score_bitvector``) at
   ``capacity_frac`` 0, > 0 and with ``sentinel2``: scores within 1e-5 and
@@ -40,12 +44,17 @@ from repro_torch.models.synth import as_tensors, synthesize_inputs  # noqa: E402
 from repro_torch.utils import tree_items  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELL_ARCHS = ("dlrm-rm2", "deepfm", "din", "bert4rec", "lear-msn1")
+LM_ARCHS = ("qwen2.5-14b", "minitron-4b", "qwen3-4b", "deepseek-moe-16b",
+            "llama4-maverick-400b-a17b")
+CELL_ARCHS = ("dlrm-rm2", "deepfm", "din", "bert4rec", "lear-msn1", *LM_ARCHS, "nequip")
+# The LM serving shapes are held in tests/test_torch_lm.py; here their train_4k.
 FULL_CELLS = [
     (arch, shape.name)
     for arch in CELL_ARCHS for shape in ref_configs.get_config(arch).shapes
+    if arch not in LM_ARCHS or shape.name == "train_4k"
 ]
-_DTYPES = {torch.float32: "float32", torch.int32: "int32", torch.int64: "int64", torch.bool: "bool"}
+_DTYPES = {torch.float32: "float32", torch.int32: "int32", torch.int64: "int64", torch.bool: "bool",
+           torch.bfloat16: "bfloat16"}
 
 
 def _shape(arch, name):
@@ -115,11 +124,17 @@ def _logical_items(tree, prefix=""):
         yield prefix, tree
 
 
-def test_lm_and_nequip_cells_name_their_roadmap_item():
-    for arch, item in (("qwen3-4b", "A7"), ("nequip", "A8")):
-        cfg = port_configs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match=item):
-            make_cell(cfg, cfg.shapes[0] if cfg.shapes else ShapeSpec("x", "train"))
+@pytest.mark.parametrize("arch", port_configs.list_archs())
+def test_every_registry_cell_builds(arch):
+    """``make_cell`` returns a cell for every (config, shape) of the
+    registry without a ``skip_reason``, its state and inputs on ``meta``."""
+    cfg = port_configs.get_config(arch)
+    shapes = [s for s in cfg.shapes if not s.skip_reason]
+    assert shapes
+    for shape in shapes:
+        cell = make_cell(cfg, shape)
+        for _, t in (*tree_items(cell.abstract_state()), *tree_items(cell.input_specs())):
+            assert not isinstance(t, torch.Tensor) or t.device.type == "meta", (arch, shape.name)
 
 
 # ---------------------------------------------------------------------------
@@ -131,13 +146,19 @@ SYNTH_CELLS = [
     for arch in CELL_ARCHS for s in ref_configs.get_config(arch).shapes
     for cfg in ("smoke", "full")
     if not (cfg == "full" and s.name == "rank_xl")   # 142M normals: smoke config only
+    and (arch not in LM_ARCHS or s.name == "train_4k")
+    and not (arch == "nequip" and cfg == "full")      # NequIP's inputs depend on the shape only
 ]
+# ogb_products' inputs would be 245M normals a package: drawn at a hundredth
+# of its nodes and edges (the same branch: over 10,000 nodes, no graph batch).
+SYNTH_CUTS = {("nequip", "ogb_products"): dict(n_nodes=24_491, n_edges=618_592)}
 
 
 @pytest.mark.parametrize("arch,shape_name,which", SYNTH_CELLS)
 def test_synthesized_inputs_are_bit_identical(arch, shape_name, which):
     get = "get_config" if which == "full" else "get_smoke_config"
-    ref_shape = _shape(arch, shape_name)
+    ref_shape = dataclasses.replace(_shape(arch, shape_name),
+                                    **SYNTH_CUTS.get((arch, shape_name), {}))
     ref_cell = ref_make_cell(getattr(ref_configs, get)(arch), ref_shape)
     cell = make_cell(getattr(port_configs, get)(arch), _port_shape(ref_shape))
     for seed in (0, 1, 7) if which == "smoke" else (3,):
@@ -228,6 +249,22 @@ def test_launchers_run_on_the_cpu(tmp_path):
     assert "resumed from step 10" in out.stdout and "step   15  loss" in out.stdout
     out = _launch("train", "--arch", "lear-msn1", "--device", "cpu")
     assert out.returncode != 0 and "not trainable" in out.stderr
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "nequip"])
+def test_train_launcher_trains_and_resumes_the_lm_and_nequip_on_the_cpu(tmp_path, arch):
+    """``launch.train`` for an LM (bfloat16 leaves in its checkpoints) and
+    for NequIP (forces): 4 steps with checkpoints at 2 and 4, then 6 steps,
+    which resume from 4."""
+    ckpt = str(tmp_path / "ckpt")
+    args = ("--arch", arch, "--device", "cpu", "--ckpt-dir", ckpt, "--ckpt-every", "2")
+    out = _launch("train", *args, "--steps", "4")
+    assert out.returncode == 0, out.stderr
+    assert "resumed" not in out.stdout and out.stdout.rstrip().endswith("done")
+    out = _launch("train", *args, "--steps", "6")
+    assert out.returncode == 0, out.stderr
+    assert "resumed from step 4" in out.stdout and "step    5  loss" in out.stdout
+    assert sorted(os.listdir(ckpt)) == [f"step_{s:010d}.{e}" for s in (2, 4, 6) for e in ("json", "npz")]
 
 
 def test_launchers_need_a_card_unless_told_cpu():

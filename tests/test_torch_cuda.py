@@ -870,3 +870,173 @@ def test_lm_moe_prefill_rerun_is_bit_equal_on_the_card(dev):
         (la, ca), (lb, cb) = (tfm.prefill(cfg, params, tokens, 64) for _ in range(2))
         assert torch.equal(la, lb)
         assert all(torch.equal(ca[n][k], cb[n][k]) for n in ca for k in "kv")
+
+
+# ---------------------------------------------------------------------------
+# LM training and NequIP on the card.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b"])
+def test_lm_train_step_on_the_card_equals_the_cpu(dev, arch):
+    """One bfloat16 train step of the smoke config (2 microbatches) on the
+    card against the CPU port from the same parameters and batch: loss and
+    grad norm, every gradient within 1/16 of its leaf's max (the bfloat16
+    tolerance of ``tests/test_torch_lm_train.py``), MoE routes differing
+    only at near ties (the CPU replays the card's); then the card's step
+    on the CPU's gradients against the CPU's step: every parameter within
+    one bfloat16 unit, every optimizer entry within 1e-6 of its max."""
+    from lm_parity import record_routes, replay_routes, rerouted
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.api import make_cell
+    from repro_torch.train import trainer
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.utils import tree_items
+
+    cfg = get_smoke_config(arch)
+    B, S = 4, 64
+    cell = make_cell(cfg, ShapeSpec(name="t", kind="train", seq_len=S, global_batch=B, microbatch=2))
+    opt = get_optimizer(cfg.optimizer)
+    params = tfm.init(cfg, 0, device="cpu")
+    rng = np.random.default_rng(8)
+    raw = {k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32) for k in ("tokens", "labels")}
+    grads = {"card": {}, "cpu": {}}
+    real = trainer._grads
+
+    def recording(side):
+        def fn(loss_fn, p, b):
+            loss, g = real(loss_fn, p, b)
+            for k, v in g.items():   # summed over the microbatches, as the step does
+                grads[side][k] = grads[side].get(k, 0) + v.float().cpu()
+            return loss, g
+        return fn
+
+    routes, own = [], []
+    trainer._grads = recording("card")
+    try:
+        with record_routes(routes, passes=2):
+            card_state, card_m = cell.step(
+                trainer.init_state({k: v.to(dev) for k, v in params.items()}, opt),
+                {k: torch.as_tensor(v, device=dev) for k, v in raw.items()})
+        trainer._grads = recording("cpu")
+        with replay_routes(routes, own, passes=2):
+            cpu_state, cpu_m = cell.step(trainer.init_state(params, opt),
+                                         {k: torch.as_tensor(v) for k, v in raw.items()})
+    finally:
+        trainer._grads = real
+    for a, b in zip(routes, own, strict=True):
+        assert not any(rerouted(a, b, B).values())
+    assert abs(float(card_m["loss"]) - float(cpu_m["loss"])) <= 0.01
+    assert abs(float(card_m["grad_norm"]) / float(cpu_m["grad_norm"]) - 1) <= 1 / 16
+    for k, g in grads["cpu"].items():
+        assert (grads["card"][k] - g).abs().max() <= g.abs().max() / 16, k
+
+    def on_cpu_grads(loss_fn, p, b):
+        loss, _ = real(loss_fn, p, b)
+        return loss, {k: (grads["cpu"][k] / 2).to(v.dtype).to(dev) for k, v in p.items()}
+
+    trainer._grads = on_cpu_grads
+    try:
+        inj_state, _ = cell.step(
+            trainer.init_state({k: v.to(dev) for k, v in params.items()}, opt),
+            {k: torch.as_tensor(v, device=dev) for k, v in raw.items()})
+    finally:
+        trainer._grads = real
+    # Same CPU gradients on the CPU, through the same step.
+    trainer._grads = lambda loss_fn, p, b: (real(loss_fn, p, b)[0], {
+        k: (grads["cpu"][k] / 2).to(v.dtype) for k, v in p.items()})
+    try:
+        want_state, _ = cell.step(trainer.init_state(params, opt),
+                                  {k: torch.as_tensor(v) for k, v in raw.items()})
+    finally:
+        trainer._grads = real
+    got = dict(tree_items(inj_state))
+    for k, w in tree_items(want_state):
+        g = got[k].cpu()
+        if k.startswith("params/"):
+            ulp = torch.exp2(torch.floor(torch.log2(w.float().abs().clamp_min(2.0 ** -126))) - 7)
+            assert ((g.float() - w.float()).abs() <= ulp).all(), k
+        else:
+            scale = float(w.double().abs().max()) or 1.0
+            assert float((g.double() - w.double()).abs().max()) <= 1e-6 * scale, k
+    assert torch.isfinite(card_state.params["lm_head"]).all()
+
+
+def test_nequip_molecule_step_on_the_card_equals_the_cpu(dev):
+    """The smoke NequIP on a batch of molecules with ghost padding
+    (``tests/nequip_parity.py``): energies, forces, loss and every
+    gradient on the card within 1e-4 of the CPU port's (relative to each
+    tensor's max), finite, and a rerun on the card bit-equal (the segment
+    sums add in sorted order, no float atomics)."""
+    import functools
+
+    from nequip_parity import molecule_batch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import nequip
+    from repro_torch.train import trainer
+
+    cfg = get_smoke_config("nequip")
+    raw = molecule_batch(8, 30, 64, 512, 1024, cfg.n_species, seed=9)
+    params = nequip.init(cfg, 0, device="cpu")
+
+    def terms(device):
+        p = {k: v.to(device) for k, v in params.items()}
+        b = {k: torch.as_tensor(v, device=device) for k, v in raw.items()}
+        e = nequip.forward_energy(cfg, p, b["positions"], b["species"], b["edge_src"],
+                                  b["edge_dst"], b["graph_id"], 8)
+        f = nequip.forces(cfg, p, b)
+        loss, g = trainer._grads(functools.partial(nequip.loss_fn, cfg, with_forces=True), p, b)
+        return {"energy": e.detach(), "forces": f, "loss": loss, **g}
+
+    card, again, cpu = terms(dev), terms(dev), terms("cpu")
+    for k, want in cpu.items():
+        got = card[k].cpu()
+        assert torch.isfinite(got).all(), k
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max().clamp_min(1e-30), k
+        assert torch.equal(card[k], again[k]), k
+
+
+def test_bf16_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A bfloat16 train state on the card saves through the port's
+    checkpoint (the reference's ``<V2`` bytes) and restores into a card
+    template bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import checkpoint, trainer
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.utils import tree_items, tree_map
+
+    cfg = get_smoke_config("qwen3-4b")
+    state = trainer.init_state(tfm.init(cfg, 3, device=dev), get_optimizer("adamw"))
+    checkpoint.save_checkpoint(str(tmp_path), 7, state, extra={"step": 7})
+    template = tree_map(lambda _, t: torch.zeros_like(t), state)
+    restored, extra = checkpoint.restore_checkpoint(str(tmp_path), template)
+    assert extra == {"step": 7}
+    want = dict(tree_items(state))
+    for k, t in tree_items(restored):
+        assert t.device.type == "cuda" and t.dtype == want[k].dtype, k
+        assert torch.equal(t, want[k]), k
+    assert want["params/embed"].dtype == torch.bfloat16
+
+
+def test_bf16_embedding_gradient_on_the_card_against_the_cpu(dev):
+    """ROADMAP C11: ``F.embedding``'s backward on the card sums a repeated
+    token's bfloat16 rows in its own order and precision (neither the
+    CPU's one rounding per add, which is the reference's, nor one float32
+    sum rounded once); held to the CPU's within the bfloat16 gradient
+    tolerance of ``tests/test_torch_lm_train.py`` (1/16 of the max), the
+    gap printed."""
+    from lm_parity import bf16_sums, embedding_case, embedding_grad
+
+    table, tokens, up = embedding_case()
+    got = embedding_grad(table, tokens, up, dev)
+    seq, once = bf16_sums(tokens, up, table.shape[0])
+    assert torch.equal(embedding_grad(table, tokens, up, "cpu"), seq)
+    scale = float(seq.float().abs().max())
+    gap = float((got.float() - seq.float()).abs().max()) / scale
+    gap_once = float((got.float() - once.float()).abs().max()) / scale
+    print(f"bfloat16 embedding gradient, card against the CPU's adds: {gap:.4g} of the max; "
+          f"against one float32 sum: {gap_once:.4g}")
+    assert gap <= 1 / 16

@@ -4,7 +4,8 @@ In a fresh interpreter, import every module of ``repro_torch`` (the serving
 tier's, the dense scorer's, the distiller's, the training pipeline's —
 data, binning, GBDT, λ-MART, LEAR training, reordering — and the model-cell
 path's — configs, RecSys, cells, trainer, checkpoints, launchers — and
-the LM serving path's — layers, transformer, MoE, generation — among
+the LM path's — layers, transformer (serving and training), MoE,
+generation — and NequIP's — so3, the model, the neighbor sampler — among
 them) and the
 ``chip_smoke`` script (without running it) and
 check that no ``jax*`` or ``repro.*`` module was loaded. Without a card, ``chip_smoke.py`` must fail
@@ -79,6 +80,12 @@ from repro_torch.models.transformer import init, prefill, decode_step, make_deco
 from repro_torch.models.layers import apply_rope, blockwise_attention, decode_attention, glu_mlp
 from repro_torch.models.moe import moe_ffn, route
 from repro_torch.serve import generate
+zoo = {"repro_torch." + m for m in ("models.nequip", "models.so3", "data.graph_sampler")}
+assert zoo <= set(names), sorted(zoo - set(names))
+from repro_torch.models.transformer import chunked_cross_entropy, loss_fn
+from repro_torch.models.nequip import forces, forward_energy, nequip_params_from_numpy
+from repro_torch.models.so3 import allowed_paths, clebsch_gordan
+from repro_torch.data import CSRGraph, sample_neighbors
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))

@@ -36,6 +36,7 @@ from repro_torch import configs as port_configs  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.models import transformer as ptfm  # noqa: E402
 from repro_torch.models.api import make_cell  # noqa: E402
+from repro_torch.utils import tree_items  # noqa: E402
 
 LM_ARCHS = [
     "qwen2.5-14b", "minitron-4b", "qwen3-4b",
@@ -151,14 +152,17 @@ def test_full_config_shapes_match_reference_eval_shape(arch):
     assert ptfm.param_logical(pcfg) == logical
     for shape in rcfg.shapes:
         pshape = ShapeSpec(**dataclasses.asdict(shape))
-        if shape.kind == "train":
-            with pytest.raises(NotImplementedError, match="A7"):
-                make_cell(pcfg, pshape)
-            continue
         rcell, pcell = ref_make_cell(rcfg, shape), make_cell(pcfg, pshape)
-        assert _specs(pcell.abstract_state()) == _specs(rcell.abstract_state())
+        if shape.kind == "train":
+            # The whole TrainState, optimizer state included.
+            state_specs = lambda st: {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+                                      for k, v in tree_items(st)}
+            assert state_specs(pcell.abstract_state()) == state_specs(rcell.abstract_state())
+            assert pcell.state_logical().params == logical
+        else:
+            assert _specs(pcell.abstract_state()) == _specs(rcell.abstract_state())
+            assert pcell.state_logical() == logical
         assert _specs(pcell.input_specs()) == _specs(rcell.input_specs())
-        assert pcell.state_logical() == logical
         assert flat(pcell.input_logical()) == flat(rcell.input_logical())
 
 

@@ -14,6 +14,9 @@ against the reference.
   reference's step.
 - A checkpoint the reference writes restores in the port, and the next
   step matches; the pipelines' cursors match.
+- bfloat16 leaves (an LM train state) round-trip bit for bit, stored as
+  the reference stores them (``<V2``, the raw bits); a bfloat16 checkpoint
+  the reference writes opens in the port, and the port writes its bytes.
 """
 
 import dataclasses
@@ -35,6 +38,7 @@ from repro.models.api import make_cell as ref_make_cell  # noqa: E402
 from repro.models.synth import synthesize_inputs as ref_synth  # noqa: E402
 from repro.train import checkpoint as ref_ckpt  # noqa: E402
 from repro.train import optimizer as ref_opt  # noqa: E402
+from repro.train import trainer as ref_trainer  # noqa: E402
 
 import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
@@ -452,3 +456,71 @@ def test_query_batcher_cursor_matches_the_reference():
     other = pipeline.QueryBatcher(n_queries=10, batch_queries=4)
     other.restore(port.state())
     np.testing.assert_array_equal(other.next_indices(), ref.next_indices())
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 leaves (an LM train state).
+# ---------------------------------------------------------------------------
+
+
+def _lm_state(seed: int):
+    """A bfloat16 LM train state (smoke Qwen3-4B, AdamW) on the CPU."""
+    from repro_torch.models import transformer as tfm
+
+    cfg = port_configs.get_smoke_config("qwen3-4b")
+    return init_state(tfm.init(cfg, seed, device="cpu"), optimizer.get_optimizer("adamw"))
+
+
+def test_bf16_train_state_round_trips(tmp_path):
+    state = _lm_state(1)
+    state.opt_state["m"]["embed"].normal_(generator=torch.Generator().manual_seed(2))
+    checkpoint.save_checkpoint(str(tmp_path), 3, state, extra={"step": 3})
+    template = tree_map(lambda _, t: torch.zeros_like(t), state)
+    restored, extra = checkpoint.restore_checkpoint(str(tmp_path), template)
+    assert extra == {"step": 3}
+    want = dict(tree_items(state))
+    assert want["params/embed"].dtype == torch.bfloat16
+    for k, t in tree_items(restored):
+        assert t.dtype == want[k].dtype and torch.equal(t, want[k]), k
+    # The file holds the reference's bytes for a bfloat16 leaf: '<V2' raw.
+    with np.load(os.path.join(tmp_path, "step_0000000003.npz")) as data:
+        raw = data["params/embed"]
+    assert raw.dtype.kind == "V" and raw.dtype.itemsize == 2
+    np.testing.assert_array_equal(raw.view(np.int16),
+                                  want["params/embed"].view(torch.int16).numpy())
+
+
+def test_reference_bf16_checkpoint_opens_in_the_port(tmp_path):
+    """A bfloat16 state written by ``repro.train.checkpoint`` restores into
+    the port's template bit for bit, and the two files' bytes are equal
+    leaf by leaf. (The reference's own restore raises on it: ROADMAP C10.)"""
+    import zipfile
+
+    from repro.models import transformer as rtfm
+
+    from repro_torch.models import transformer as tfm
+
+    rcfg = ref_configs.get_smoke_config("qwen3-4b")
+    pcfg = port_configs.get_smoke_config("qwen3-4b")
+    ref_params = jax.jit(lambda k: rtfm.init(rcfg, k))(jax.random.key(4))
+    ref_state = ref_trainer.init_state(ref_params, ref_opt.get_optimizer("adamw"))
+    ref_ckpt.save_checkpoint(str(tmp_path / "ref"), 5, ref_state, extra={"step": 5})
+    with pytest.raises(ValueError, match="No cast function"):
+        ref_ckpt.restore_checkpoint(str(tmp_path / "ref"), ref_state)
+    template = tree_map(lambda _, t: torch.full_like(t, 7), _lm_state(0))
+    restored, extra = checkpoint.restore_checkpoint(str(tmp_path / "ref"), template)
+    assert extra == {"step": 5}
+    params = tfm.transformer_params_from_numpy(pcfg, jax.tree.map(np.asarray, ref_params), "cpu")
+    for k, p in params.items():
+        assert torch.equal(restored.params[k], p), k
+    for k, t in tree_items(restored.opt_state):
+        assert torch.equal(t, torch.zeros_like(t)), k
+    # The port writes the same bytes for every leaf.
+    port_state = init_state(params, optimizer.get_optimizer("adamw"))
+    checkpoint.save_checkpoint(str(tmp_path / "port"), 5, port_state, extra={"step": 5})
+    names = [f"step_{5:010d}.npz"]
+    with zipfile.ZipFile(tmp_path / "ref" / names[0]) as a, \
+            zipfile.ZipFile(tmp_path / "port" / names[0]) as b:
+        assert sorted(a.namelist()) == sorted(b.namelist())
+        for n in a.namelist():
+            assert a.read(n) == b.read(n), n
