@@ -185,6 +185,33 @@ Phases, each of which must pass:
   parameter. Then ``launch.train --arch qwen3-4b --steps 4 --ckpt-every
   2`` on the card and again with ``--steps 6``, which must resume from
   step 4.
+- ``guards`` (after ``hybrid``): ``repro_torch.utils.count_host_transfers``
+  around the ``serve`` models at full width — single sentinel, (50, 150)
+  fused, staged and auto, the hybrid (a random dense gate at keep 0.35,
+  seed 0) and query exit (threshold 0.8, k 10, margin 2.0) — each warmed
+  with two 8 × 256 batches on two identical services, then three batches
+  served by one unguarded and by the other under the guard, with
+  ``torch.cuda.set_sync_debug_mode("warn")`` on: one explicit read
+  (``device_get``) a batch, 0 implicit syncs, no sync-debug warning
+  outside ``device_get``, responses bit-equal to the unguarded twin's and
+  the same forest launches. Then a ``ServingTier`` (doc count 256, warmed)
+  takes 50 queries under the guard: one explicit read per flushed batch,
+  0 implicit, on the worker thread too. Controls: ``.item()``, a
+  boolean-mask index and ``torch.nonzero`` must each count.
+- ``retrieval`` (inside ``cells``, on DLRM-RM2's trained tables):
+  ``TwoStageCascade`` (``examples/cascade_retrieval.py``: the cheap score
+  is the candidate's embedding · the bottom-MLP vector, the full score
+  DLRM's interaction) over ``retrieval_cand``'s 1,000,448 candidate ids
+  at keep 1%, 5% and 20%: cascade and full-scoring times (CUDA events),
+  recall of the full top 100, peak memory; the survivors must be the
+  stable top-k of the cheap scores and their full scores within 1e-5 of
+  the full scoring at the same positions; on a compact copy of the first
+  65,536 candidates' rows, the CPU port within 1e-5 with the same
+  survivors but for ties within 1e-5 at the keep boundary.
+- ``shapes`` (after ``kernels``): ``repro_torch.typecheck.shape_checked``
+  around both kernel wrappers on card tensors at the lear-msn1 (50, 150)
+  layout, B = 2,048: bit-equal to the unwrapped calls; a wrong dtype, a
+  wrong rank and a node axis that disagrees across arguments rejected.
 - ``nequip``: the full NequIP config (5 layers, d_hidden 32, l_max 2,
   n_rbf 8, cutoff 5.0). ``molecule`` on a batch of its shape built as 128
   molecules of 30 atoms (``tests/nequip_parity.py``): energies, forces,
@@ -197,7 +224,8 @@ Phases, each of which must pass:
   ``ogb_products`` by shape on ``meta``.
 
 The last lines are a one-line summary of the tier, the gated tail, the
-hybrid, the training, the cell, the LM and the NequIP runs, the
+hybrid, the guards, the training, the cell (with the retrieval cascade),
+the LM and the NequIP runs, the
 card's name and power limit, one JSON line with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
@@ -1723,6 +1751,400 @@ def phase_gated() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# [guards]: one host read per batch, under the card's sync debug mode.
+# ---------------------------------------------------------------------------
+
+GUARD_WARM = 2           # batches served before the guard (plans, scratch, capacities)
+GUARD_BATCHES = 3        # batches served under the guard
+GUARD_TIER_QUERIES = 50
+GUARD_QUERY_EXIT = (0.8, 10, 2.0)  # threshold, k, margin: the [tier] ladder's rung 2
+
+
+def _guard_configs():
+    """(label, sentinels, mode, dense keep fraction, query exit) of each
+    [guards] configuration."""
+    return (
+        ("single sentinel", (50,), "auto", None, False),
+        ("(50, 150) fused", SENTINELS_2, "fused", None, False),
+        ("(50, 150) staged", SENTINELS_2, "staged", None, False),
+        ("(50, 150) auto", SENTINELS_2, "auto", None, False),
+        ("hybrid (50, 150) fused", SENTINELS_2, "fused", HYBRID_KEEP, False),
+        ("query exit", (50,), "fused", None, True),
+    )
+
+
+def _guard_service(models, mode, keep, query_exit):
+    """A service over ``models`` (the [serve] ranker and classifiers),
+    with a random dense gate at ``keep`` (seed 0) or query exit."""
+    import functools
+
+    import torch
+
+    from repro_torch.core.stage import DenseStage
+    from repro_torch.core.strategies import QueryExitConfig, dense_keep_fraction
+    from repro_torch.models.dense_scorer import init_dense_scorer
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+
+    cfg, ranker, clfs = models
+    dense = None
+    if keep is not None:
+        scorer = init_dense_scorer(torch.Generator().manual_seed(SEED), cfg.n_features,
+                                   device="cpu")
+        dense = DenseStage(scorer, functools.partial(dense_keep_fraction, keep_frac=keep))
+    th, k, margin = GUARD_QUERY_EXIT
+    return RankingService(
+        ranker, clfs[0],
+        ServiceConfig(
+            threshold=th if query_exit else THRESHOLD, execution_mode=mode,
+            query_exit=QueryExitConfig(k=k, margin=margin) if query_exit else None,
+            dense_stage=dense,
+        ),
+        extra_classifiers=clfs[1:], device=DEVICE,
+    )
+
+
+def _guard_run(label: str, sentinels, mode: str, keep, query_exit) -> dict:
+    """Two identical services warm on the same batches; then one serves
+    GUARD_BATCHES unguarded and the other the same batches under
+    count_host_transfers (sync debug mode on). Each must read the card once
+    per batch, explicitly, with no implicit sync, give bit-equal responses
+    and launch the same forest kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import ops
+    from repro_torch.utils import count_host_transfers
+
+    models = _models(DEVICE, sentinels)
+    plain, guarded = (_guard_service(models, mode, keep, query_exit) for _ in range(2))
+    batches = _batches(models[0].n_features)[: GUARD_WARM + GUARD_BATCHES]
+    for X, mask in batches[:GUARD_WARM]:
+        plain.rank_batch(X, mask)
+        guarded.rank_batch(X, mask)
+    torch.cuda.synchronize()
+    fs.reset_kernel_launches()
+    want = [plain.rank_batch(X, mask) for X, mask in batches[GUARD_WARM:]]
+    torch.cuda.synchronize()
+    unguarded_launches = fs.kernel_launches()
+    fs.reset_kernel_launches()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with count_host_transfers() as counts:
+        got = [guarded.rank_batch(X, mask) for X, mask in batches[GUARD_WARM:]]
+    ms = (time.perf_counter() - t0) * 1e3 / GUARD_BATCHES
+    launches = fs.kernel_launches()
+    gated = ops.launch_counts()["gated"]
+    equal = all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(got, want)
+    )
+    st = guarded.stats
+    log(
+        f"[guards] {label}: {GUARD_BATCHES} batches of {Q} x {D} after {GUARD_WARM} warm: "
+        f"explicit_gets={counts.explicit_gets} implicit_syncs={counts.implicit_syncs} "
+        f"sync-debug warnings {counts.sync_warnings} (inside device_get "
+        f"{counts.sync_warnings - counts.implicit_syncs}); forest launches guarded "
+        f"{launches} vs unguarded {unguarded_launches}; bit-equal to unguarded: {equal}; "
+        f"{ms:.3f} ms a batch under the guard; modes fused {st.batches_fused} / staged "
+        f"{st.batches_staged}; queries exited {st.queries_exited}"
+        + (f"; implicit sites {sorted(set(counts.sites))}" if counts.sites else "")
+    )
+    if counts.explicit_gets != GUARD_BATCHES or counts.implicit_syncs or counts.sites:
+        raise AssertionError(f"[guards] {label}: host reads {counts}")
+    if not equal:
+        raise AssertionError(f"[guards] {label}: guarded responses differ from unguarded")
+    if launches != unguarded_launches or not sum(launches.values()):
+        raise AssertionError(f"[guards] {label}: launches {launches} vs {unguarded_launches}")
+    return {"launches": launches, "gated": gated}
+
+
+def _guard_tier() -> dict:
+    """ServingTier on the [tier] service (sentinel 50, threshold 0.4), one
+    doc count of 256, warmed; then GUARD_TIER_QUERIES queries submitted
+    from one thread under the guard: one explicit read per flushed batch,
+    no implicit sync on any thread."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.serve import BucketPolicy, ServingTier, TierConfig
+    from repro_torch.utils import count_host_transfers
+
+    cfg, svc = _tier_service(DEVICE)
+    tier = ServingTier(
+        svc, cfg.n_features, TierConfig(doc_counts=(D,)),
+        policy=BucketPolicy(max_queries=Q, max_wait_ms=2.0, min_docs=8),
+    ).start()
+    rng = np.random.default_rng(SEED + 700)
+    queries = [
+        rng.normal(size=(int(rng.integers(D // 4, D + 1)), cfg.n_features)).astype(np.float32)
+        for _ in range(GUARD_TIER_QUERIES)
+    ]
+    torch.cuda.synchronize()
+    before = svc.stats.batches
+    fs.reset_kernel_launches()
+    try:
+        with count_host_transfers() as counts:
+            futures = []
+            for q in queries:
+                futures.append(tier.submit(q))
+                time.sleep(0.0005)
+            results = [f.result(timeout=120) for f in futures]
+    finally:
+        tier.stop()
+    launches = fs.kernel_launches()
+    flushed = svc.stats.batches - before
+    finite = all(np.isfinite(s[: len(q)]).all() for (_, s), q in zip(results, queries))
+    log(
+        f"[guards] tier: {GUARD_TIER_QUERIES} queries of {D // 4}-{D} documents in {flushed} "
+        f"flushed batches: explicit_gets={counts.explicit_gets} "
+        f"implicit_syncs={counts.implicit_syncs} sync-debug warnings {counts.sync_warnings}; "
+        f"forest launches {launches}; finite {finite}"
+        + (f"; implicit sites {sorted(set(counts.sites))}" if counts.sites else "")
+    )
+    if counts.explicit_gets != flushed or counts.implicit_syncs or not finite or not flushed:
+        raise AssertionError(f"[guards] tier: {flushed} batches, host reads {counts}")
+    return {"launches": launches, "flushed": flushed}
+
+
+def _guard_controls() -> None:
+    """The guard is not vacuous on the card: ops that sync count as
+    implicit. Also prints which waits the sync debug mode does not flag."""
+    import torch
+
+    from repro_torch.utils import count_host_transfers
+
+    x = torch.randn(4096, device=DEVICE)
+    m = x > 0
+    controls = {
+        ".item()": (lambda: x.sum().item(), True),
+        "boolean-mask index": (lambda: x[m], True),
+        "torch.nonzero": (lambda: torch.nonzero(m), True),
+        "torch.cuda.synchronize()": (torch.cuda.synchronize, False),
+        "Event.synchronize()": (lambda: torch.cuda.Event().synchronize(), False),
+    }
+    seen = []
+    for name, (fn, must) in controls.items():
+        fn()
+        torch.cuda.synchronize()
+        with count_host_transfers() as counts:
+            fn()
+        seen.append(f"{name} {counts.implicit_syncs}")
+        if must and counts.implicit_syncs < 1:
+            raise AssertionError(f"[guards] control {name}: not counted ({counts})")
+    log(f"[guards] controls (implicit syncs counted): {'; '.join(seen)} "
+        f"(the last two wait without a sync-debug flag: the guard's blind spots)")
+
+
+def phase_guards(card: str) -> dict:
+    """[guards] at lear-msn1 full width (the [serve] models, seed 0)."""
+    t_phase = time.perf_counter()
+    _guard_controls()
+    launches = {"forest_score": 0, "forest_score_segments": 0}
+    gated = 0
+    for label, sentinels, mode, keep, qe in _guard_configs():
+        r = _guard_run(label, sentinels, mode, keep, qe)
+        for name, n in r["launches"].items():
+            launches[name] += n
+        gated += r["gated"]
+    tier = _guard_tier()
+    for name, n in tier["launches"].items():
+        launches[name] += n
+    summary = (f"guards: {len(_guard_configs())} configurations and a tier of "
+               f"{GUARD_TIER_QUERIES} queries ({tier['flushed']} batches), one explicit read "
+               f"a batch, 0 implicit syncs")
+    log(f"[guards] done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"launches": launches, "gated": gated, "summary": summary}
+
+
+# ---------------------------------------------------------------------------
+# [shapes]: the shape-checked lane around both kernel wrappers on the card.
+# ---------------------------------------------------------------------------
+
+
+def phase_shapes(card: str) -> None:
+    """shape_checked(forest_score_kernel / _segments_kernel) on the
+    lear-msn1 (50, 150) layout at B = Q·D: the declared shapes pass and the
+    output equals the unwrapped call's bit for bit; a wrong dtype, a wrong
+    rank and a node axis that disagrees across arguments raise TypeError."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels.ops import padded_forest
+    from repro_torch.typecheck import shape_checked
+
+    cfg, ranker, _ = _models(DEVICE, SENTINELS_2)
+    pf = padded_forest(ranker, boundaries=(*SENTINELS_2, ranker.n_trees))
+    x = torch.as_tensor(
+        np.random.default_rng(SEED + 800).normal(size=(Q * D, cfg.n_features)).astype(np.float32),
+        device=DEVICE,
+    )
+    tables = (pf.feature, pf.threshold, pf.mask, pf.leaf_value)
+    plain, seg = shape_checked(fs.forest_score_kernel), shape_checked(fs.forest_score_segments_kernel)
+    kw = dict(block_t=pf.block_t, packed=pf.packed, leaf_gather=pf.leaf_gather)
+    skw = dict(seg_block_starts=pf.seg_block_starts[:2],
+               n_tree_blocks=pf.seg_block_starts[1] + pf.seg_blocks[1], **kw)
+    same = (torch.equal(plain(x, *tables, **kw), fs.forest_score_kernel(x, *tables, **kw))
+            and torch.equal(seg(x, *tables, **skw), fs.forest_score_segments_kernel(x, *tables, **skw)))
+    bad = {
+        "dtype": (lambda: plain(x, pf.feature.float(), *tables[1:], **kw), "feature"),
+        "rank": (lambda: plain(x[0], *tables, **kw), "`x`"),
+        "dim across arguments": (
+            lambda: seg(x, pf.feature, pf.threshold[:, :8].contiguous(), *tables[2:], **skw),
+            "threshold",
+        ),
+    }
+    rejected = []
+    for name, (fn, arg) in bad.items():
+        try:
+            fn()
+        except TypeError as e:
+            if arg in str(e):
+                rejected.append(name)
+    log(f"[shapes] both wrappers shape-checked on {x.device} at B={Q * D}, F={cfg.n_features}, "
+        f"T={pf.feature.shape[0]}: bit-equal to the unwrapped calls {same}; rejected "
+        f"{rejected} of {list(bad)} ({card})")
+    if not same or len(rejected) != len(bad):
+        raise AssertionError("[shapes] the checked lane failed")
+
+
+# ---------------------------------------------------------------------------
+# [retrieval]: TwoStageCascade on DLRM-RM2 at full width.
+# ---------------------------------------------------------------------------
+
+RETRIEVAL_KEEPS = (0.01, 0.05, 0.2)
+RETRIEVAL_TOP = 100           # recall of the full scoring's top 100
+RETRIEVAL_CPU_CANDS = 65_536  # candidates of the compact copy held to the CPU
+
+
+def _retrieval_pair(cfg, params, dense, sparse):
+    """(sentinel_fn, full_fn) of examples/cascade_retrieval.py: the cheap
+    score is the candidate's embedding · the user's bottom-MLP vector, the
+    full score DLRM's whole interaction."""
+    import torch
+
+    from repro_torch.models import recsys
+
+    table = params[f"tables/t{len(cfg.vocab_sizes) - 1}"]
+    bot = recsys._mlp(dense, params, "bot", torch.relu)[0]
+
+    def sentinel_fn(ids):
+        return recsys._take(table, ids) @ bot
+
+    def full_fn(ids):
+        return recsys.dlrm_score_candidates(
+            cfg, params, {"dense": dense, "sparse": sparse, "cand_ids": ids}
+        )
+
+    return sentinel_fn, full_fn
+
+
+def _retrieval(cfg, params, raw) -> dict:
+    """TwoStageCascade over retrieval_cand's candidate ids at each keep:
+    cascade vs full scoring time (CUDA events), recall of the full top 100,
+    peak memory; survivors must be the stable top-k of the cheap scores and
+    their full scores within TOL of the full scoring at the same positions.
+    Then a compact copy on the CPU port: cheap and full scores within TOL,
+    the same survivors but for ties within TOL at the keep boundary."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.ranking_service import TwoStageCascade
+
+    dev = torch.device(DEVICE)
+    dense = torch.as_tensor(raw["dense"], device=dev)
+    sparse = torch.as_tensor(raw["sparse"], device=dev)
+    ids = torch.as_tensor(raw["cand_ids"], device=dev)
+    C = ids.shape[0]
+    sentinel_fn, full_fn = _retrieval_pair(cfg, params, dense, sparse)
+    with torch.no_grad():
+        full_fn(ids)  # warm
+        full_ms, full_all = _events_ms(lambda: full_fn(ids), CELL_TIMED_STEPS)
+        cheap_all = sentinel_fn(ids)
+        true_top = torch.sort(full_all, descending=True, stable=True).indices[:RETRIEVAL_TOP]
+        order = np.argsort(-cheap_all.cpu().numpy(), kind="stable")
+        # The candidate ids repeat (they index the last table's rows), so
+        # the top 100 positions may be copies of few items: count items too.
+        n_items = int(torch.unique(ids).numel())
+        top_items = torch.unique(ids[true_top])
+        out = {}
+        for keep in RETRIEVAL_KEEPS:
+            cascade = TwoStageCascade(sentinel_fn, full_fn, keep)
+            k = cascade.keep(C)
+            cascade.score(ids)  # warm
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms, (surv, full, cheap) = _events_ms(lambda: cascade.score(ids), CELL_TIMED_STEPS)
+            peak = torch.cuda.max_memory_allocated() - base
+            pos = torch.as_tensor(order[:k], device=dev)
+            stable = bool(torch.equal(surv, ids[pos])) and bool(torch.equal(cheap, cheap_all))
+            err = float(((full - full_all[pos]).abs() / full_all[pos].abs().clamp_min(1.0)).max())
+            recall = float(torch.isin(true_top, pos).float().mean())
+            item_recall = float(torch.isin(top_items, surv).float().mean())
+            log(f"[retrieval] dlrm-rm2 keep={keep:.0%}: {k:,} of {C:,} candidates survive; "
+                f"cascade {ms:.3f} ms vs full scoring {full_ms:.3f} ms "
+                f"(x{full_ms / ms:.2f}); recall of the full top {RETRIEVAL_TOP}: {recall:.2f} "
+                f"(they are copies of {len(top_items)} of the {n_items} distinct items; "
+                f"items recalled {item_recall:.2f}); "
+                f"peak memory above the tables {_gib(peak)}; survivors the stable top-k of the "
+                f"cheap scores: {stable}; max rel|full(survivors) - full scoring| = {err:.3g}")
+            if not stable or not err <= TOL:
+                raise AssertionError(f"[retrieval] keep={keep}: stable {stable}, err {err}")
+            out[keep] = {"ms": ms, "full_ms": full_ms, "recall": recall, "peak": peak}
+    out["cpu"] = _retrieval_cpu(cfg, params, raw)
+    return out
+
+
+def _retrieval_cpu(cfg, params, raw) -> dict:
+    """The cascade over the first RETRIEVAL_CPU_CANDS candidates on the
+    card and on the CPU port, the CPU on a compact copy of the rows they
+    touch (``_compact_dlrm``). Cheap and full scores within TOL; survivor
+    sets equal but for candidates whose cheap score lies within
+    2·(TOL + TOL·|t|) of the keep boundary t (the boundary rule of
+    tests/torch_parity.py, on a sorted axis)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.ranking_service import TwoStageCascade
+
+    dev = torch.device(DEVICE)
+    c = raw["cand_ids"][:RETRIEVAL_CPU_CANDS]
+    cp, cs, cc, touched = _compact_dlrm(cfg, params, raw["sparse"], c)
+    card = _retrieval_pair(cfg, params, torch.as_tensor(raw["dense"], device=dev),
+                           torch.as_tensor(raw["sparse"], device=dev))
+    cpu = _retrieval_pair(cfg, cp, torch.as_tensor(raw["dense"]), torch.as_tensor(cs))
+    worst, n_boundary = 0.0, 0
+    with torch.no_grad():
+        for keep in RETRIEVAL_KEEPS:
+            s_g, f_g, ch_g = TwoStageCascade(*card, keep).score(torch.as_tensor(c, device=dev))
+            s_c, f_c, ch_c = TwoStageCascade(*cpu, keep).score(torch.as_tensor(cc))
+            ch_g, s_g, f_g = ch_g.cpu().numpy(), s_g.cpu().numpy(), f_g.cpu().numpy()
+            ch_c, f_c = ch_c.numpy(), f_c.numpy()
+            u = touched.get(f"tables/t{len(cfg.vocab_sizes) - 1}")
+            s_c = u[s_c.numpy()] if u is not None else s_c.numpy()
+            k = len(s_g)
+            t = np.sort(ch_g)[::-1][k - 1]
+            near = np.abs(ch_g - t) <= 2 * (TOL + TOL * abs(t))
+            differ = set(np.flatnonzero(np.isin(c, np.setxor1d(s_g, s_c))))
+            outside = [i for i in differ if not near[i]]
+            common = np.intersect1d(s_g, s_c)
+            fg = dict(zip(s_g, f_g))
+            fc = dict(zip(s_c, f_c))
+            f_err = max((abs(fg[i] - fc[i]) / max(1.0, abs(fc[i])) for i in common), default=0.0)
+            c_err = float((np.abs(ch_g - ch_c) / np.maximum(1.0, np.abs(ch_c))).max())
+            worst = max(worst, f_err, c_err)
+            n_boundary += int(near.sum())
+            log(f"[retrieval] compact copy on the CPU keep={keep:.0%} ({len(c):,} candidates, "
+                f"{k:,} survive): max rel|cheap|={c_err:.3g} max rel|full|={f_err:.3g}; "
+                f"survivors differing {len(differ)} ({len(outside)} outside the boundary rule; "
+                f"{int(near.sum())} candidates at the boundary)")
+            if outside or not c_err <= TOL or not f_err <= TOL:
+                raise AssertionError(f"[retrieval] keep={keep}: card and CPU differ")
+    return {"err": worst, "boundary": n_boundary}
+
+
+# ---------------------------------------------------------------------------
 # [cells]: the model-cell path at full width.
 # ---------------------------------------------------------------------------
 
@@ -1981,6 +2403,10 @@ def _dlrm_cell() -> dict:
         if not err <= TOL:
             raise AssertionError(f"dlrm-rm2 {name}: differs from the CPU port by {err}")
         out[name] = {"ms": ms, "peak": peak}
+        if name == "retrieval_cand":
+            retrieval_raw = raw
+    del scell, inputs, scores
+    out["retrieval"] = _retrieval(cfg, params, retrieval_raw)
     del params
     return out
 
@@ -2215,9 +2641,14 @@ def phase_cells(card: str) -> dict:
         results[f"lear-msn1 {name}"] = r
     xl = results["lear-msn1 rank_xl"]
     dl = results["dlrm-rm2"]
+    rt = dl["retrieval"]
     summary = (
         f"cells: dlrm-rm2 train step {dl['train_batch']['ms']:.3f} ms at "
-        f"{_gib(dl['train_batch']['peak'])} peak, lear-msn1 rank_xl step {xl['ms']:.3f} ms"
+        f"{_gib(dl['train_batch']['peak'])} peak, lear-msn1 rank_xl step {xl['ms']:.3f} ms; "
+        f"retrieval: two-stage cascade "
+        + ", ".join(f"keep {k:.0%} {rt[k]['ms']:.3f} ms (recall {rt[k]['recall']:.2f})"
+                    for k in RETRIEVAL_KEEPS)
+        + f" vs full scoring {rt[RETRIEVAL_KEEPS[0]]['full_ms']:.3f} ms"
     )
     log(f"[cells] done in {time.perf_counter() - t_phase:.1f} s on {card}")
     return {"launches": {"forest_score": launches}, "cases": cases, "summary": summary}
@@ -3258,6 +3689,10 @@ def main() -> int:
         for name, n in hybrid["launches"].items():
             launches[name] += n
         elapsed("hybrid")
+        guards = phase_guards(card)
+        for name, n in guards["launches"].items():
+            launches[name] += n
+        elapsed("guards")
         train = phase_train(card, serve_p50)
         for name, n in train["launches"].items():
             launches[name] += n
@@ -3275,6 +3710,8 @@ def main() -> int:
         kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"], cells["cases"])
         gated = phase_gated()
         elapsed("kernels")
+        phase_shapes(card)
+        elapsed("shapes")
     except Exception:  # report the failing phase, then fail the run
         traceback.print_exc()
         return 1
@@ -3302,7 +3739,8 @@ def main() -> int:
     line.append({
         "name": "forest_score (gated tail)", "route": "cuda",
         "source": sources["forest_score"][0], "replaces": sources["forest_score"][1],
-        "launches": tier["gated"] + hybrid["gated"], "max_abs_err": gated["max_abs_err"],
+        "launches": tier["gated"] + hybrid["gated"] + guards["gated"],
+        "max_abs_err": gated["max_abs_err"],
         "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
         "bound_by": case["bound_by"], "library_ms": None, "case": case["case"],
     })
@@ -3310,7 +3748,8 @@ def main() -> int:
     full = {c["B"]: c["ms"] for c in gated["cases"] if c["n_valid"] == c["B"]}
     log(f"[summary] {tier['summary']}; gated tail at a full count "
         + ", ".join(f"B={B} {ms:.4f} ms" for B, ms in sorted(full.items()))
-        + f"; {hybrid['summary']}; {train['summary']}; {cells['summary']}; {lm['summary']}; "
+        + f"; {hybrid['summary']}; {guards['summary']}; {train['summary']}; "
+        f"{cells['summary']}; {lm['summary']}; "
         f"{lm_train['summary']}; {nequip['summary']}; "
         f"run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

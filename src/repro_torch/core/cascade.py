@@ -52,7 +52,8 @@ device tensor read later with the batch's stats.
 from __future__ import annotations
 
 import dataclasses
-from collections.abc import Callable
+import warnings
+from collections.abc import Callable, Sequence
 
 import numpy as np
 import torch
@@ -67,12 +68,20 @@ from repro_torch.core.strategies import QueryExitConfig, query_converged
 from repro_torch.forest.ensemble import TreeEnsemble, slice_trees
 from repro_torch.forest.scoring import score_bitvector
 from repro_torch.kernels.ops import (
+    PaddedForest,
     forest_score,
     forest_score_range,
     forest_score_segments,
     padded_forest,
 )
 from repro_torch.metrics.speedup import speedup_progressive, speedup_vs_full
+
+_DEPRECATED_KWARGS_MSG = (
+    "repro_torch.core.cascade.rank_progressive: keyword configuration "
+    "(sentinels=…, capacities=…, strategies=…, mode=…) is deprecated; pass an "
+    "EngineConfig — e.g. rank_progressive(X, mask, EngineConfig.trees(sentinels=…, …)). "
+    "The shim builds the equivalent config and will be removed in a future release."
+)
 
 
 def bucket_capacity(want: int, limit: int, minimum: int = 64) -> int:
@@ -163,7 +172,17 @@ class CascadeRanker:
         self,
         X: torch.Tensor,
         mask: torch.Tensor,
-        config: EngineConfig,
+        config: EngineConfig | None = None,
+        sentinels: Sequence[int] | None = None,
+        capacities: Sequence[int] | int | None = None,
+        strategies: Sequence[Callable[..., torch.Tensor]] | None = None,
+        *,
+        classifier_trees: Sequence[float] | float | None = None,
+        block_t: int | None = None,
+        leaf_gather: str | None = None,
+        mode: str | None = None,
+        launch_overhead_trees: float | None = None,
+        query_exit: QueryExitConfig | None = None,
         **strategy_kwargs: object,
     ) -> CascadeResult:
         """Multi-stage engine (see the module docstring).
@@ -173,7 +192,19 @@ class CascadeRanker:
         stage.capacity → config.capacities entry → :func:`bucket_capacity`
         of ``Q·D``, each clipped to ``Q·D``. ``strategy_kwargs`` are passed
         to every stage's strategy.
+
+        The keywords between ``config`` and ``strategy_kwargs`` are the
+        reference's deprecated configuration: without a config they build
+        ``EngineConfig.trees(...)`` (with a ``DeprecationWarning``; mode
+        ``"fused"`` when none is given); with one they raise ``TypeError``.
+        ``launch_overhead_trees`` prices the reference's in-engine mode
+        pick, which the port makes on the host: it is accepted and unused.
         """
+        config = _legacy_config(
+            config, sentinels, capacities, strategies, classifier_trees=classifier_trees,
+            block_t=block_t, leaf_gather=leaf_gather, mode=mode,
+            launch_overhead_trees=launch_overhead_trees, query_exit=query_exit,
+        )
         Q, D, F = X.shape
         dense = config.dense
         sentinels = config.sentinels
@@ -237,6 +268,52 @@ class CascadeRanker:
             mode=config.mode,
             query_exited=exited if qe is not None else None,
         )
+
+
+def _legacy_config(
+    config: EngineConfig | Sequence[int] | None,
+    sentinels: Sequence[int] | None,
+    capacities: Sequence[int] | int | None,
+    strategies: Sequence[Callable[..., torch.Tensor]] | None,
+    **kwargs: object,
+) -> EngineConfig:
+    """``config``, or the one the deprecated keywords describe."""
+    if config is not None and not isinstance(config, EngineConfig):
+        # Legacy positional call: rank_progressive(X, mask, [10, 20], …)
+        if sentinels is not None:
+            raise TypeError("rank_progressive: sentinels given twice")
+        config, sentinels = None, config
+    legacy = {
+        name: value
+        for name, value in (
+            ("sentinels", sentinels), ("capacities", capacities),
+            ("strategies", strategies), *kwargs.items(),
+        )
+        if value is not None
+    }
+    if config is not None:
+        if legacy:
+            raise TypeError(
+                "rank_progressive: pass configuration via EngineConfig OR the "
+                f"deprecated keywords, not both (got {sorted(legacy)})"
+            )
+        return config
+    if sentinels is None:
+        raise TypeError(
+            "rank_progressive needs an EngineConfig (or the deprecated sentinels=… keywords)"
+        )
+    warnings.warn(_DEPRECATED_KWARGS_MSG, DeprecationWarning, stacklevel=3)
+    mode, leaf_gather, block_t = kwargs["mode"], kwargs["leaf_gather"], kwargs["block_t"]
+    return EngineConfig.trees(
+        sentinels,
+        strategies,
+        classifier_trees=kwargs["classifier_trees"],
+        capacities=capacities,
+        mode=mode if mode is not None else "fused",
+        leaf_gather=leaf_gather if leaf_gather is not None else "auto",
+        block_t=block_t if block_t is not None else 16,
+        query_exit=kwargs["query_exit"],
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,7 +381,7 @@ def _apply_query_exit(
     return alive & ~exited[:, None], exited
 
 
-def _head_prefixes(pf, rows: torch.Tensor, S: int) -> list[torch.Tensor]:
+def _head_prefixes(pf: PaddedForest, rows: torch.Tensor, S: int) -> list[torch.Tensor]:
     """Prefix scores of ``rows`` at each of the first ``S`` sentinels from
     one head launch (a plain one for ``S == 1``): ``seg0 + base``, then
     ``+ seg_k`` left to right."""
@@ -319,7 +396,18 @@ def _head_prefixes(pf, rows: torch.Tensor, S: int) -> list[torch.Tensor]:
     return prefixes
 
 
-def _fused(pf, flat, mask, strategies, caps, skw, qe, gate=None):
+# What a stage body returns: scores, the last stage's alive mask, the
+# per-stage masks, the prefix grids, overflow and the exit flags.
+_StageOut = tuple[
+    torch.Tensor, torch.Tensor, list, torch.Tensor, torch.Tensor, torch.Tensor
+]
+
+
+def _fused(
+    pf: PaddedForest, flat: torch.Tensor, mask: torch.Tensor,
+    strategies: tuple[Callable[..., torch.Tensor], ...], caps: tuple[int, ...],
+    skw: dict, qe: QueryExitConfig | None, gate: _Gate | None = None,
+) -> _StageOut:
     """All prefixes from one head launch (on the dense gate's block when
     there is one); stage decisions as vector work."""
     Q, D = mask.shape
@@ -347,7 +435,11 @@ def _fused(pf, flat, mask, strategies, caps, skw, qe, gate=None):
     return scores, alive, stage_masks, torch.stack(grids, dim=-1), overflow, exited
 
 
-def _staged(pf, flat, mask, strategies, caps, skw, qe, gate=None):
+def _staged(
+    pf: PaddedForest, flat: torch.Tensor, mask: torch.Tensor,
+    strategies: tuple[Callable[..., torch.Tensor], ...], caps: tuple[int, ...],
+    skw: dict, qe: QueryExitConfig | None, gate: _Gate | None = None,
+) -> _StageOut:
     """Segment k scored only on the compacted stage-(k−1) survivors; the
     first segment on the whole block, or on the dense gate's block (the
     rows the fused head scores, so the modes stay bit-exact)."""
@@ -382,7 +474,10 @@ def _staged(pf, flat, mask, strategies, caps, skw, qe, gate=None):
     return prefix, alive, stage_masks, torch.stack(prefixes, dim=-1), overflow, exited
 
 
-def _final_tail(pf, S, flat, scores, alive, overflow, cap, gated=False):
+def _final_tail(
+    pf: PaddedForest, S: int, flat: torch.Tensor, scores: torch.Tensor,
+    alive: torch.Tensor, overflow: torch.Tensor, cap: int, gated: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
     """One tail launch on the compacted survivors of the last stage;
     ``gated``: the kernel reads the survivor count and skips the tree work
     past it (all of it when every query exited)."""

@@ -46,7 +46,9 @@ def query_ranks(
     return query_ranks_direct(partial, mask)
 
 
-def _beats(rows, ridx, cols, cidx) -> torch.Tensor:
+def _beats(
+    rows: torch.Tensor, ridx: torch.Tensor, cols: torch.Tensor, cidx: torch.Tensor
+) -> torch.Tensor:
     """``beats[..., i, j]``: column doc ``j`` outranks row doc ``i``."""
     r = rows[..., :, None]
     c = cols[..., None, :]

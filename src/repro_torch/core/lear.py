@@ -40,6 +40,7 @@ import torch
 from repro_torch.core.features import N_AUG, augment_features
 from repro_torch.forest.ensemble import TreeEnsemble, from_numpy
 from repro_torch.forest.gbdt import GBDTParams, train_gbdt
+from repro_torch.forest.scoring import score_bitvector
 from repro_torch.kernels.ops import forest_score, forest_score_segments, padded_forest
 from repro_torch.metrics.ranking import rank_from_scores
 
@@ -141,18 +142,40 @@ class LearClassifier:
     def n_trees(self) -> int:
         return self.forest.n_trees
 
-    def prob_continue(self, X_aug: torch.Tensor) -> torch.Tensor:
-        """P(Continue) for augmented features ``[Q, D, F+4]`` → ``[Q, D]``,
-        the forest scored through the same kernel as the ranker."""
+    def prob_continue(self, X_aug: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+        """P(Continue) for augmented features ``[Q, D, F+4]`` → ``[Q, D]``.
+
+        ``use_kernel=True`` scores the classifier forest through the same
+        kernel as the ranker (:func:`repro_torch.kernels.ops.forest_score`),
+        as the serving cascade does; the default is the plain bitvector
+        scorer (:func:`repro_torch.forest.scoring.score_bitvector`), the
+        reference's default, kept for training and evaluation loops. Its
+        trees are summed left to right, the order of the reference's XLA
+        reduce on the CPU for a row of up to 32 trees, so a classifier of
+        that size gets the reference's logits bit for bit; the probability
+        may still differ by an ulp (XLA's float32 ``exp`` is its own).
+        """
         Q, D, F = X_aug.shape
-        logits = forest_score(self.forest, X_aug.reshape(Q * D, F))
+        flat = X_aug.reshape(Q * D, F)
+        if use_kernel:
+            logits = forest_score(self.forest, flat)
+        else:
+            _, per_tree = score_bitvector(self.forest, flat, return_per_tree=True)
+            logits = per_tree[:, 0]
+            for t in range(1, per_tree.shape[1]):
+                logits = logits + per_tree[:, t]
+            logits = logits + self.forest.base_score
         return torch.sigmoid(logits).reshape(Q, D)
 
     def continue_mask(
-        self, X_aug: torch.Tensor, mask: torch.Tensor, threshold: float
+        self,
+        X_aug: torch.Tensor,
+        mask: torch.Tensor,
+        threshold: float,
+        use_kernel: bool = False,
     ) -> torch.Tensor:
         """Continue ⇔ P(Continue) ≥ threshold. Higher = more aggressive EE."""
-        return mask & (self.prob_continue(X_aug) >= threshold)
+        return mask & (self.prob_continue(X_aug, use_kernel=use_kernel) >= threshold)
 
 
 def train_lear(

@@ -1,7 +1,9 @@
 """Cascade stages as values: :class:`TreeStage`, :class:`DenseStage` and
 :class:`EngineConfig`.
 
-The port of :mod:`repro.core.stage`. A :class:`TreeStage` is a
+The port of :mod:`repro.core.stage`. Both stage kinds satisfy the
+:class:`CascadeStage` protocol (a ``capacity`` and a ``stage_cost_trees``).
+A :class:`TreeStage` is a
 sentinel-segmented tree prefix with its exit policy and survivor capacity.
 A :class:`DenseStage` is the hybrid cascade's stage 0: a dense scorer
 (:mod:`repro_torch.models.dense_scorer`) over the whole ``[Q·D, F]``
@@ -24,6 +26,7 @@ scorer and a policy closure once per configuration and reuse them.
 from __future__ import annotations
 
 import dataclasses
+import typing
 from collections.abc import Callable, Sequence
 
 import torch
@@ -35,7 +38,30 @@ from repro_torch.models.dense_scorer import DENSE_COST_TREES
 #: continue mask [Q, D]``; pure and mask-invariant.
 Strategy = Callable[..., torch.Tensor]
 
+#: Dense scorer signature: ``[B, F] float32 -> [B]`` scores (a
+#: :class:`~repro_torch.models.dense_scorer.DenseScorer` module is one).
+DenseScorer = Callable[[torch.Tensor], torch.Tensor]
+
 MODES = ("fused", "staged")
+
+
+@typing.runtime_checkable
+class CascadeStage(typing.Protocol):
+    """One stage of the progressive cascade: scorer + exit policy + capacity.
+
+    ``capacity`` bounds the compacted survivor block handed to the next
+    stage (``None`` defers to :class:`EngineConfig` / the bucket default);
+    ``stage_cost_trees`` is the per-document accounting charge of the
+    stage's policy or scorer in doc·tree traversals — the LEAR classifier's
+    trees for a :class:`TreeStage`, ``cost_trees`` for a :class:`DenseStage`.
+    """
+
+    capacity: int | None
+
+    @property
+    def stage_cost_trees(self) -> float:
+        """Per-document accounting charge, in tree-traversal equivalents."""
+        ...
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +84,10 @@ class TreeStage:
         if self.sentinel <= 0 or (self.capacity is not None and self.capacity <= 0):
             raise ValueError(f"invalid TreeStage {self}")
 
+    @property
+    def stage_cost_trees(self) -> float:
+        return float(self.classifier_trees or 0.0)
+
 
 @dataclasses.dataclass(frozen=True)
 class DenseStage:
@@ -74,7 +104,7 @@ class DenseStage:
     on, a real kernel block bound in both modes.
     """
 
-    scorer: Callable[[torch.Tensor], torch.Tensor]
+    scorer: DenseScorer
     policy: Strategy
     capacity: int | None = None
     cost_trees: float = float(DENSE_COST_TREES)
@@ -84,6 +114,10 @@ class DenseStage:
             raise ValueError(f"DenseStage capacity must be positive: {self.capacity}")
         if self.cost_trees < 0.0:
             raise ValueError(f"DenseStage cost_trees must be >= 0: {self.cost_trees}")
+
+    @property
+    def stage_cost_trees(self) -> float:
+        return float(self.cost_trees)
 
 
 def _as_capacities(

@@ -87,6 +87,15 @@ class TreeEnsemble:
             for f in dataclasses.fields(self) if f.init
         ))
 
+    def astype(self, dtype: torch.dtype) -> TreeEnsemble:
+        """The same trees with thresholds, leaf values and the base score
+        cast to ``dtype`` (features, children and masks unchanged)."""
+        return TreeEnsemble(
+            feature=self.feature, threshold=self.threshold.to(dtype), left=self.left,
+            right=self.right, mask=self.mask, leaf_value=self.leaf_value.to(dtype),
+            base_score=self.base_score.to(dtype),
+        )
+
     def to_numpy(self) -> dict[str, np.ndarray]:
         """The reference's fields as numpy arrays, the inverse of
         :func:`from_numpy`: the int64 mask splits into two uint32 lanes."""

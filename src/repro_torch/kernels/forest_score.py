@@ -20,6 +20,10 @@ builds once per buffer set and passes as ``packed``; a call without them
 packs on the fly. A wrapper given CPU tensors runs the plain version; given
 CUDA tensors it launches the kernel or raises. It never falls back.
 
+The wrappers' operands carry ``Tensor["dims", dtype]`` annotations
+(:mod:`repro_torch.typecheck`); :func:`repro_torch.typecheck.shape_checked`
+enforces them in the tests, and production calls stay unwrapped.
+
 Both versions keep the reference kernel's order of summation, so they are
 bit-exact with it and with each other on finite inputs: per tree block the
 ``block_t`` leaf values are summed by the contiguous-halves chain of
@@ -44,6 +48,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.typecheck import Tensor
 
 ALL_ONES = -1
 LEAF_GATHERS = ("onehot", "select", "mxu")
@@ -114,7 +119,7 @@ def _next_pow2(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
 
-def bind_library(path) -> ctypes.CDLL:
+def bind_library(path: str | Path) -> ctypes.CDLL:
     """Load a built kernel library and declare its C functions' types."""
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -147,7 +152,7 @@ def library() -> ctypes.CDLL:
         return _LIB
 
 
-def set_build_dir(path) -> None:
+def set_build_dir(path: str | Path) -> None:
     """Build (or reuse) the kernel library under ``path`` from now on.
     Raises ``RuntimeError`` once the library is loaded from another
     directory: a process holds one copy of the kernels."""
@@ -291,7 +296,9 @@ def pairwise_tree_sum(per_tree: torch.Tensor) -> torch.Tensor:
 
 
 def _block_partials(
-    x, feature, threshold, mask, leaf_value, block_t, block_lo, n_blocks
+    x: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
+    mask: torch.Tensor, leaf_value: torch.Tensor, block_t: int, block_lo: int,
+    n_blocks: int,
 ) -> torch.Tensor:
     """Per-tree-block partial sums ``[B, n_blocks]`` of blocks
     ``[block_lo, block_lo + n_blocks)``, a bounded chunk of blocks at a time."""
@@ -318,7 +325,8 @@ def _accumulate(partials: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
 
 
 def forest_score_plain(
-    x, feature, threshold, mask, leaf_value, *,
+    x: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
+    mask: torch.Tensor, leaf_value: torch.Tensor, *,
     block_t: int, tree_block_offset: int, n_tree_blocks: int,
     n_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
@@ -336,7 +344,8 @@ def forest_score_plain(
 
 
 def forest_score_segments_plain(
-    x, feature, threshold, mask, leaf_value, *,
+    x: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
+    mask: torch.Tensor, leaf_value: torch.Tensor, *,
     block_t: int, seg_block_starts: tuple[int, ...], n_tree_blocks: int,
 ) -> torch.Tensor:
     """Plain version of :func:`forest_score_segments_kernel` → ``[B, S]``."""
@@ -355,30 +364,32 @@ def forest_score_segments_plain(
 # ---------------------------------------------------------------------------
 
 
+def _expect(
+    t: torch.Tensor, dtype: torch.dtype, shape: tuple[int, ...], device: torch.device
+) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(
+            f"forest kernel: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
+        )
+    if t.device != device:
+        raise ValueError(f"forest kernel: tensors on {t.device} and {device}")
+    if not t.is_contiguous():
+        raise ValueError("forest kernel: inputs must be contiguous")
+
+
 def _check(
-    x, feature, threshold, mask, leaf_value, block_t, block_lo, n_blocks,
-    leaf_gather,
+    x: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
+    mask: torch.Tensor, leaf_value: torch.Tensor, block_t: int, block_lo: int,
+    n_blocks: int, leaf_gather: str,
 ) -> None:
     B, F = x.shape
     T, N = feature.shape
     L = leaf_value.shape[1]
-    expected = (
-        (x, torch.float32, (B, F)),
-        (feature, torch.int32, (T, N)),
-        (threshold, torch.float32, (T, N)),
-        (mask, torch.int64, (T, N)),
-        (leaf_value, torch.float32, (T, L)),
-    )
-    for t, dtype, shape in expected:
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"forest kernel: expected {dtype} {shape}, got {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if t.device != x.device:
-            raise ValueError(f"forest kernel: tensors on {t.device} and {x.device}")
-        if not t.is_contiguous():
-            raise ValueError("forest kernel: inputs must be contiguous")
+    _expect(x, torch.float32, (B, F), x.device)
+    _expect(feature, torch.int32, (T, N), x.device)
+    _expect(threshold, torch.float32, (T, N), x.device)
+    _expect(mask, torch.int64, (T, N), x.device)
+    _expect(leaf_value, torch.float32, (T, L), x.device)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"forest kernel: unsupported device {x.device}")
     if T % block_t or N & (N - 1):
@@ -400,14 +411,18 @@ def _check(
         )
 
 
-def _on_device(x: torch.Tensor):
+def _on_device(x: torch.Tensor) -> contextlib.AbstractContextManager:
     """Make ``x``'s card the current one for a launch (a no-op when it is)."""
     if x.device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(x.device)
 
 
-def _cuda_operands(x, feature, threshold, mask, leaf_value, packed, n_blocks):
+def _cuda_operands(
+    x: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
+    mask: torch.Tensor, leaf_value: torch.Tensor,
+    packed: tuple[torch.Tensor, torch.Tensor] | None, n_blocks: int,
+) -> tuple:
     """The kernels' operands beyond ``x``: packed tables (given or packed
     now), the stream's scratch (partials and arrival counters) and the
     stream."""
@@ -468,11 +483,11 @@ def launch_plan(
 
 
 def forest_score_kernel(
-    x: torch.Tensor,           # [B, F] f32
-    feature: torch.Tensor,     # [T, N] i32, T % block_t == 0, N power of two
-    threshold: torch.Tensor,   # [T, N] f32
-    mask: torch.Tensor,        # [T, N] i64
-    leaf_value: torch.Tensor,  # [T, L] f32
+    x: Tensor["b f", torch.float32],
+    feature: Tensor["t n", torch.int32],     # T % block_t == 0, N power of two
+    threshold: Tensor["t n", torch.float32],
+    mask: Tensor["t n", torch.int64],
+    leaf_value: Tensor["t l", torch.float32],
     *,
     block_t: int = 16,
     tree_block_offset: int = 0,
@@ -480,7 +495,7 @@ def forest_score_kernel(
     leaf_gather: str = "onehot",
     packed: tuple[torch.Tensor, torch.Tensor] | None = None,
     n_valid: torch.Tensor | None = None,
-) -> torch.Tensor:
+) -> Tensor["b", torch.float32]:
     """Score ``x`` through tree blocks ``[offset, offset + n)`` → ``[B]``.
 
     ``packed``: the same tables as (:func:`pack_nodes`, :func:`pack_leaves`),
@@ -530,18 +545,18 @@ def forest_score_kernel(
 
 
 def forest_score_segments_kernel(
-    x: torch.Tensor,
-    feature: torch.Tensor,
-    threshold: torch.Tensor,
-    mask: torch.Tensor,
-    leaf_value: torch.Tensor,
+    x: Tensor["b f", torch.float32],
+    feature: Tensor["t n", torch.int32],
+    threshold: Tensor["t n", torch.float32],
+    mask: Tensor["t n", torch.int64],
+    leaf_value: Tensor["t l", torch.float32],
     *,
     seg_block_starts: tuple[int, ...],  # ascending, seg_block_starts[0] == 0
     n_tree_blocks: int,                 # launch covers blocks [0, n)
     block_t: int = 16,
     leaf_gather: str = "onehot",
     packed: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> torch.Tensor:
+) -> Tensor["b s", torch.float32]:
     """Per-segment partial scores ``[B, S]`` in one launch.
 
     Segment ``k`` covers tree blocks ``[seg_block_starts[k],

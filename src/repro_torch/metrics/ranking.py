@@ -35,11 +35,16 @@ def dcg_at_k(
     return contrib.sum(dim=-1)
 
 
+def ideal_dcg_at_k(labels: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """DCG@k of the documents ranked by their own labels."""
+    return dcg_at_k(labels.float(), labels, mask, k)
+
+
 def ndcg_at_k(
     scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, k: int = 10
 ) -> torch.Tensor:
     """Per-query NDCG@k; queries with zero ideal DCG get NDCG 1."""
-    idcg = dcg_at_k(labels.float(), labels, mask, k)
+    idcg = ideal_dcg_at_k(labels, mask, k)
     dcg = dcg_at_k(scores, labels, mask, k)
     return torch.where(
         idcg > 0, dcg / torch.clamp_min(idcg, 1e-12), torch.ones_like(idcg)

@@ -379,7 +379,9 @@ class ContinuousBatcher:
             return 0.0
         return expected_engine_seconds(self.policy.max_queries * db, ensemble.n_trees)
 
-    def _take_ready(self, now: float):
+    def _take_ready(
+        self, now: float
+    ) -> tuple[int | None, list | None, str | None, float | None]:
         """Pop the bucket to flush now with its trigger, or return the
         earliest future flush time. Full buckets go first; among ripe timers
         the most urgent request wins."""

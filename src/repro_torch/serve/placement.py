@@ -7,7 +7,8 @@ moves the request block to the service's ``torch.device``. It is the one
 conversion ``RankingService.rank_batch`` makes, and its default when no
 placement is given. ``local`` and ``data_parallel`` raise
 ``NotImplementedError``: a mesh of cards is a queued item of
-``ROADMAP.md``.
+``ROADMAP.md``. :func:`auto` picks ``data_parallel`` when more than one
+card is visible and ``single_device`` otherwise, as the reference does.
 """
 
 from __future__ import annotations
@@ -33,11 +34,26 @@ class ServePlacement:
         device: torch.device,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """``X [Q, D, F]`` as f32 and ``mask [Q, D]`` as bool on ``device``
-        (the service passes its own)."""
-        return (
-            torch.as_tensor(X, dtype=torch.float32, device=device),
-            torch.as_tensor(mask, dtype=torch.bool, device=device),
-        )
+        (the service passes its own).
+
+        A host block goes to the card through pinned memory and an
+        asynchronous copy, so the host never waits for the card here: a
+        blocking copy (``torch.as_tensor(X, device=...)``) waits for the
+        stream to drain, and so does an asynchronous one from pageable
+        memory (CUDA's rule for pageable host-to-device copies).
+        """
+        return _on(X, torch.float32, device), _on(mask, torch.bool, device)
+
+
+def _on(a: torch.Tensor | np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    t = torch.as_tensor(a, dtype=dtype)
+    if t.device == device:
+        return t
+    if device.type != "cuda":
+        return t.to(device)
+    if t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def single_device() -> ServePlacement:
@@ -57,3 +73,9 @@ def data_parallel(n_devices: int | None = None) -> ServePlacement:
         "repro_torch: data-parallel placement is not ported yet (ROADMAP.md, "
         "queue A: 'data_parallel / local placement')"
     )
+
+
+def auto() -> ServePlacement:
+    """Data-parallel over every visible card; the single-device placement
+    when there is at most one (keeps the one-device case bit-exact)."""
+    return data_parallel() if torch.cuda.device_count() > 1 else single_device()

@@ -20,7 +20,9 @@ early exit and returns the top-k:
   headroom, never below the cold-start estimate, in powers of two;
 - ONE device→host copy per batch: the response (top-k, scores) and the
   stats (per-stage survivors, trees traversed, overflow, doc count, exited
-  queries) are packed into one tensor and read together;
+  queries) are packed into one tensor and read together through
+  :func:`repro_torch.utils.device_get` (``count_host_transfers`` holds
+  the tests to it);
 - overflowing survivors keep their sentinel scores (bounded quality loss,
   never a crash), and the stats record them;
 - query-level exit (``ServiceConfig.query_exit``) with the device-gated
@@ -38,6 +40,14 @@ early exit and returns the top-k:
 Per-``(Q, D)`` bucket state: each padded batch shape keeps its own survivor
 peaks, EMA and tail-skip rate, so a sparse trickle does not shrink a bulk
 bucket.
+
+:class:`TwoStageCascade` carries the same early exit over to arbitrary
+scorers (recommendation retrieval: a cheap score filters, a full model
+scores the survivors).
+
+The reference's keyword shim (``RankingService(ens, clf, threshold=…)``)
+is kept for old callers: it builds the same :class:`ServiceConfig` and
+warns with a ``DeprecationWarning``.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ import copy
 import dataclasses
 import functools
 import typing
+import warnings
 from collections.abc import Callable, Sequence
 
 import numpy as np
@@ -63,10 +74,17 @@ from repro_torch.metrics.speedup import (
 )
 from repro_torch.serve.calibration import calibrate_launch_overhead_trees
 from repro_torch.serve.placement import ServePlacement, single_device
-from repro_torch.utils import resolve_device
+from repro_torch.utils import device_get, resolve_device
 
 if typing.TYPE_CHECKING:  # annotation-only: avoids a serve-package cycle
     from repro_torch.serve.degradation import ExitRung
+
+_DEPRECATED_SERVICE_MSG = (
+    "repro_torch.serve.ranking_service.RankingService: keyword configuration "
+    "(threshold=…, execution_mode=…, …) is deprecated; pass a ServiceConfig "
+    "as the third argument. The shim builds the equivalent config and will "
+    "be removed in a future release."
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,12 +94,15 @@ class ServiceConfig:
     ``query_exit`` turns on query-level exit. ``dense_stage`` turns the
     service into the hybrid cascade (the dense gate is stage 0 of every
     step); set its ``capacity`` to pin the dense survivor block, else the
-    per-bucket ratchet sizes it like any stage.
+    per-bucket ratchet sizes it like any stage. ``use_kernel_classifier``
+    scores the LEAR classifiers through the forest kernel (else through
+    the plain bitvector scorer).
     """
 
     threshold: float = 0.5
     capacity_headroom: float = 1.25
     top_k: int = 10
+    use_kernel_classifier: bool = True
     execution_mode: str = "auto"
     launch_overhead_trees: float | str = "auto"
     survivor_ema: float = 0.3
@@ -168,6 +189,10 @@ class RankingService:
     Not thread-safe: one thread makes every call that touches the engine
     or its adaptive state (:class:`~repro_torch.serve.batching.ContinuousBatcher`
     keeps to that).
+
+    The keywords after ``device`` are the reference's deprecated
+    configuration: without a ``config`` they build one (with a
+    ``DeprecationWarning``); with one they raise ``TypeError``.
     """
 
     def __init__(
@@ -178,13 +203,50 @@ class RankingService:
         extra_classifiers: Sequence[LearClassifier] = (),
         *,
         device: str | torch.device | None = None,
+        threshold: float | None = None,
+        capacity_headroom: float | None = None,
+        top_k: int | None = None,
+        use_kernel_classifier: bool | None = None,
+        execution_mode: str | None = None,
+        launch_overhead_trees: float | str | None = None,
+        survivor_ema: float | None = None,
+        query_exit: QueryExitConfig | None = None,
     ) -> None:
-        config = config if config is not None else ServiceConfig()
+        if config is not None and not isinstance(config, ServiceConfig):
+            # Legacy positional call: RankingService(ens, clf, 0.3, …)
+            if threshold is not None:
+                raise TypeError("RankingService: threshold given twice")
+            config, threshold = None, float(config)
+        legacy = {
+            name: value
+            for name, value in (
+                ("threshold", threshold),
+                ("capacity_headroom", capacity_headroom),
+                ("top_k", top_k),
+                ("use_kernel_classifier", use_kernel_classifier),
+                ("execution_mode", execution_mode),
+                ("launch_overhead_trees", launch_overhead_trees),
+                ("survivor_ema", survivor_ema),
+                ("query_exit", query_exit),
+            )
+            if value is not None
+        }
+        if config is None:
+            if legacy:
+                warnings.warn(_DEPRECATED_SERVICE_MSG, DeprecationWarning, stacklevel=2)
+            config = ServiceConfig(**legacy)
+        elif legacy:
+            raise TypeError(
+                "RankingService: pass configuration via ServiceConfig OR the "
+                f"deprecated keywords, not both (got {sorted(legacy)})"
+            )
+        self.config = config
         self.device = resolve_device(device)
         self.ensemble = ensemble.to(self.device)
         self.threshold = config.threshold
         self.headroom = config.capacity_headroom
         self.top_k = config.top_k
+        self.use_kernel_classifier = config.use_kernel_classifier
         self.execution_mode = config.execution_mode
         loh = config.launch_overhead_trees
         if loh == "auto":
@@ -263,7 +325,7 @@ class RankingService:
         def strategy(partial, mask, features=None):
             aug = augment_features(features, partial, mask)
             th = self.threshold if threshold is None else threshold
-            return clf.continue_mask(aug, mask, th)
+            return clf.continue_mask(aug, mask, th, use_kernel=self.use_kernel_classifier)
 
         return strategy
 
@@ -449,9 +511,9 @@ class RankingService:
             mask.sum(),
             exited.sum() if exited is not None else torch.zeros((), device=self.device),
         )])
-        packed = torch.cat(
+        packed = device_get(torch.cat(
             [top_idx.reshape(-1).double(), result.scores.reshape(-1).double(), stats]
-        ).cpu().numpy()
+        ))
         top_idx = packed[: Q * k].astype(np.int64).reshape(Q, k)
         scores = packed[Q * k: Q * k + Q * D].astype(np.float32).reshape(Q, D)
         S = self.n_stages
@@ -489,6 +551,40 @@ class RankingService:
         s.trees_traversed += float(traversed)
         s.trees_full_equiv += int(batch_docs) * T
         return top_idx, scores
+
+
+@dataclasses.dataclass
+class TwoStageCascade:
+    """The LEAR-style cascade over arbitrary scorers.
+
+    ``sentinel_fn`` cheaply scores every candidate id; the ``keep_fraction``
+    best (at least one) survive; ``full_fn`` scores the survivors. The
+    survivors are the cheap scores' top in the reference's ``lax.top_k``
+    order: descending, ties to the lower position, which a stable
+    descending sort gives (``torch.topk`` promises no order among ties).
+    Used for recommendation retrieval (``retrieval_cand``), as in the
+    reference's ``examples/cascade_retrieval.py``.
+    """
+
+    sentinel_fn: Callable[[torch.Tensor], torch.Tensor]  # ids -> cheap scores
+    full_fn: Callable[[torch.Tensor], torch.Tensor]      # ids -> full scores
+    keep_fraction: float = 0.05
+
+    def keep(self, n_candidates: int) -> int:
+        """Survivors kept of ``n_candidates``."""
+        return max(1, int(n_candidates * self.keep_fraction))
+
+    def score(
+        self, cand_ids: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``cand_ids [C]`` → (survivor ids ``[k]``, their full scores
+        ``[k]``, every candidate's cheap score ``[C]``)."""
+        cheap = self.sentinel_fn(cand_ids)
+        top_idx = torch.sort(cheap, descending=True, stable=True).indices[
+            : self.keep(cand_ids.shape[0])
+        ]
+        survivors = cand_ids[top_idx]
+        return survivors, self.full_fn(survivors), cheap
 
 
 def _on_device(dense: DenseStage | None, device: torch.device) -> DenseStage | None:

@@ -132,7 +132,7 @@ class WorkerSupervisor:
                 self._target()
             # The supervisor is the boundary that must keep running: any
             # escape from the worker becomes a supervised crash.
-            except BaseException as e:  # noqa: BLE001
+            except BaseException as e:  # noqa: BLE001  # repro: noqa(TS007) -- the supervisor IS the catch-all: crashes become restarts
                 exc = e
             with self._cond:
                 if exc is None or not self._running:
@@ -163,7 +163,7 @@ class WorkerSupervisor:
         self._notify(self._on_failed, exc)
 
     @staticmethod
-    def _notify(callback, exc: BaseException) -> None:
+    def _notify(callback: Callable[[BaseException], object] | None, exc: BaseException) -> None:
         if callback is not None:
             try:
                 callback(exc)

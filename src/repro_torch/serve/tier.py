@@ -19,15 +19,17 @@ keeps the service's adaptive state and the kernels' scratch race-free: the
 scratch is kept per (device, stream), and the worker and the caller share
 the device's default stream. Stand up one tier per service.
 
-The reference's keyword shim (``doc_counts=…`` and friends, with a
-``DeprecationWarning``) serves its old callers; the port has none and
-takes a :class:`TierConfig` only.
+The reference's keyword shim (``ServingTier(svc, F, doc_counts=…)`` and
+friends) is kept for old callers: it builds the same :class:`TierConfig`
+and warns with a ``DeprecationWarning``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import typing
+import warnings
+from collections.abc import Sequence
 from concurrent.futures import Future
 
 from repro_torch.serve.batching import (
@@ -46,6 +48,12 @@ if typing.TYPE_CHECKING:
     from numpy.typing import ArrayLike
 
     from repro_torch.serve.clock import Clock
+
+_DEPRECATED_TIER_MSG = (
+    "repro_torch.serve.tier.ServingTier: keyword configuration (doc_counts=…, "
+    "warmup=…, …) is deprecated; pass a TierConfig as the third argument. The "
+    "shim builds the equivalent config and will be removed in a future release."
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +85,34 @@ class ServingTier:
         *,
         clock: Clock | None = None,
         hooks: BatcherHooks | None = None,
+        doc_counts: Sequence[int] | None = None,
+        warmup: bool | None = None,
+        persistent_cache: bool | None = None,
+        cache_dir: str | None = None,
     ) -> None:
-        self.config = config if config is not None else TierConfig()
+        if config is not None and not isinstance(config, TierConfig):
+            # Legacy positional call: ServingTier(svc, F, (64, 256), …)
+            if doc_counts is not None:
+                raise TypeError("ServingTier: doc_counts given twice")
+            config, doc_counts = None, tuple(config)
+        legacy = {
+            name: value
+            for name, value in (
+                ("doc_counts", doc_counts), ("warmup", warmup),
+                ("persistent_cache", persistent_cache), ("cache_dir", cache_dir),
+            )
+            if value is not None
+        }
+        if config is None:
+            if legacy:
+                warnings.warn(_DEPRECATED_TIER_MSG, DeprecationWarning, stacklevel=2)
+            config = TierConfig(**legacy)
+        elif legacy:
+            raise TypeError(
+                "ServingTier: pass configuration via TierConfig OR the deprecated "
+                f"keywords, not both (got {sorted(legacy)})"
+            )
+        self.config = config
         self.service = service
         self.n_features = int(n_features)
         self.policy = policy or BucketPolicy()

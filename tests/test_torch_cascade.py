@@ -48,7 +48,7 @@ def _strategies(kind, sentinels):
     return (
         [_lear(ref_features, ref_lear.LearClassifier(c, s), use_kernel=True)
          for c, s in zip(ref_clfs, sentinels)],
-        [_lear(features, lear.LearClassifier(to_port(c), s))
+        [_lear(features, lear.LearClassifier(to_port(c), s), use_kernel=True)
          for c, s in zip(ref_clfs, sentinels)],
     )
 
@@ -58,8 +58,7 @@ def _ert(pkg, k_s, partial, mask, features=None):
 
 
 def _lear(pkg_features, clf, **kernel):
-    # The reference scores the classifier through its kernel only when asked;
-    # the port always does.
+    # Both packages score the classifier through their kernel only when asked.
     def strategy(partial, mask, features=None):
         aug = pkg_features.augment_features(features, partial, mask)
         return clf.continue_mask(aug, mask, 0.5, **kernel)
@@ -166,10 +165,10 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize("ref_use_kernel", [False, True])
 def test_lear_classifier_matches_reference(ref_use_kernel):
-    """The port always scores the classifier through its kernel; it is held
-    to both of the reference's paths (its kernel and its bitvector scorer).
-    The two sigmoids may differ by an ulp, so probabilities hold at rtol
-    1e-6 and the continue masks must be equal on this seed."""
+    """``use_kernel`` picks the same path in both packages (the kernel, or
+    the bitvector scorer, the default of a bare call); each is held to the
+    reference's. The two sigmoids may differ by an ulp, so probabilities
+    hold at rtol 1e-6 and the continue masks must be equal on this seed."""
     ref_forest = ref_ensemble.random_ensemble(7, n_trees=10, depth=5, n_features=F + 4)
     ref_clf = ref_lear.LearClassifier(ref_forest, 10)
     port_clf = lear.LearClassifier.from_numpy(ref_arrays(ref_forest), 10, "cpu")
@@ -181,12 +180,12 @@ def test_lear_classifier_matches_reference(ref_use_kernel):
     )
     ops.reset_launch_counts()
     np.testing.assert_allclose(
-        port_clf.prob_continue(aug_t).numpy(),
+        port_clf.prob_continue(aug_t, use_kernel=ref_use_kernel).numpy(),
         np.asarray(ref_clf.prob_continue(aug_j, use_kernel=ref_use_kernel)),
         rtol=1e-6,
     )
-    assert ops.launch_counts()["plain"] == 1
+    assert ops.launch_counts()["plain"] == int(ref_use_kernel)
     np.testing.assert_array_equal(
-        port_clf.continue_mask(aug_t, torch.as_tensor(mask), 0.5).numpy(),
+        port_clf.continue_mask(aug_t, torch.as_tensor(mask), 0.5, ref_use_kernel).numpy(),
         np.asarray(ref_clf.continue_mask(aug_j, jnp.asarray(mask), 0.5, ref_use_kernel)),
     )

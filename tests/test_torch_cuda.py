@@ -1040,3 +1040,112 @@ def test_bf16_embedding_gradient_on_the_card_against_the_cpu(dev):
     print(f"bfloat16 embedding gradient, card against the CPU's adds: {gap:.4g} of the max; "
           f"against one float32 sum: {gap_once:.4g}")
     assert gap <= 1 / 16
+
+
+# ---------------------------------------------------------------------------
+# The host-read guard and the shape-checked lane on the card.
+# ---------------------------------------------------------------------------
+
+SYNCING = {
+    "item": lambda x, m: x.sum().item(),
+    "bool_mask_index": lambda x, m: x[m],
+    "nonzero": lambda x, m: torch.nonzero(m),
+    "repeat_interleave": lambda x, m: torch.repeat_interleave(m.long()),
+    "cpu": lambda x, m: x.cpu(),
+    "blocking_h2d": lambda x, m: torch.as_tensor(np.ones(4, np.float32), device=x.device),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SYNCING))
+def test_guard_negative_controls_on_the_card(dev, name):
+    from repro_torch.utils import count_host_transfers
+
+    x = torch.randn(1000, device=dev)
+    m = x > 0
+    SYNCING[name](x, m)  # warm
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    with count_host_transfers() as counts:
+        SYNCING[name](x, m)
+    assert counts.implicit_syncs >= 1 and counts.sync_warnings >= 1, counts
+    assert counts.explicit_gets == 0
+    assert torch.cuda.get_sync_debug_mode() == before
+
+
+def test_guard_sees_device_get_and_async_copies_on_the_card(dev):
+    from repro_torch.serve.placement import single_device
+    from repro_torch.utils import count_host_transfers, device_get
+
+    x = torch.randn(1000, device=dev)
+    X = np.ones((2, 8, 4), np.float32)
+    mask = np.ones((2, 8), bool)
+    single_device().put(X, mask, x.device)
+    with count_host_transfers() as counts:
+        host = device_get(x * 2)
+        Xd, md = single_device().put(X, mask, x.device)  # pinned, asynchronous
+        torch.sort(x, descending=True, stable=True)
+        torch.repeat_interleave(torch.ones(4, dtype=torch.long, device=dev), output_size=4)
+    assert isinstance(host, np.ndarray)
+    assert (counts.explicit_gets, counts.implicit_syncs) == (1, 0), counts
+    assert counts.sync_warnings >= 1  # the read itself: a blocking copy
+    torch.cuda.synchronize()
+    assert Xd.device == x.device and bool(md.all()) and float(Xd.sum()) == X.sum()
+
+
+@pytest.mark.parametrize("sentinels,mode,qe", [
+    ((20,), "auto", False), ((20, 60), "fused", False), ((20, 60), "staged", True),
+])
+def test_rank_batch_reads_once_under_the_sync_debug_mode(dev, sentinels, mode, qe):
+    from repro_torch.core.lear import LearClassifier
+    from repro_torch.core.strategies import QueryExitConfig
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+    from repro_torch.utils import count_host_transfers
+
+    def service(d):
+        ens = random_ensemble(31, 200, 5, 24, device=d)
+        clfs = [LearClassifier(random_ensemble(32 + i, 10, 4, 28, device=d), s)
+                for i, s in enumerate(sentinels)]
+        return RankingService(
+            ens, clfs[0],
+            ServiceConfig(threshold=0.4, execution_mode=mode, launch_overhead_trees=512.0,
+                          query_exit=QueryExitConfig(k=5, margin=1.0) if qe else None),
+            extra_classifiers=clfs[1:], device=d,
+        )
+
+    svc, cpu = service(dev), service("cpu")
+    rng = np.random.default_rng(12)
+    batches = [(rng.normal(size=(4, 64, 24)).astype(np.float32),
+                np.arange(64)[None] < rng.integers(16, 65, size=(4, 1))) for _ in range(5)]
+    for X, mask in batches[:2]:
+        svc.rank_batch(X, mask)
+        cpu.rank_batch(X, mask)
+    fs.reset_kernel_launches()
+    with count_host_transfers() as counts:
+        outs = [svc.rank_batch(X, mask) for X, mask in batches[2:]]
+    assert (counts.explicit_gets, counts.implicit_syncs) == (3, 0), counts
+    assert sum(fs.kernel_launches().values()) > 0
+    for (X, mask), (top, scores) in zip(batches[2:], outs):
+        _, want = cpu.rank_batch(X, mask)
+        np.testing.assert_allclose(scores, want, rtol=1e-5, atol=1e-5)
+
+
+def test_shape_checked_wrappers_on_card_tensors(dev):
+    from repro_torch.typecheck import shape_checked
+
+    ens = random_ensemble(41, 64, 5, 19, device=dev)
+    pf = ops.padded_forest(ens, boundaries=(16, 64))
+    x = _x(np.random.default_rng(41), 300, 19, dev)
+    tables = (pf.feature, pf.threshold, pf.mask, pf.leaf_value)
+    plain = shape_checked(fs.forest_score_kernel)
+    seg = shape_checked(fs.forest_score_segments_kernel)
+    kw = dict(block_t=pf.block_t, packed=pf.packed)
+    assert torch.equal(plain(x, *tables, **kw), fs.forest_score_kernel(x, *tables, **kw))
+    skw = dict(seg_block_starts=pf.seg_block_starts, n_tree_blocks=sum(pf.seg_blocks), **kw)
+    got = seg(x, *tables, **skw)
+    assert got.shape == (300, 2) and torch.equal(got, fs.forest_score_segments_kernel(x, *tables, **skw))
+    with pytest.raises(TypeError, match="feature"):
+        plain(x, pf.feature.float(), *tables[1:], **kw)
+    with pytest.raises(TypeError, match="`x`"):
+        plain(x[0], *tables, **kw)
+    with pytest.raises(TypeError, match="threshold"):
+        plain(x, pf.feature, pf.threshold[:, :4].contiguous(), *tables[2:], **kw)

@@ -6,7 +6,8 @@ data, binning, GBDT, λ-MART, LEAR training, reordering — and the model-cell
 path's — configs, RecSys, cells, trainer, checkpoints, launchers — and
 the LM path's — layers, transformer (serving and training), MoE,
 generation — and NequIP's — so3, the model, the neighbor sampler — among
-them) and the
+them — and the serving guards': the host-read guard, the shape-checked
+lane and the analyzer) and the
 ``chip_smoke`` script (without running it) and
 check that no ``jax*`` or ``repro.*`` module was loaded. Without a card, ``chip_smoke.py`` must fail
 and print no result, also when it is alone in a directory.
@@ -86,9 +87,28 @@ from repro_torch.models.transformer import chunked_cross_entropy, loss_fn
 from repro_torch.models.nequip import forces, forward_energy, nequip_params_from_numpy
 from repro_torch.models.so3 import allowed_paths, clebsch_gordan
 from repro_torch.data import CSRGraph, sample_neighbors
+guards = {"repro_torch." + m for m in (
+    "typecheck", "analysis", "analysis.config", "analysis.callgraph", "analysis.engine",
+    "analysis.annotations", "analysis.__main__", "analysis.rules", "analysis.rules.common",
+    "analysis.rules.ts001_host_sync", "analysis.rules.ts002_control_flow",
+    "analysis.rules.ts003_reassociation", "analysis.rules.ts004_env_reads",
+    "analysis.rules.ts005_thread_discipline", "analysis.rules.ts006_single_device_get",
+    "analysis.rules.ts007_bounded_serving",
+)}
+assert guards <= set(names), sorted(guards - set(names))
+from repro_torch.utils import TransferCounts, count_host_transfers, device_get
+from repro_torch.typecheck import Tensor, shape_checked
+from repro_torch.analysis import main, run_paths
+from repro_torch.analysis.rules import all_rules
+from repro_torch.serve.ranking_service import TwoStageCascade
+from repro_torch.serve.placement import auto
+from repro_torch.serve.calibration import last_calibration
+from repro_torch.core.stage import CascadeStage, DenseScorer
+from repro_torch.metrics import ideal_dcg_at_k
+assert len(all_rules()) == 7
 leaked = sorted(
     m for m in sys.modules
-    if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
+    if m == "jax" or m.startswith(("jax.", "jaxlib", "jaxtyping", "repro."))
     or m == "repro"
 )
 print(len(names), leaked)

@@ -173,7 +173,7 @@ def test_train_lear_general_tie_rule(seed):
         x_aug[..., F:] = np.random.default_rng(seed).normal(size=(Q, D, 4))
         ref_clf = ref_lear.LearClassifier(forest=ref_forest, sentinel=SENTINEL)
         np.testing.assert_allclose(
-            clf.prob_continue(torch.as_tensor(x_aug)).numpy(),
+            clf.prob_continue(torch.as_tensor(x_aug), use_kernel=True).numpy(),
             np.asarray(ref_clf.prob_continue(jnp.asarray(x_aug), use_kernel=True)),
             rtol=1e-6, atol=1e-6,
         )

@@ -24,6 +24,7 @@ from repro_torch.core.lear import LearClassifier  # noqa: E402
 from repro_torch.core.stage import DenseStage  # noqa: E402
 from repro_torch.core.strategies import QueryExitConfig  # noqa: E402
 from repro_torch.serve.ranking_service import RankingService, ServiceConfig  # noqa: E402
+from repro_torch.utils import count_host_transfers  # noqa: E402
 from torch_parity import ref_arrays, to_port  # noqa: E402
 
 F = 16
@@ -111,22 +112,17 @@ def test_capacity_ratchet_and_overflow_match_reference():
     assert port._pick_capacities(128) == ref._pick_capacities(128)
 
 
-def test_rank_batch_reads_the_device_once(monkeypatch):
+def test_rank_batch_reads_the_device_once():
     """Between submit and the response the hot path makes no host read
-    but the one packed copy (no .item(), bool(), int() or float() on a
-    tensor)."""
+    but the one packed copy, through ``device_get`` (no .item(), bool(),
+    int(), float(), .cpu() or numpy read of a tensor besides it)."""
     _, port = _services((8, 28), "fused", 0.0)
     rng = np.random.default_rng(5)
     port.rank_batch(*_batch(rng, 2, 64))
-    calls = []
-    for name in ("item", "tolist", "__bool__", "__int__", "__float__", "cpu"):
-        real = getattr(torch.Tensor, name)
-        monkeypatch.setattr(
-            torch.Tensor, name,
-            lambda self, *a, _n=name, _r=real, **k: calls.append(_n) or _r(self, *a, **k),
-        )
-    port.rank_batch(*_batch(rng, 2, 64))
-    assert calls == ["cpu"]
+    batch = _batch(rng, 2, 64)
+    with count_host_transfers() as counts:
+        port.rank_batch(*batch)
+    assert (counts.explicit_gets, counts.implicit_syncs) == (1, 0), counts
 
 
 def test_service_raises_on_unported_options():
