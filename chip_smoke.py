@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the LEAR serving path, its training
-pipeline, the model cells, the LM serving and training paths and NequIP
-once on one card.
+pipeline, the model cells, the LM serving and training paths, NequIP, the
+serving placements and the dry run once on one card.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc`` in ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
@@ -222,10 +222,34 @@ Phases, each of which must pass:
   and ``full_graph_sm`` train on their synthesized inputs (loss finite;
   step time and peak printed; loss-and-gradient reruns compared);
   ``ogb_products`` by shape on ``meta``.
+- ``placement`` (after ``guards``): ``repro_torch.serve.placement`` at
+  lear-msn1 full width, sentinels (50, 150), 8 × 256 batches, fused and
+  staged: ``single_device()``, ``local()`` (the (1, 1) ``DeviceMesh``),
+  ``data_parallel()`` over the visible cards, and ``data_parallel`` over
+  cuda:0 named 2 and 8 times (the batch split into 2 and 8 shards along
+  its queries). Scores and top-k bit-equal to ``single_device()``'s; each
+  shard makes the single batch's forest launches; one explicit host read
+  a batch and 0 implicit syncs under ``count_host_transfers``. A
+  ``ServingTier`` of 50 queries on two shards (``health()["n_devices"]``
+  2; each response equal to the query served alone). Then
+  ``repro_torch.train.remesh`` moves Qwen3-4B's full-width parameters
+  (8.8 GB, bfloat16) from host numpy onto ``make_local_mesh(cuda:0)``, a
+  one-rank NCCL group: every leaf bit-equal; a one-rank NCCL all-reduce.
+  The shards' kernel shapes join ``kernels``.
+- ``dryrun`` (after ``nequip``; traced in a process of its own, started
+  after ``cells``): ``repro_torch.launch.dryrun.run_cell`` for the three
+  hillclimb cells (lear-msn1 ``rank_xl``, qwen2.5-14b ``train_4k``,
+  nequip ``ogb_products``) on a fake 16 × 16 process group, printing each
+  cell's roofline terms, per-device memory and ``trace_s``; then every
+  step that ``cells``, ``lm`` and ``lm_train`` timed, traced on ``meta``
+  at its own config and shape, with its ``chips=1`` H100 roofline beside
+  the measured time and the phase's own bound. No measured time may be
+  below its compute term (the memory term is printed only: L2 can beat an
+  HBM reckoning).
 
 The last lines are a one-line summary of the tier, the gated tail, the
-hybrid, the guards, the training, the cell (with the retrieval cascade),
-the LM and the NequIP runs, the
+hybrid, the guards, the placements, the training, the cell (with the
+retrieval cascade), the LM and the NequIP runs and the dry run, the
 card's name and power limit, one JSON line with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
@@ -249,11 +273,9 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, and 67e12 fp32 operations per
-# second outside the tensor cores, which counts each FMA as two. The node
-# tests hold no FMA, so one operation is one instruction: half that rate.
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12 / 2
+# The card's peak rates are repro_torch.launch.roofline's (NVIDIA's H100
+# SXM data sheet): HBM_BW, BF16_FLOPS, F32_FLOPS, and ALU_OPS, one 32-bit
+# instruction per lane per cycle (the node tests hold no FMA).
 # Per (doc, tree, node): feature load, x load, compare, select, and the
 # 64-bit AND as two 32-bit ones.
 OPS_PER_NODE_TEST = 6
@@ -292,6 +314,23 @@ LEAR_K = 15
 TRAIN_DETERMINISM_ROUNDS = 20
 TRAIN_CPU_ROUNDS = 8
 TRAIN_THRESHOLDS = (0.1, 0.3, 0.5)
+
+
+# Steps timed on the card for [dryrun]'s chips=1 roofline: label, config,
+# shape, measured ms and the phase's own bound (ms, or None).
+TIMED: list[dict] = []
+
+
+def _timed(label: str, cfg, shape, ms: float, hand_ms: float | None = None) -> None:
+    TIMED.append({"label": label, "cfg": cfg, "shape": shape, "ms": ms, "hand_ms": hand_ms})
+
+
+def _rf():
+    """repro_torch.launch.roofline: the card's peak rates (imported once
+    ``src`` is on the path)."""
+    from repro_torch.launch import roofline
+
+    return roofline
 
 
 def log(msg: str) -> None:
@@ -358,11 +397,12 @@ def _bound(B: int, F: int, pf, seg_lo: int, seg_hi: int, S: int = 1,
     tables = trees * (pf.n_nodes * (4 + 4 + 8) + pf.n_leaves * 4) if rows else 0
     nbytes = rows * F * 4 + tables + B * S * 4 + (0 if n_valid is None else 4)
     ops = OPS_PER_NODE_TEST * rows * trees * pf.n_nodes
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    t_bytes, t_ops = nbytes / _rf().HBM_BW, ops / _rf().ALU_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def phase_kernels(tail_cases, hybrid_cases=(), train_cases=(), cell_cases=()) -> dict:
+def phase_kernels(tail_cases, hybrid_cases=(), train_cases=(), cell_cases=(),
+                  placement_cases=()) -> dict:
     """Each kernel against its plain version and timed, at B = Q·D and at
     the compaction capacities of ``tail_cases`` (``(layout, seg_lo,
     seg_hi, B)`` as the serve runs launched them), and of ``hybrid_cases``
@@ -370,7 +410,9 @@ def phase_kernels(tail_cases, hybrid_cases=(), train_cases=(), cell_cases=()) ->
     them) on a block compacted as the dense gate compacts it: the rows of a
     keep fraction of the batch, then padding rows that repeat row 0; and
     the forest cell's launches ``cell_cases`` (``(label, padded forest,
-    X, seg_lo, seg_hi)``) on the cell's own inputs."""
+    X, seg_lo, seg_hi)``) on the cell's own inputs; and the data-parallel
+    shards' launches ``placement_cases`` (``(kind, seg_lo, seg_hi, B)`` on
+    the (50, 150) layout)."""
     import numpy as np
     import torch
 
@@ -449,6 +491,10 @@ def phase_kernels(tail_cases, hybrid_cases=(), train_cases=(), cell_cases=()) ->
     # train_lear's segmented launch on the classifier split, trained ranker.
     cases += [seg_case(label, pf, xs, pf.n_segments) for label, pf, xs in train_cases]
     cases += [range_case(label, pf, xs, lo, hi) for label, pf, xs, lo, hi in cell_cases]
+    for kind, lo, hi, rows in sorted(placement_cases):
+        label = f"placement shard {kind} [{lo},{hi}) B={rows}"
+        cases.append(range_case(label, pf2, x[:rows], lo, hi) if kind == "range"
+                     else seg_case(label, pf2, x[:rows], hi))
 
     results: dict[str, dict] = {}
     for name, label, pf, xs, n_blocks, (lo, hi, S_out), kernel, plain in cases:
@@ -2367,6 +2413,7 @@ def _dlrm_cell() -> dict:
     if loss_err > TOL * max(1.0, abs(losses[0])) or row_err > TOL or changed:
         raise AssertionError("dlrm-rm2 train: the card differs from the CPU port")
     out["train_batch"] = {"ms": statistics.median(times[1:]), "peak": peak, "losses": losses}
+    _timed("dlrm-rm2 train_batch", cfg, shapes["train_batch"], out["train_batch"]["ms"])
 
     # Serving with the trained tables.
     params = state.params
@@ -2403,6 +2450,7 @@ def _dlrm_cell() -> dict:
         if not err <= TOL:
             raise AssertionError(f"dlrm-rm2 {name}: differs from the CPU port by {err}")
         out[name] = {"ms": ms, "peak": peak}
+        _timed(f"dlrm-rm2 {name}", cfg, shapes[name], ms)
         if name == "retrieval_cand":
             retrieval_raw = raw
     del scell, inputs, scores
@@ -2454,6 +2502,7 @@ def _recsys_cell(arch: str) -> dict:
         log(f"[cells] {arch} {shape.name} B={shape.batch}: {what}; step {ms:.3f} ms "
             f"(median after one warm step); peak memory {_gib(peak)}")
         out[shape.name] = {"ms": ms, "peak": peak}
+        _timed(f"{arch} {shape.name}", cfg, shape, ms)
     if arch == "din":
         out["resume"] = _din_resume(cfg)
     return out
@@ -2579,6 +2628,7 @@ def _forest_cell(shape_name: str) -> dict:
     cases = [(f"cell {shape_name} ranker head [0,1)", pf, x2d, 0, 1),
              (f"cell {shape_name} classifier [0,1)", pfc, aug, 0, 1),
              (f"cell {shape_name} ranker tail [1,2)", pf, x2d, 1, 2)]
+    _timed(f"lear-msn1 {shape_name}", cfg, shape, ms)
     return {"ms": ms, "peak": peak, "launches": launches["forest_score"], "cases": cases}
 
 
@@ -2658,11 +2708,6 @@ def phase_cells(card: str) -> dict:
 # [lm]: the LM serving path at full width.
 # ---------------------------------------------------------------------------
 
-# NVIDIA H100 SXM data sheet: dense bf16 on the tensor cores, and fp32
-# outside them (an FMA counts two), the rate the attention's float32
-# products run at with TF32 off.
-BF16_OPS_PER_S = 989e12
-F32_OPS_PER_S = 67e12
 LM_FULL = ("qwen3-4b", "deepseek-moe-16b")
 LM_SHAPES_ONLY = ("qwen2.5-14b", "minitron-4b", "llama4-maverick-400b-a17b")
 # Batch cuts of the published shapes (prefill_32k B = 32, decode_32k
@@ -2887,11 +2932,11 @@ def _lm_prefill_timed(arch: str, cfg, params, card: str) -> dict:
             f"{dropped:.3%}; a rerun is bit-equal")
     del logits, caches
     bf16, f32 = _lm_prefill_ops(cfg, B, S)
-    bound = bf16 / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+    bound = bf16 / _rf().BF16_FLOPS + f32 / _rf().F32_FLOPS
     log(f"[lm] {arch} prefill {B}x{S}: {ms:.1f} ms, {B * S / ms * 1e3:,.0f} tokens/s, peak "
         f"{_gib(peak)}; bound {bound * 1e3:.1f} ms (bf16 {bf16:.4g} FLOP / 989 TFLOP/s = "
-        f"{bf16 / BF16_OPS_PER_S * 1e3:.1f} ms + f32 {f32:.4g} FLOP / 67 TFLOP/s = "
-        f"{f32 / F32_OPS_PER_S * 1e3:.1f} ms), {ms / 1e3 / bound:.2f}x the bound; {card}")
+        f"{bf16 / _rf().BF16_FLOPS * 1e3:.1f} ms + f32 {f32:.4g} FLOP / 67 TFLOP/s = "
+        f"{f32 / _rf().F32_FLOPS * 1e3:.1f} ms), {ms / 1e3 / bound:.2f}x the bound; {card}")
     # Where it goes: one layer's attention alone, at the layer's shapes.
     from repro_torch.models.layers import blockwise_attention
 
@@ -2905,7 +2950,9 @@ def _lm_prefill_timed(arch: str, cfg, params, card: str) -> dict:
     log(f"[lm] {arch} prefill {B}x{S}: blockwise attention alone {attn_ms:.1f} ms a layer, "
         f"x {cfg.n_layers} layers = {attn_ms * cfg.n_layers:.0f} ms of the {ms:.0f} ms "
         f"({attn_ms * cfg.n_layers / ms:.1%}); its float32 products' bound "
-        f"{f32 / F32_OPS_PER_S * 1e3 / cfg.n_layers:.1f} ms a layer")
+        f"{f32 / _rf().F32_FLOPS * 1e3 / cfg.n_layers:.1f} ms a layer")
+    _timed(f"{arch} prefill {B}x{S}", cfg, dataclasses.replace(pre, global_batch=B), ms,
+           bound * 1e3)
     return {"ms": ms, "tokens_s": B * S / ms * 1e3, "peak": peak, "bound_ms": bound * 1e3,
             "attn_share": attn_ms * cfg.n_layers / ms}
 
@@ -2939,10 +2986,12 @@ def _lm_decode_timed(arch: str, cfg, params, gen, card: str) -> dict:
              "one decode step", n_top=6)
     moved = _lm_decode_bytes(cfg, params, B, S)
     log(f"[lm] {arch} decode B={B} at position {S - 1} of a {S}-token cache: {ms:.2f} ms a step, "
-        f"{B / ms * 1e3:,.1f} tokens/s, peak {_gib(peak)}; bound {moved / HBM_BYTES_PER_S * 1e3:.2f} ms "
-        f"({_gib(moved)} / 3.35 TB/s), {ms / 1e3 / (moved / HBM_BYTES_PER_S):.2f}x the bound; {card}")
+        f"{B / ms * 1e3:,.1f} tokens/s, peak {_gib(peak)}; bound {moved / _rf().HBM_BW * 1e3:.2f} ms "
+        f"({_gib(moved)} / 3.35 TB/s), {ms / 1e3 / (moved / _rf().HBM_BW):.2f}x the bound; {card}")
+    _timed(f"{arch} decode B={B} at {S}", cfg, dataclasses.replace(dec, global_batch=B), ms,
+           moved / _rf().HBM_BW * 1e3)
     return {"ms": ms, "tokens_s": B / ms * 1e3, "peak": peak,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": moved / _rf().HBM_BW * 1e3}
 
 
 def _lm_generate(arch: str, cfg, params) -> float:
@@ -3390,14 +3439,15 @@ def _lm_train_full(arch: str, cfg, card: str) -> dict:
         raise AssertionError(f"[lm_train] {arch}: losses {losses} are not finite and falling")
     step_s = statistics.median(times[1:])
     bf16, f32 = _lm_train_ops(fcfg, B, S)
-    bound = bf16 / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+    bound = bf16 / _rf().BF16_FLOPS + f32 / _rf().F32_FLOPS
     log(f"[lm_train] {arch} {L} layers, batch {B} x {S} (microbatch {mb}), {LM_TRAIN_STEPS} steps "
         f"on one batch: loss " + " -> ".join(f"{x:.4f}" for x in losses)
         + f"; step {step_s * 1e3:.1f} ms (median of steps 2-{LM_TRAIN_STEPS}; step 1 "
         f"{times[0] * 1e3:.1f} ms), {B * S / step_s:,.0f} tokens/s; peak {_gib(peak)} (reckoned "
         f"{_gib(peak_b * n)} before activations); bound {bound * 1e3:.1f} ms (bf16 {bf16:.4g} FLOP "
-        f"/ 989 TFLOP/s = {bf16 / BF16_OPS_PER_S * 1e3:.1f} ms + f32 attention {f32:.4g} FLOP / "
-        f"67 TFLOP/s = {f32 / F32_OPS_PER_S * 1e3:.1f} ms), {step_s / bound:.2f}x the bound; {card}")
+        f"/ 989 TFLOP/s = {bf16 / _rf().BF16_FLOPS * 1e3:.1f} ms + f32 attention {f32:.4g} FLOP / "
+        f"67 TFLOP/s = {f32 / _rf().F32_FLOPS * 1e3:.1f} ms), {step_s / bound:.2f}x the bound; {card}")
+    _timed(f"{arch} train {L} layers {B}x{S}", fcfg, cell.shape, step_s * 1e3, bound * 1e3)
     return {"step_ms": step_s * 1e3, "tokens_s": B * S / step_s, "peak": peak,
             "bound_ms": bound * 1e3, "losses": losses, "reckoned": peak_b * n}
 
@@ -3656,6 +3706,311 @@ def phase_nequip(card: str) -> dict:
     return {"results": out, "summary": summary, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# [placement]: the mesh placements of the serving path, and re-meshing.
+# ---------------------------------------------------------------------------
+
+PLACEMENT_SHARDS = (2, 8)        # data_parallel over cuda:0 named this many times
+PLACEMENT_TIER_QUERIES = 50
+PLACEMENT_HEADROOM = 8.0         # the tier check's capacity headroom: nothing overflows
+
+
+def _placement_services(models, mode, n, headroom=None):
+    """``n`` services over the [serve] models with sentinels (50, 150)."""
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+
+    cfg, ranker, clfs = models
+    kw = {"capacity_headroom": headroom} if headroom else {}
+    return [
+        RankingService(
+            ranker, clfs[0],
+            ServiceConfig(threshold=THRESHOLD, execution_mode=mode, launch_overhead_trees=512.0,
+                          **kw),
+            extra_classifiers=clfs[1:], device=DEVICE,
+        )
+        for _ in range(n)
+    ]
+
+
+def _placement_mode(models, mode: str, card: str) -> dict:
+    """One mode: single_device(), local(), data_parallel() over the visible
+    cards, and data_parallel over cuda:0 named 2 and 8 times, each on a
+    fresh service warmed on GUARD_WARM batches, then GUARD_BATCHES batches
+    under count_host_transfers: bit-equal to single_device()'s, one
+    explicit read a batch and no implicit sync, each shard making the
+    single batch's forest launches; then the same batches timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.serve import placement
+    from repro_torch.utils import count_host_transfers
+
+    batches = _batches(models[0].n_features)[: GUARD_WARM + GUARD_BATCHES]
+    runs = [("single_device()", placement.single_device()), ("local()", placement.local(DEVICE)),
+            (f"data_parallel() ({torch.cuda.device_count()} visible)", placement.data_parallel())]
+    runs += [(f"data_parallel([cuda:0] x {n})", placement.data_parallel(devices=[DEVICE] * n))
+             for n in PLACEMENT_SHARDS]
+    services = _placement_services(models, mode, len(runs))
+    launches = {"forest_score": 0, "forest_score_segments": 0}
+    want = base = None
+    cases, lines = set(), []
+    for (label, pl), svc in zip(runs, services):
+        for X, mask in batches[:GUARD_WARM]:
+            svc.rank_batch(X, mask, placement=pl)
+        torch.cuda.synchronize()
+        fs.reset_kernel_launches()
+        with count_host_transfers() as counts:
+            got = [svc.rank_batch(X, mask, placement=pl) for X, mask in batches[GUARD_WARM:]]
+        torch.cuda.synchronize()
+        n_launch = dict(fs.kernel_launches())
+        for name, k in n_launch.items():
+            launches[name] += k
+        t0 = time.perf_counter()
+        for X, mask in batches[GUARD_WARM:]:
+            svc.rank_batch(X, mask, placement=pl)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / GUARD_BATCHES
+        shards = pl.n_shards(Q)
+        if want is None:
+            want, base = got, n_launch
+        equal = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                    for a, b in zip(got, want))
+        st = svc.stats
+        lines.append(f"{label}: {shards} shard(s) of {Q // shards} x {D}, {ms:.3f} ms a batch, "
+                     f"launches {n_launch}, explicit {counts.explicit_gets} implicit "
+                     f"{counts.implicit_syncs}, bit-equal {equal}, overflow {st.overflow_docs}")
+        if counts.explicit_gets != GUARD_BATCHES or counts.implicit_syncs or counts.sites:
+            raise AssertionError(f"[placement] {mode} {label}: host reads {counts}")
+        if not equal:
+            raise AssertionError(f"[placement] {mode} {label}: differs from single_device()")
+        if n_launch != {k: shards * v for k, v in base.items()} or not sum(base.values()):
+            raise AssertionError(f"[placement] {mode} {label}: launches {n_launch} vs {base}")
+        # The kernels' shapes on this path, for [kernels]: a shard's rows.
+        rows = Q // shards * D
+        for caps in st.capacities:
+            cases.add(("range", 2, 3, min(caps[-1], rows)))
+            if mode == "staged":
+                cases.add(("range", 0, 1, rows))
+                cases.add(("range", 1, 2, min(caps[0], rows)))
+            else:
+                cases.add(("segments", 0, 2, rows))
+    log(f"[placement] {mode}, sentinels {SENTINELS_2}, {GUARD_BATCHES} batches of {Q} x {D} "
+        f"after {GUARD_WARM} warm: " + "; ".join(lines) + f"; {card}")
+    return {"launches": launches, "cases": cases}
+
+
+def _placement_tier() -> dict:
+    """A ServingTier on data_parallel over cuda:0 named twice: its health
+    reports 2 devices; PLACEMENT_TIER_QUERIES queries under the guard, one
+    explicit read a flushed batch; every response equal to the query served
+    alone by a single-device service (headroom PLACEMENT_HEADROOM on both,
+    so no capacity overflows and the shapes cannot matter)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.serve import BucketPolicy, ServingTier, TierConfig, placement
+    from repro_torch.utils import count_host_transfers
+
+    models = _models(DEVICE, SENTINELS_2)
+    svc, alone = _placement_services(models, "fused", 2, PLACEMENT_HEADROOM)
+    tier = ServingTier(
+        svc, models[0].n_features, TierConfig(doc_counts=(D,)),
+        policy=BucketPolicy(max_queries=Q, max_wait_ms=2.0, min_docs=8),
+        placement=placement.data_parallel(devices=[DEVICE] * 2),
+    ).start()
+    rng = np.random.default_rng(SEED + 900)
+    queries = [
+        rng.normal(size=(int(rng.integers(D // 4, D + 1)), models[0].n_features)).astype(np.float32)
+        for _ in range(PLACEMENT_TIER_QUERIES)
+    ]
+    n_devices = tier.health()["n_devices"]
+    torch.cuda.synchronize()
+    before = svc.stats.batches
+    fs.reset_kernel_launches()
+    try:
+        with count_host_transfers() as counts:
+            futures = []
+            for q in queries:
+                futures.append(tier.submit(q))
+                time.sleep(0.0005)
+            results = [f.result(timeout=120) for f in futures]
+    finally:
+        tier.stop()
+    launches = dict(fs.kernel_launches())
+    flushed = svc.stats.batches - before
+    equal = all(
+        np.array_equal(s, alone.rank_batch(q[None], np.ones((1, len(q)), bool))[1][0])
+        for (_, s), q in zip(results, queries)
+    )
+    log(f"[placement] tier on data_parallel([cuda:0] x 2): health n_devices {n_devices}; "
+        f"{PLACEMENT_TIER_QUERIES} queries in {flushed} flushed batches, explicit "
+        f"{counts.explicit_gets} implicit {counts.implicit_syncs}; launches {launches}; "
+        f"every response equal to the query served alone: {equal}; overflow "
+        f"{svc.stats.overflow_docs}")
+    if n_devices != 2 or not equal or svc.stats.overflow_docs:
+        raise AssertionError("[placement] tier: devices, responses or overflow")
+    if counts.explicit_gets != flushed or counts.implicit_syncs or not flushed:
+        raise AssertionError(f"[placement] tier: {flushed} batches, host reads {counts}")
+    return {"launches": launches}
+
+
+def _placement_remesh(card: str) -> None:
+    """Qwen3-4B's full-width parameters, drawn on the card, copied to host
+    numpy and re-placed by remesh on make_local_mesh(cuda:0) (a one-rank
+    NCCL group): every leaf bit-equal; then a one-rank NCCL all-reduce."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import single_pod_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import remesh
+
+    cfg = get_config("qwen3-4b")
+    params = tfm.init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 90), DEVICE)
+    n_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    t0 = time.perf_counter()
+    host = {k: t.cpu().view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.cpu().numpy()
+            for k, t in params.items()}
+    t_host = time.perf_counter() - t0
+    tree = {k: torch.from_numpy(a).view(params[k].dtype) for k, a in host.items()}
+    mesh = make_local_mesh(DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = remesh(tree, tfm.param_logical(cfg), single_pod_rules(), mesh)
+    torch.cuda.synchronize()
+    t_put = time.perf_counter() - t0
+    equal = all(torch.equal(placed[k].to_local(), params[k]) for k in params)
+    kinds = sorted({str(p) for d in placed.values() for p in d.placements})
+    probe = torch.arange(8, dtype=torch.float32, device=DEVICE)
+    dist.all_reduce(probe, group=mesh.get_group("data"))
+    reduced = bool(torch.equal(probe.cpu(), torch.arange(8, dtype=torch.float32)))
+    backend = dist.get_backend(mesh.get_group("data"))
+    log(f"[placement] remesh: qwen3-4b, {len(params)} leaves, {_gib(n_bytes)} "
+        f"({cfg.dtype}); card -> host numpy {t_host:.2f} s; remesh onto {mesh} "
+        f"(backend {backend}) {t_put:.2f} s ({n_bytes / t_put / 1e9:.2f} GB/s); placements "
+        f"{kinds}; every leaf bit-equal: {equal}; one-rank all-reduce exact: {reduced}; {card}")
+    if not equal or not reduced:
+        raise AssertionError("[placement] remesh: leaves or the all-reduce differ")
+    del placed, tree, host, params
+    dist.destroy_process_group()
+
+
+def phase_placement(card: str) -> dict:
+    """[placement] at lear-msn1 full width (the [serve] models, seed 0)."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    models = _models(DEVICE, SENTINELS_2)
+    launches = {"forest_score": 0, "forest_score_segments": 0}
+    cases = set()
+    for mode in ("fused", "staged"):
+        r = _placement_mode(models, mode, card)
+        cases |= r["cases"]
+        for name, n in r["launches"].items():
+            launches[name] += n
+    for name, n in _placement_tier()["launches"].items():
+        launches[name] += n
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    _placement_remesh(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[placement] done in {seconds:.1f} s on {card}")
+    summary = (f"placement: single_device, local and data_parallel x1/x{PLACEMENT_SHARDS} "
+               f"bit-equal, fused and staged; a tier on 2 shards; qwen3-4b re-meshed bit-equal")
+    return {"launches": launches, "cases": cases, "summary": summary}
+
+
+# ---------------------------------------------------------------------------
+# [dryrun]: the dry run of the hillclimb cells, and every timed step's
+# chips=1 roofline beside its measured time.
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("lear-msn1", "rank_xl"), ("qwen2.5-14b", "train_4k"), ("nequip", "ogb_products"))
+
+
+def start_dryrun(out_dir: str) -> subprocess.Popen:
+    """The dry run of DRYRUN_CELLS on the fake 16 x 16 mesh, in a process
+    of its own (it traces on the host, with no card, while the card runs
+    the other phases; the fake process group is process-wide)."""
+    cells = ",".join(f"{a}:{s}" for a, s in DRYRUN_CELLS)
+    code = ("import json, sys, time\n"
+            "from repro_torch.launch import dryrun\n"
+            "out = []\n"
+            "for cell in sys.argv[2].split(','):\n"
+            "    arch, shape = cell.split(':')\n"
+            "    record, _ = dryrun.run_cell(arch, shape, multi_pod=False)\n"
+            "    out.append(record)\n"
+            "json.dump(out, open(sys.argv[1], 'w'))\n")
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", code, os.path.join(out_dir, "dryrun.json"),
+                             cells], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def phase_dryrun(card: str, proc: subprocess.Popen, out_dir: str) -> dict:
+    """The background dry run's records; then every step that [cells],
+    [lm] and [lm_train] timed, traced on meta at its own config and shape:
+    its chips=1 roofline beside the measured time and the phase's own
+    bound. No measured time may be below its compute term."""
+    from repro_torch.configs.base import TransformerConfig
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.models.api import make_cell
+
+    t_phase = time.perf_counter()
+    log_text, _ = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"[dryrun] the dry run failed:\n{log_text[-4000:]}")
+    with open(os.path.join(out_dir, "dryrun.json")) as f:
+        records = json.load(f)
+    for rec in records:
+        r, m = rec["roofline"], rec["memory"]
+        log(f"[dryrun] {rec['arch']} {rec['shape']} on the fake {rec['mesh']} ({rec['chips']} "
+            f"ranks): trace {rec['trace_s']} s; per device {m['per_device_total_gib']} GiB; "
+            f"compute {r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, collective "
+            f"{r['collective_s']:.4g} s ({r['coll_breakdown']}), dominant {r['dominant']}, "
+            f"useful ratio {r['useful_ratio']:.3f}; divisibility problems "
+            f"{len(rec['divisibility'])}")
+        if not all(math.isfinite(r[k]) and r[k] >= 0 for k in ("compute_s", "memory_s",
+                                                               "collective_s")):
+            raise AssertionError(f"[dryrun] {rec['arch']} {rec['shape']}: terms {r}")
+    below = []
+    for t in TIMED:
+        t0 = time.perf_counter()
+        tr, _ = trace_step(make_cell(t["cfg"], t["shape"]))
+        model_flops = (rf.lm_model_flops(t["cfg"], t["shape"])
+                       if isinstance(t["cfg"], TransformerConfig) else 0.0)
+        r = rf.roofline(op_analysis.analyze(tr), chips=1, model_flops=model_flops)
+        hand = "none" if t["hand_ms"] is None else f"{t['hand_ms']:.4g} ms"
+        log(f"[dryrun] {t['label']}: measured {t['ms']:.4g} ms; chips=1 roofline: compute "
+            f"{r.compute_s * 1e3:.4g} ms ({', '.join(f'{k} {v:.4g}' for k, v in r.flops_by_dtype.items())} "
+            f"FLOP), memory {r.memory_s * 1e3:.4g} ms (printed, not held: L2 can beat an HBM "
+            f"reckoning), bound {r.bound_s * 1e3:.4g} ms ({r.dominant}); the phase's own bound "
+            f"{hand}; measured / compute {t['ms'] / 1e3 / max(r.compute_s, 1e-30):.2f}; traced "
+            f"in {time.perf_counter() - t0:.1f} s")
+        if t["ms"] / 1e3 < r.compute_s:
+            below.append(t["label"])
+    if below:
+        raise AssertionError(f"[dryrun] measured below the compute term: {below}")
+    if not TIMED:
+        raise AssertionError("[dryrun] no timed step recorded")
+    seconds = time.perf_counter() - t_phase
+    log(f"[dryrun] done in {seconds:.1f} s on {card}")
+    return {"summary": f"dryrun: {len(records)} cells on the fake 16x16 mesh; {len(TIMED)} "
+                       f"timed steps, none below its compute term"}
+
+
 def main() -> int:
     try:
         import torch
@@ -3675,6 +4030,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t_start = time.perf_counter()
+    dry_proc = None
     try:
         phase_build()
         card = card_line()
@@ -3693,6 +4049,10 @@ def main() -> int:
         for name, n in guards["launches"].items():
             launches[name] += n
         elapsed("guards")
+        placement = phase_placement(card)
+        for name, n in placement["launches"].items():
+            launches[name] += n
+        elapsed("placement")
         train = phase_train(card, serve_p50)
         for name, n in train["launches"].items():
             launches[name] += n
@@ -3701,13 +4061,19 @@ def main() -> int:
         for name, n in cells["launches"].items():
             launches[name] += n
         elapsed("cells")
+        dry_dir = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+        os.makedirs(dry_dir, exist_ok=True)
+        dry_proc = start_dryrun(dry_dir)
         lm = phase_lm(card)
         elapsed("lm")
         lm_train = phase_lm_train(card)
         elapsed("lm_train")
         nequip = phase_nequip(card)
         elapsed("nequip")
-        kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"], cells["cases"])
+        dryrun = phase_dryrun(card, dry_proc, dry_dir)
+        elapsed("dryrun")
+        kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"], cells["cases"],
+                                placement["cases"])
         gated = phase_gated()
         elapsed("kernels")
         phase_shapes(card)
@@ -3715,6 +4081,10 @@ def main() -> int:
     except Exception:  # report the failing phase, then fail the run
         traceback.print_exc()
         return 1
+    finally:
+        if dry_proc is not None and dry_proc.poll() is None:
+            dry_proc.kill()
+            dry_proc.wait()
 
     sources = {
         "forest_score": ("src/repro_torch/csrc/forest_score.cu",
@@ -3749,8 +4119,8 @@ def main() -> int:
     log(f"[summary] {tier['summary']}; gated tail at a full count "
         + ", ".join(f"B={B} {ms:.4f} ms" for B, ms in sorted(full.items()))
         + f"; {hybrid['summary']}; {guards['summary']}; {train['summary']}; "
-        f"{cells['summary']}; {lm['summary']}; "
-        f"{lm_train['summary']}; {nequip['summary']}; "
+        f"{placement['summary']}; {cells['summary']}; {lm['summary']}; "
+        f"{lm_train['summary']}; {nequip['summary']}; {dryrun['summary']}; "
         f"run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -60,6 +60,19 @@ Module map (port ↔ reference):
                                         ``base`` and the eleven configs)
 ``repro_torch.launch.serve``            ``repro.launch.serve``
 ``repro_torch.launch.train``            ``repro.launch.train``
+``repro_torch.distributed``             ``repro.distributed`` (rules on a
+                                        ``DeviceMesh``; ``constrain`` on
+                                        ``DTensor``)
+``repro_torch.launch.mesh``             ``repro.launch.mesh``
+``repro_torch.train.elastic``           ``repro.train.elastic``
+``repro_torch.serve.placement``         ``repro.serve.placement``
+``repro_torch.launch.op_analysis``      ``repro.launch.hlo_analysis`` (aten
+                                        ops of an eager step, not HLO)
+``repro_torch.launch.roofline``         ``repro.launch.roofline`` (H100)
+``repro_torch.launch.dryrun``           ``repro.launch.dryrun`` (a fake
+                                        process group, ``meta`` tensors)
+``repro_torch.launch.reanalyze``        ``repro.launch.reanalyze``
+``repro_torch.launch.hillclimb``        ``repro.launch.hillclimb``
 ``repro_torch.utils``                   (none: device resolution, the path
                                         walk of nested states)
 ======================================  =====================================

@@ -47,6 +47,14 @@ Capacities are sizes known on the host, so the compacted blocks have fixed
 shapes and nothing on this path waits for the device: survivors beyond a
 capacity keep their stage prefix and are counted in ``overflow``, a 0-dim
 device tensor read later with the batch's stats.
+
+A batch split along its queries into shards (data-parallel serving) keeps
+the one-program batch's overflow: ``survivors_before`` gives a shard, per
+compaction, the survivors its earlier shards counted there (0-dim device
+tensors), and a survivor holds a slot only if that count plus its own
+position stays below the capacity, exactly the slots a cumsum over the
+whole batch would give. ``CascadeResult.survivors`` returns this call's
+counts, which the next shard adds to its ``survivors_before``.
 """
 
 from __future__ import annotations
@@ -60,7 +68,6 @@ import torch
 
 from repro_torch.core.compaction import (
     COMPACTORS,
-    compact_indices_cumsum,
     compact_indices_cumsum_masked,
 )
 from repro_torch.core.stage import DenseStage, EngineConfig
@@ -108,6 +115,9 @@ class CascadeResult:
     mode: str | None = None
     query_exited: torch.Tensor | None = None  # query exit on: [Q] bool, the
     #   queries whose remaining documents query-level exit removed; else None
+    survivors: list | None = None  # progressive: each compaction's survivor
+    #   count (0-dim tensors) in the order they ran: the dense gate's, the
+    #   staged stages', the tail's
 
 
 @dataclasses.dataclass
@@ -183,6 +193,7 @@ class CascadeRanker:
         mode: str | None = None,
         launch_overhead_trees: float | None = None,
         query_exit: QueryExitConfig | None = None,
+        survivors_before: Sequence[torch.Tensor] | None = None,
         **strategy_kwargs: object,
     ) -> CascadeResult:
         """Multi-stage engine (see the module docstring).
@@ -191,7 +202,9 @@ class CascadeRanker:
         inherits the ranker's defaults. Per-stage capacities resolve as
         stage.capacity → config.capacities entry → :func:`bucket_capacity`
         of ``Q·D``, each clipped to ``Q·D``. ``strategy_kwargs`` are passed
-        to every stage's strategy.
+        to every stage's strategy. ``survivors_before`` makes this batch a
+        shard of a larger one (see the module docstring); the capacities
+        are then the whole batch's.
 
         The keywords between ``config`` and ``strategy_kwargs`` are the
         reference's deprecated configuration: without a config they build
@@ -227,14 +240,13 @@ class CascadeRanker:
         if conf_caps is None or isinstance(conf_caps, int):
             conf_caps = (conf_caps,) * config.n_stages
         default_cap = bucket_capacity(Q * D, Q * D)
-        caps = tuple(
-            min(
-                int(st.capacity if st.capacity is not None
-                    else (c if c is not None else default_cap)),
-                Q * D,
-            )
+        limits = tuple(
+            int(st.capacity if st.capacity is not None
+                else (c if c is not None else default_cap))
             for st, c in zip(config.stages, conf_caps)
         )
+        caps = tuple(min(c, Q * D) for c in limits)
+        slots = _Slots(survivors_before)
         has_tail = sentinels[-1] < T
         pf = padded_forest(
             self.ensemble,
@@ -247,16 +259,18 @@ class CascadeRanker:
         gate = None
         acct_sentinels, acct_costs = sentinels, classifier_trees
         if dense is not None:
-            gate = _dense_gate(dense, flat, mask, caps[0], qe)
+            gate = _dense_gate(dense, flat, mask, caps[0], qe, slots, limits[0])
             acct_sentinels = (0, *sentinels)
             acct_costs = (float(dense.cost_trees), *classifier_trees)
         body = _fused if config.mode == "fused" else _staged
         scores, alive, stage_masks, partials, overflow, exited = body(
-            pf, flat, mask, strategies, caps[len(caps) - S:], strategy_kwargs, qe, gate
+            pf, flat, mask, strategies, caps[len(caps) - S:], strategy_kwargs, qe, gate,
+            slots, limits[len(limits) - S:],
         )
         if has_tail:
             scores, overflow = _final_tail(
-                pf, S, flat, scores, alive, overflow, caps[-1], gated=qe is not None
+                pf, S, flat, scores, alive, overflow, caps[-1], slots, limits[-1],
+                gated=qe is not None,
             )
         return CascadeResult(
             scores=scores,
@@ -267,6 +281,7 @@ class CascadeRanker:
             partials=partials,
             mode=config.mode,
             query_exited=exited if qe is not None else None,
+            survivors=slots.counts,
         )
 
 
@@ -316,6 +331,34 @@ def _legacy_config(
     )
 
 
+@dataclasses.dataclass
+class _Slots:
+    """The compactions of one call, in the order they run. ``before``: a
+    shard's per-compaction survivor counts of the shards ahead of it
+    (``None`` for a whole batch); ``counts``: this call's."""
+
+    before: Sequence[torch.Tensor] | None
+    counts: list = dataclasses.field(default_factory=list)
+
+    def take(
+        self, cont: torch.Tensor, cap: int, limit: int
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Compact ``cont`` into ``cap`` slots: ``(sel, n_valid, within,
+        overflow)``, where slots below ``n_valid`` hold survivors (for a
+        whole batch ``n_valid`` is the survivor count, which may pass
+        ``cap``) and ``limit`` is the whole batch's capacity."""
+        i = len(self.counts)
+        if self.before is None:
+            sel, n_cont, within = compact_indices_cumsum_masked(cont, cap)
+            self.counts.append(n_cont)
+            return sel, n_cont, within, torch.clamp_min(n_cont - cap, 0)
+        left = torch.clamp_min(limit - self.before[i], 0)
+        sel, n_cont, within = compact_indices_cumsum_masked(cont, cap, left)
+        self.counts.append(n_cont)
+        n_valid = torch.minimum(n_cont, left)
+        return sel, n_valid, within, n_cont - n_valid
+
+
 @dataclasses.dataclass(frozen=True)
 class _Gate:
     """The dense gate's outcome: its score grid, the alive mask and exit
@@ -332,7 +375,7 @@ class _Gate:
 
 def _dense_gate(
     dense: DenseStage, flat: torch.Tensor, mask: torch.Tensor, cap: int,
-    qe: QueryExitConfig | None,
+    qe: QueryExitConfig | None, slots: _Slots, limit: int,
 ) -> _Gate:
     """Stage 0 of a hybrid cascade: score every candidate densely, prune
     with the stage's policy, fold in query exit at stage 0, and compact the
@@ -344,12 +387,12 @@ def _dense_gate(
     alive = mask & dense.policy(scores, mask)
     exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
     alive, exited = _apply_query_exit(qe, 0, scores, alive, exited)
-    sel, n_cont, within = compact_indices_cumsum_masked(alive.reshape(Q * D), cap)
+    sel, n_cont, within, overflow = slots.take(alive.reshape(Q * D), cap, limit)
     return _Gate(
         scores=scores,
         alive=alive & within.reshape(Q, D),
         exited=exited,
-        overflow=torch.clamp_min(n_cont - cap, 0),
+        overflow=overflow,
         sel=sel,
         n_cont=n_cont,
     )
@@ -406,7 +449,8 @@ _StageOut = tuple[
 def _fused(
     pf: PaddedForest, flat: torch.Tensor, mask: torch.Tensor,
     strategies: tuple[Callable[..., torch.Tensor], ...], caps: tuple[int, ...],
-    skw: dict, qe: QueryExitConfig | None, gate: _Gate | None = None,
+    skw: dict, qe: QueryExitConfig | None, gate: _Gate | None,
+    slots: _Slots, limits: tuple[int, ...],
 ) -> _StageOut:
     """All prefixes from one head launch (on the dense gate's block when
     there is one); stage decisions as vector work."""
@@ -438,7 +482,8 @@ def _fused(
 def _staged(
     pf: PaddedForest, flat: torch.Tensor, mask: torch.Tensor,
     strategies: tuple[Callable[..., torch.Tensor], ...], caps: tuple[int, ...],
-    skw: dict, qe: QueryExitConfig | None, gate: _Gate | None = None,
+    skw: dict, qe: QueryExitConfig | None, gate: _Gate | None,
+    slots: _Slots, limits: tuple[int, ...],
 ) -> _StageOut:
     """Segment k scored only on the compacted stage-(k−1) survivors; the
     first segment on the whole block, or on the dense gate's block (the
@@ -460,10 +505,8 @@ def _staged(
         alive = alive & strategies[k](prefix, alive, **skw)
         alive, exited = _apply_query_exit(qe, k + k0, prefix, alive, exited)
         if k + 1 < S:
-            sel, n_cont, within = compact_indices_cumsum_masked(
-                alive.reshape(Q * D), caps[k]
-            )
-            overflow = overflow + torch.clamp_min(n_cont - caps[k], 0)
+            sel, n_cont, within, over = slots.take(alive.reshape(Q * D), caps[k], limits[k])
+            overflow = overflow + over
             alive = alive & within.reshape(Q, D)
             seg_sel = forest_score_range(pf, flat[sel], k + 1, k + 2)
             prefix = torch.where(
@@ -476,12 +519,13 @@ def _staged(
 
 def _final_tail(
     pf: PaddedForest, S: int, flat: torch.Tensor, scores: torch.Tensor,
-    alive: torch.Tensor, overflow: torch.Tensor, cap: int, gated: bool = False,
+    alive: torch.Tensor, overflow: torch.Tensor, cap: int, slots: _Slots, limit: int,
+    gated: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One tail launch on the compacted survivors of the last stage;
     ``gated``: the kernel reads the survivor count and skips the tree work
     past it (all of it when every query exited)."""
-    sel, n_cont = compact_indices_cumsum(alive.reshape(-1), cap)
+    sel, n_cont, _, over = slots.take(alive.reshape(-1), cap, limit)
     if gated:
         tail_sel = forest_score_range(
             pf, flat[sel], seg_lo=S, count_as="gated", n_valid=n_cont.to(torch.int32)
@@ -489,7 +533,7 @@ def _final_tail(
     else:
         tail_sel = forest_score_range(pf, flat[sel], seg_lo=S)
     scores = _scatter_tail(scores, sel, tail_sel, n_cont)
-    return scores, overflow + torch.clamp_min(n_cont - cap, 0)
+    return scores, overflow + over
 
 
 def _compacted_tail(

@@ -23,15 +23,19 @@ import torch
 
 
 def compact_indices_cumsum_masked(
-    cont: torch.Tensor, capacity: int
+    cont: torch.Tensor, capacity: int, limit: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(sel [capacity], n_cont [], within [n])``: ``within[i]`` ⇔
-    ``cont[i]`` and survivor ``i`` got a slot below ``capacity``."""
+    ``cont[i]`` and survivor ``i`` got a slot below ``capacity`` (and below
+    ``limit``, a 0-dim device tensor, when given: the slots a split batch's
+    earlier shards left this one)."""
     cont = cont.reshape(-1)
     n = cont.shape[0]
     pos = torch.cumsum(cont.long(), 0) - 1                    # survivor → slot
     n_cont = pos[-1] + 1 if n else torch.zeros((), dtype=torch.long, device=cont.device)
     within = cont & (pos < capacity)
+    if limit is not None:
+        within = within & (pos < limit)
     slot = torch.where(within, pos, torch.full_like(pos, capacity))
     sel = torch.zeros(capacity + 1, dtype=torch.long, device=cont.device)
     sel.scatter_(0, slot, torch.arange(n, device=cont.device))

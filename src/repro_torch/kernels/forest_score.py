@@ -18,7 +18,9 @@ kernels read the tables as packed records (:func:`pack_nodes`,
 :func:`pack_leaves`), which :func:`repro_torch.kernels.ops.padded_forest`
 builds once per buffer set and passes as ``packed``; a call without them
 packs on the fly. A wrapper given CPU tensors runs the plain version; given
-CUDA tensors it launches the kernel or raises. It never falls back.
+CUDA tensors it launches the kernel or raises. It never falls back. Given
+``meta`` tensors (the dry run, which computes nothing) it shapes its result
+through the plain version's ops.
 
 The wrappers' operands carry ``Tensor["dims", dtype]`` annotations
 (:mod:`repro_torch.typecheck`); :func:`repro_torch.typecheck.shape_checked`
@@ -390,7 +392,7 @@ def _check(
     _expect(threshold, torch.float32, (T, N), x.device)
     _expect(mask, torch.int64, (T, N), x.device)
     _expect(leaf_value, torch.float32, (T, L), x.device)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"forest kernel: unsupported device {x.device}")
     if T % block_t or N & (N - 1):
         raise ValueError(
@@ -517,7 +519,7 @@ def forest_score_kernel(
             f"forest kernel: n_valid must be one int32 on {x.device}, got "
             f"{n_valid.dtype} {tuple(n_valid.shape)} on {n_valid.device}"
         )
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):   # meta: the dry run's shapes
         return forest_score_plain(
             x, feature, threshold, mask, leaf_value, block_t=block_t,
             tree_block_offset=tree_block_offset, n_tree_blocks=n_tree_blocks,
@@ -574,7 +576,7 @@ def forest_score_segments_kernel(
         raise ValueError(
             f"seg_block_starts {starts} must ascend from 0 below {n_tree_blocks}"
         )
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return forest_score_segments_plain(
             x, feature, threshold, mask, leaf_value, block_t=block_t,
             seg_block_starts=starts, n_tree_blocks=n_tree_blocks,

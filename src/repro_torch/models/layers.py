@@ -12,8 +12,9 @@ order with the same arithmetic (the online softmax is per row), and a
 Numerics follow the reference's cast points: RMSNorm, RoPE and attention
 compute in float32 and return the input's dtype. Query head ``h`` reads
 key/value head ``h // G`` (``G = H / Hkv``): the heads are reshaped to
-``[Hkv, G]``, never tiled. The reference's sharding constraints are
-dropped (one device).
+``[Hkv, G]``, never tiled. The GLU's hidden activations carry the
+reference's sharding constraint (:func:`~repro_torch.distributed.constrain`:
+the identity on a plain tensor).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import functools
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import constrain
 
 NEG_INF = -1e30
 
@@ -192,4 +195,6 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def glu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor) -> torch.Tensor:
-    return (silu(x @ w_gate) * (x @ w_up)) @ w_down
+    h = silu(x @ w_gate) * (x @ w_up)
+    h = constrain(h, "batch", None, "ff")
+    return h @ w_down

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import silu
 
 
@@ -90,6 +91,7 @@ def moe_ffn(
     x_sel = x[groups, token_idx]                                       # [G, E, C, D]
     w_sel = torch.gather(weight.transpose(1, 2), 2, token_idx)
     w_sel = torch.clamp_min(w_sel, 0.0)                                # padding → 0
+    x_sel = constrain(x_sel, "groups", "experts", None, None)
 
     h = silu(torch.einsum("gecd,edf->gecf", x_sel, w_gate)) * torch.einsum(
         "gecd,edf->gecf", x_sel, w_up
@@ -110,4 +112,5 @@ def moe_ffn(
     y = torch.zeros((G, T, D), dtype=y_sel.dtype, device=x.device)
     for j in range(top_k):
         y = y + parts[:, :, j]
+    y = constrain(y, "groups", None, None)
     return y.to(x.dtype), aux

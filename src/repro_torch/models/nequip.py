@@ -44,8 +44,9 @@ pytree paths (``species_embed``, ``layers/radial_w0``, ``layers/w_msg/1``,
 axis. ``init`` draws from a ``torch.Generator`` with the reference's
 distributions (the numbers differ from ``jax.random``'s);
 :func:`nequip_params_from_numpy` and :func:`nequip_params_to_numpy` carry
-the reference's parameters across. The reference's sharding constraints
-are dropped (one device).
+the reference's parameters across. Edges and node aggregates carry the
+reference's sharding constraints (:func:`~repro_torch.distributed.constrain`:
+the identity on a plain tensor).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import NequIPConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import so3
 from repro_torch.utils import resolve_device, tree_items
 
@@ -206,10 +208,10 @@ def _interaction(cfg: NequIPConfig, layer: Mapping[str, torch.Tensor], h, edge_s
                 blk = w_msg[p_i * mul:(p_i + 1) * mul]                 # [mul, mul]
                 term = torch.einsum("eud,um->emd", m, blk)
                 pre = term if pre is None else pre + term
-            mixed = segment_sum(pre, edge_dst, n_nodes) * inv_deg
+            mixed = constrain(segment_sum(pre, edge_dst, n_nodes), "nodes", None, None) * inv_deg
         else:
             stacked = torch.cat(msgs[l], dim=1)                        # [E, P_l*mul, d]
-            agg = segment_sum(stacked, edge_dst, n_nodes) * inv_deg
+            agg = constrain(segment_sum(stacked, edge_dst, n_nodes), "nodes", None, None) * inv_deg
             mixed = torch.einsum("nkd,km->nmd", agg, w_msg)
         out[l] = torch.einsum("ncd,cm->nmd", h[l], layer[f"w_self/{l}"].to(dt)) + mixed
 
@@ -244,13 +246,14 @@ def forward_energy(cfg: NequIPConfig, params: Params, positions, species, edge_s
     """Per-graph energies [n_graphs] (one graph without ``graph_id``).
     positions [N, 3]; edges index into nodes."""
     n_nodes = positions.shape[0]
-    edge_src, edge_dst = edge_src.long(), edge_dst.long()
+    edge_src = constrain(edge_src.long(), "edges")
+    edge_dst = constrain(edge_dst.long(), "edges")
     rel = _gather(positions, edge_src) - _gather(positions, edge_dst)  # [E, 3]
     # Smooth norm: grad of ‖·‖ at 0 is NaN, and degenerate (self-)edges must
     # not poison the force computation.
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
     unit = rel / dist[..., None]
-    rbf = bessel_basis(dist, cfg.n_rbf, cfg.cutoff)
+    rbf = constrain(bessel_basis(dist, cfg.n_rbf, cfg.cutoff), "edges", None)
     Y = {l: _sph(unit, l) for l in LS}
 
     h = _embed_nodes(cfg, params, species.long(), node_feat)

@@ -22,8 +22,9 @@ them across in both directions. ``init`` draws from an explicit
 ``torch.Generator`` on the target device with the reference's
 distributions and scales (the numbers differ from ``jax.random``'s), so a
 table never passes through host memory; on the ``meta`` device it only
-shapes. The reference's sharding constraints are dropped (one device); the
-logical-axis tables stay as data.
+shapes. The inputs carry the reference's sharding constraints
+(:func:`~repro_torch.distributed.constrain`: the identity on a plain
+tensor), and the logical-axis tables are its data.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecSysConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import rms_norm
 from repro_torch.utils import resolve_device, tree_items
 
@@ -155,8 +157,8 @@ def dot_interact(vecs: torch.Tensor) -> torch.Tensor:
 
 def dlrm_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool = False
                  ) -> torch.Tensor:
-    dense = batch["dense"]                                        # [B, 13]
-    sparse = batch["sparse"]                                      # [B, 26, hot]
+    dense = constrain(batch["dense"], "batch", None)              # [B, 13]
+    sparse = constrain(batch["sparse"], "batch", None, None)      # [B, 26, hot]
     bot = _mlp(dense, params, "bot", torch.relu)                  # [B, D]
     embs = [
         embedding_bag(params[f"tables/t{i}"], sparse[:, i], sparse_grad=sparse_grad)
@@ -171,7 +173,7 @@ def dlrm_score_candidates(cfg: RecSysConfig, params: Params, batch) -> torch.Ten
     """1 user (dense + 25 fields) × C candidate items (last field)."""
     dense = batch["dense"]                                        # [1, 13]
     sparse = batch["sparse"]                                      # [1, 25, hot]
-    cands = batch["cand_ids"]                                     # [C]
+    cands = constrain(batch["cand_ids"], "cands")                 # [C]
     bot = _mlp(dense, params, "bot", torch.relu)                  # [1, D]
     user_embs = [
         embedding_bag(params[f"tables/t{i}"], sparse[:, i])
@@ -216,7 +218,7 @@ def deepfm_logical(cfg: RecSysConfig) -> dict[str, tuple]:
 
 def deepfm_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool = False
                    ) -> torch.Tensor:
-    ids = batch["ids"]                                            # [B, 39] global ids
+    ids = constrain(batch["ids"], "batch", None)                  # [B, 39] global ids
     v = _take(params["table"], ids, sparse_grad)                  # [B, 39, D]
     w = _take(params["first_order"], ids, sparse_grad)[..., 0]    # [B, 39]
     fm1 = w.sum(dim=-1)
@@ -229,7 +231,7 @@ def deepfm_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool =
 def deepfm_score_candidates(cfg: RecSysConfig, params: Params, batch) -> torch.Tensor:
     """User fields fixed, candidate = last field swept over C ids."""
     ids = batch["ids"]                                            # [1, 38]
-    cands = batch["cand_ids"]                                     # [C]
+    cands = constrain(batch["cand_ids"], "cands")                 # [C]
     vu = _take(params["table"], ids[0])                           # [38, D]
     wu = _take(params["first_order"], ids[0]).sum()
     vc = _take(params["table"], cands)                            # [C, D]
@@ -277,8 +279,8 @@ def _din_user_vec(params: Params, hist_vec, target_vec, hist_mask) -> torch.Tens
 
 def din_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool = False
                 ) -> torch.Tensor:
-    hist = batch["hist_ids"]                                      # [B, S]
-    target = batch["target_id"]                                   # [B]
+    hist = constrain(batch["hist_ids"], "batch", None)            # [B, S]
+    target = constrain(batch["target_id"], "batch")               # [B]
     hist_mask = hist >= 0
     hist_vec = _take(params["item_table"], hist.clamp_min(0), sparse_grad)
     target_vec = _take(params["item_table"], target, sparse_grad)
@@ -294,7 +296,7 @@ def din_score_candidates(cfg: RecSysConfig, params: Params, batch,
     score depends on it alone): the attention input of one sweep is
     ``[C, S, 4·D]``, 28.8 GB at DIN's full width and 10⁶ candidates."""
     hist = batch["hist_ids"][0]                                   # [S]
-    cands = batch["cand_ids"]                                     # [C]
+    cands = constrain(batch["cand_ids"], "cands")                 # [C]
     hist_mask = (hist >= 0)[None]
     hist_vec = _take(params["item_table"], hist.clamp_min(0))     # [S, D]
 
@@ -360,6 +362,7 @@ def bert4rec_encode(cfg: RecSysConfig, params: Params, ids: torch.Tensor,
     D, H = cfg.embed_dim, cfg.n_heads
     Dh = D // H
     x = _take(params["item_embed"], ids, sparse_grad) + params["pos_embed"][None, :S]
+    x = constrain(x, "batch", None, None)
     for layer in range(cfg.n_blocks):
         blk = {k: params[f"blocks/{k}"][layer] for k in _BLOCK_KEYS}
         h = rms_norm(x, blk["ln1"])
@@ -396,7 +399,7 @@ def bert4rec_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool
 
 def bert4rec_score_candidates(cfg: RecSysConfig, params: Params, batch) -> torch.Tensor:
     h = bert4rec_encode(cfg, params, batch["ids"])[:, -1]         # [1, D]
-    cand_vec = _take(params["item_embed"], batch["cand_ids"])     # [C, D]
+    cand_vec = _take(params["item_embed"], constrain(batch["cand_ids"], "cands"))  # [C, D]
     return cand_vec @ h[0]
 
 

@@ -36,8 +36,10 @@ the router drawn in that dtype then cast to float32, the embedding normal
 · 0.02, norms at one, biases at zero); the numbers differ from
 ``jax.random``'s. :func:`transformer_params_from_numpy` and
 :func:`transformer_params_to_numpy` carry weights across in both
-directions, bfloat16 bit for bit. The reference's sharding constraints are
-dropped (one device); the logical-axis tables stay as data.
+directions, bfloat16 bit for bit. The reference's sharding constraints sit
+where its do (:func:`~repro_torch.distributed.constrain`: the identity on a
+plain tensor); ``cfg.seq_parallel`` puts the residual stream's sequence
+axis on ``"seq_sp"``.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import (
     apply_rope,
     blockwise_attention,
@@ -219,8 +222,8 @@ def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, pos
         out = decode_attention(q, k_cache, v_cache, pos + 1)
     else:
         if k_cache is not None:
-            k_cache.copy_(k)
-            v_cache.copy_(v)
+            k_cache.copy_(constrain(k, "batch", "kv_seq", None, None))
+            v_cache.copy_(constrain(v, "batch", "kv_seq", None, None))
         out = blockwise_attention(
             q, k, v,
             causal=cfg.causal,
@@ -234,7 +237,9 @@ def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, pos
 def _layer(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positions,
            pos: int | None, k_cache, v_cache, moe: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer; returns (x, the MoE aux loss, 0 for a dense layer)."""
+    seq_axis = "seq_sp" if cfg.seq_parallel else None
     x = x + _attention(cfg, layer, rms_norm(x, layer["ln1"]), positions, pos, k_cache, v_cache)
+    x = constrain(x, "batch", seq_axis, None)
     h = rms_norm(x, layer["ln2"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not moe:
@@ -253,7 +258,7 @@ def _layer(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positio
             y = y + glu_mlp(h, layer["shared/w_gate"], layer["shared/w_up"],
                             layer["shared/w_down"])
         h = y
-    return x + h, aux
+    return constrain(x + h, "batch", seq_axis, None), aux
 
 
 def _save_mm(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -293,6 +298,7 @@ def _forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, posit
     Returns (the final-normed hidden states, the MoE aux loss summed over
     the layers, float32)."""
     x = _embed_lookup(cfg, params["embed"], tokens).to(_dtype(cfg))
+    x = constrain(x, "batch", None, None)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = caches is None and cfg.remat and torch.is_grad_enabled()
     for name, n_layers, moe in _stacks(cfg):

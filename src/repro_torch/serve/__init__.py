@@ -1,5 +1,5 @@
 """The serving tier: ranking service, continuous batcher, supervision,
-degradation rungs, warmup and placement (one device); and LM
+degradation rungs, warmup and placement (one device, or shards over several); and LM
 generation (``generate``)."""
 
 from repro_torch.serve.batching import (

@@ -35,7 +35,15 @@ early exit and returns the top-k:
 - a degradation ladder of exit rungs (:meth:`RankingService.install_rungs`
   / :meth:`RankingService.set_rung`), each materialized once (its strategy
   closures and, for ``dense_keep_frac``, its dense stage), so stepping it
-  swaps objects and allocates nothing.
+  swaps objects and allocates nothing;
+- data-parallel placement (:mod:`repro_torch.serve.placement`): the batch
+  arrives in shards along Q, each on its device; the service keeps one
+  copy of its forests (and dense scorer) per device, made at the first
+  batch there, runs the cascade on each shard in turn, hands each shard
+  the compaction counts of the shards before it (device tensors, so a
+  capacity overflows exactly where it would for the whole batch), and
+  gathers the shards' response and stats on its own device for the one
+  host read. Capacities and mode are picked once, for the whole batch.
 
 Per-``(Q, D)`` bucket state: each padded batch shape keeps its own survivor
 peaks, EMA and tail-skip rate, so a sparse trickle does not shrink a bulk
@@ -145,6 +153,15 @@ class _RungState:
     strategies: tuple[Callable[..., torch.Tensor], ...]
     query_exit: QueryExitConfig | None
     dense_stage: DenseStage | None
+
+
+@dataclasses.dataclass
+class _Replica:
+    """The service's forests on one device: the cascade over the ranker
+    and the stage classifiers, in stage order."""
+
+    cascade: CascadeRanker
+    classifiers: list[LearClassifier]
 
 
 @dataclasses.dataclass
@@ -270,7 +287,7 @@ class RankingService:
         self.sentinels = tuple(c.sentinel for c in stages)
         if len(set(self.sentinels)) != len(stages):
             raise ValueError(f"stage sentinels must be distinct: {self.sentinels}")
-        self.stage_strategies = [self._make_strategy(c) for c in stages]
+        self.stage_strategies = [self._make_strategy(k) for k in range(len(stages))]
         # Stage tuples per (strategy closures, dense stage): the same
         # objects every batch of a configuration (and of each rung).
         self._stages_cache: dict[tuple, tuple] = {}
@@ -294,6 +311,9 @@ class RankingService:
             strategy=self.stage_strategies[0],
             classifier_trees=stages[0].n_trees,
         )
+        # The forests per device a placement serves on: this device's are
+        # the service's own; another's are copied at its first batch.
+        self._replicas = {self.device: _Replica(self.cascade, stages)}
 
     def bucket_state(self, Q: int, D: int) -> _BucketAdaptState:
         """Adaptive state for batch shape ``(Q, D)``, created on first use."""
@@ -302,10 +322,22 @@ class RankingService:
     def _active_state(self) -> _BucketAdaptState:
         return self._adapt.setdefault(self._active_key, _BucketAdaptState())
 
-    def _engine_stages(self) -> tuple:
+    def _replica(self, device: torch.device) -> _Replica:
+        """The forests on ``device``, copied there at first use."""
+        rep = self._replicas.get(device)
+        if rep is None:
+            classifiers = [
+                LearClassifier(forest=c.forest.to(device), sentinel=c.sentinel)
+                for c in self.stage_classifiers
+            ]
+            cascade = dataclasses.replace(self.cascade, ensemble=self.ensemble.to(device))
+            rep = self._replicas[device] = _Replica(cascade, classifiers)
+        return rep
+
+    def _engine_stages(self, device: torch.device) -> tuple:
         """The EngineConfig stage list of the active strategies and dense
-        stage, built once per pair and reused."""
-        key = (tuple(self.stage_strategies), self.dense_stage)
+        stage on ``device``, built once per triple and reused."""
+        key = (tuple(self.stage_strategies), self.dense_stage, device)
         stages = self._stages_cache.get(key)
         if stages is None:
             stages = tuple(
@@ -313,16 +345,18 @@ class RankingService:
                 for c, strat in zip(self.stage_classifiers, key[0])
             )
             if self.dense_stage is not None:
-                stages = (self.dense_stage, *stages)
+                stages = (_on_device(self.dense_stage, device), *stages)
             self._stages_cache[key] = stages
         return stages
 
     def _make_strategy(
-        self, clf: LearClassifier, threshold: float | None = None
+        self, k: int, threshold: float | None = None
     ) -> Callable[..., torch.Tensor]:
+        # Stage ``k``'s classifier, on the device of the scores it gates.
         # ``None`` reads self.threshold per call (the baseline); a rung
         # passes its own threshold and gets its own closure.
         def strategy(partial, mask, features=None):
+            clf = self._replica(partial.device).classifiers[k]
             aug = augment_features(features, partial, mask)
             th = self.threshold if threshold is None else threshold
             return clf.continue_mask(aug, mask, th, use_kernel=self.use_kernel_classifier)
@@ -372,7 +406,7 @@ class RankingService:
             else:
                 th = rung.threshold
                 strategies = tuple(
-                    self._make_strategy(c, th) for c in self.stage_classifiers
+                    self._make_strategy(k, th) for k in range(len(self.stage_classifiers))
                 )
             qe = rung.query_exit if rung.query_exit is not None else self.query_exit
             dense = self.dense_stage
@@ -470,49 +504,45 @@ class RankingService:
     ) -> tuple[np.ndarray, np.ndarray]:
         """``X: [Q, D, F]`` → (top-k doc indices ``[Q, k]``, scores ``[Q, D]``).
 
-        Everything from submit to the response stays on the device; the
+        Everything from submit to the response stays on the devices; the
         only device→host transfer is one copy of one packed tensor.
-        ``placement`` puts the operands on the service's device; ``None``
-        is :func:`~repro_torch.serve.placement.single_device`.
+        ``placement`` puts the operands on the devices, in shards along Q;
+        ``None`` is :func:`~repro_torch.serve.placement.single_device`.
         """
-        X, mask = (placement or single_device()).put(X, mask, self.device)
-        Q, D, _ = X.shape
+        shards = (placement or single_device()).put_shards(X, mask, self.device)
+        Q = sum(m.shape[0] for _, m in shards)
+        D = shards[0][1].shape[1]
         self._active_key = (Q, D)
         n_docs = Q * D
         capacities = self._pick_capacities(n_docs)
         mode = self._pick_mode(n_docs, capacities)
-        result = self.cascade.rank_progressive(
-            X, mask,
-            EngineConfig(
-                stages=self._engine_stages(),
-                mode=mode,
-                capacities=tuple(capacities),
-                query_exit=self.query_exit,
-            ),
-            features=X,
-        )
-        # Top-k (clamped to D) with the reference's lax.top_k tie-break:
-        # the lower index first, which a stable descending sort gives.
-        masked = torch.where(mask, result.scores, torch.full_like(result.scores, -torch.inf))
         k = min(self.top_k, D)
-        top_idx = torch.sort(masked, dim=-1, descending=True, stable=True).indices[:, :k]
+        parts, before = [], None
+        for i, (Xs, ms) in enumerate(shards):
+            top_s, scores_s, stats_s, counts = self._rank_shard(
+                Xs, ms, mode, capacities, k, before
+            )
+            parts.append((top_s, scores_s, stats_s))
+            if i + 1 < len(shards):   # the next shard's survivors_before
+                nxt = shards[i + 1][0].device
+                before = [
+                    _moved(c if before is None else before[j] + c, nxt)
+                    for j, c in enumerate(counts)
+                ]
+        if len(parts) == 1:
+            top_idx, scores, stats = parts[0]
+        else:
+            top_idx, scores, stats = (
+                torch.cat([_moved(p[j], self.device) for p in parts])
+                for j in range(3)
+            )
+            stats = stats.reshape(len(parts), -1).sum(0)
 
         # ONE device read: response and stats packed into one f64 tensor
         # (every value is exact in f64: indices, counts, f32 scores).
         T = self.ensemble.n_trees
-        exited = result.query_exited
-        stats = torch.stack([t.double() for t in (
-            *(m.sum() for m in result.stage_masks),
-            trees_traversed_progressive(
-                mask, result.stage_masks, self._acct_sentinels, T,
-                list(self._acct_classifier_trees),
-            ),
-            result.overflow,
-            mask.sum(),
-            exited.sum() if exited is not None else torch.zeros((), device=self.device),
-        )])
         packed = device_get(torch.cat(
-            [top_idx.reshape(-1).double(), result.scores.reshape(-1).double(), stats]
+            [top_idx.reshape(-1).double(), scores.reshape(-1).double(), stats]
         ))
         top_idx = packed[: Q * k].astype(np.int64).reshape(Q, k)
         scores = packed[Q * k: Q * k + Q * D].astype(np.float32).reshape(Q, D)
@@ -552,6 +582,41 @@ class RankingService:
         s.trees_full_equiv += int(batch_docs) * T
         return top_idx, scores
 
+    def _rank_shard(
+        self, X: torch.Tensor, mask: torch.Tensor, mode: str, capacities: Sequence[int],
+        k: int, before: list[torch.Tensor] | None,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
+        """The cascade on one shard, on its device: (top-k ``[Qs, k]``,
+        scores ``[Qs, D]``, the stats vector, the compaction counts)."""
+        dev = X.device
+        result = self._replica(dev).cascade.rank_progressive(
+            X, mask,
+            EngineConfig(
+                stages=self._engine_stages(dev),
+                mode=mode,
+                capacities=tuple(capacities),
+                query_exit=self.query_exit,
+            ),
+            features=X,
+            survivors_before=before,
+        )
+        # Top-k (clamped to D) with the reference's lax.top_k tie-break:
+        # the lower index first, which a stable descending sort gives.
+        masked = torch.where(mask, result.scores, torch.full_like(result.scores, -torch.inf))
+        top_idx = torch.sort(masked, dim=-1, descending=True, stable=True).indices[:, :k]
+        exited = result.query_exited
+        stats = torch.stack([t.double() for t in (
+            *(m.sum() for m in result.stage_masks),
+            trees_traversed_progressive(
+                mask, result.stage_masks, self._acct_sentinels, self.ensemble.n_trees,
+                list(self._acct_classifier_trees),
+            ),
+            result.overflow,
+            mask.sum(),
+            exited.sum() if exited is not None else torch.zeros((), device=dev),
+        )])
+        return top_idx, result.scores, stats, result.survivors
+
 
 @dataclasses.dataclass
 class TwoStageCascade:
@@ -585,6 +650,12 @@ class TwoStageCascade:
         ]
         survivors = cand_ids[top_idx]
         return survivors, self.full_fn(survivors), cheap
+
+
+def _moved(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: itself if it is there, else an asynchronous
+    device-to-device copy (ordered after both devices' current streams)."""
+    return t if t.device == device else t.to(device, non_blocking=True)
 
 
 def _on_device(dense: DenseStage | None, device: torch.device) -> DenseStage | None:

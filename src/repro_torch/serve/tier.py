@@ -184,9 +184,11 @@ class ServingTier:
 
     def health(self) -> dict:
         """Liveness: supervisor state, restarts and crashes, queue depth,
-        p50/p99 completion latency and, with a ladder, the current rung."""
+        p50/p99 completion latency, the placement's device count and, with
+        a ladder, the current rung."""
         h = self.batcher.health()
         h["started"] = self._started
+        h["n_devices"] = self.placement.n_devices
         if self.degradation is not None:
             h["degradation"] = self.degradation.snapshot()
         return h

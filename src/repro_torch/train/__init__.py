@@ -5,6 +5,7 @@ forest trainers are :mod:`repro_torch.forest.gbdt` and
 
 from repro_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.train.distill import DistillResult, distill_dense_scorer, teacher_scores
+from repro_torch.train.elastic import remesh
 from repro_torch.train.optimizer import (
     Optimizer,
     adafactor,
@@ -26,6 +27,7 @@ __all__ = [
     "init_state",
     "latest_step",
     "make_train_step",
+    "remesh",
     "restore_checkpoint",
     "save_checkpoint",
     "teacher_scores",

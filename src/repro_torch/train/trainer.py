@@ -12,6 +12,16 @@ optimizer, microbatch)`` returns ``step(state, batch) → (state, metrics)``:
   embedding lookup with ``sparse_grad=True``) stays sparse: the chunks'
   are summed, then coalesced, so the global norm counts each row once.
 - ``grad_clip > 0`` scales every gradient by ``min(1, clip / norm)``.
+- Data parallel: under :func:`~repro_torch.distributed.sharding_rules`
+  with a mesh whose ``"batch"`` axes hold more than one rank, every rank
+  is given the whole batch and takes its shard along the leading
+  (``"batch"``) axis: from each microbatch of the one-program step, its
+  contiguous ``1/n`` (so a microbatch of ``m`` rows becomes ``m/n`` rows a
+  rank, and an MoE's dispatch groups, one per sequence, stay whole). The
+  gradients and the loss are summed over the ranks with
+  ``dist.all_reduce`` and divided by their count before the norm, the
+  clip and the optimizer, so every rank takes the step the one-program
+  step takes on the whole batch (to rounding). Dense gradients only.
 
 Parameters are a flat ``dict[str, Tensor]``; the state is the reference's
 ``TrainState(params, opt_state, step)``.
@@ -24,7 +34,9 @@ from collections.abc import Callable
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import constrain, current_mesh, current_rules, mesh_axes
 from repro_torch.train.optimizer import Optimizer
 
 
@@ -64,6 +76,46 @@ def _values(g: torch.Tensor, fn: Callable) -> torch.Tensor:
     return fn(g)
 
 
+def _data_parallel() -> tuple[list, int, int]:
+    """``(groups, n, r)``: the process groups of the mesh axes that
+    ``"batch"`` resolves to, their rank count and this rank's index among
+    them (major to minor); ``([], 1, 0)`` without rules, mesh or split."""
+    rules, mesh = current_rules(), current_mesh()
+    if rules is None or mesh is None:
+        return [], 1, 0
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    groups, n, r = [], 1, 0
+    for a in mesh_axes(rules.physical("batch")):
+        size = mesh.size(names.index(a))
+        if size > 1:
+            groups.append(mesh.get_group(a))
+        n, r = n * size, r * size + coord[names.index(a)]
+    return groups, n, r
+
+
+def _rank_rows(batch: dict, n: int, r: int, microbatch: int) -> dict:
+    """Rank ``r``'s rows of every leaf: its ``1/n`` of each microbatch
+    (of the whole batch without microbatching)."""
+    lead = next(iter(batch.values())).shape[0]
+    chunk = microbatch or lead
+    if lead % chunk or chunk % n:
+        raise ValueError(f"batch {lead} / microbatch {chunk} do not split over {n} ranks")
+    part = chunk // n
+    rows = torch.cat([torch.arange(c + r * part, c + (r + 1) * part)
+                      for c in range(0, lead, chunk)])
+    return {k: v[rows.to(v.device)] for k, v in batch.items()}
+
+
+def _mean_over(groups: list, n: int, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over every rank of ``groups`` (in place), over ``n``."""
+    if t.is_sparse:
+        raise NotImplementedError("data-parallel steps take dense gradients")
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return t.div_(n)
+
+
 def make_train_step(
     loss_fn: Callable,            # (params, batch) -> scalar loss
     optimizer: Optimizer,
@@ -73,15 +125,21 @@ def make_train_step(
 ):
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params = state.params
-        if microbatch:
+        groups, n_dp, r_dp = _data_parallel()
+        mbatch = microbatch
+        if n_dp > 1:
+            batch = _rank_rows(batch, n_dp, r_dp, microbatch)
+            mbatch = microbatch // n_dp
+        if mbatch:
             lead = next(iter(batch.values())).shape[0]
-            if lead % microbatch:
-                raise ValueError(f"batch {lead} is not a multiple of microbatch {microbatch}")
-            n_chunks = lead // microbatch
+            if lead % mbatch:
+                raise ValueError(f"batch {lead} is not a multiple of microbatch {mbatch}")
+            n_chunks = lead // mbatch
             loss_sum = torch.zeros((), dtype=torch.float32, device=state.step.device)
             gsum: dict[str, torch.Tensor] = {}
             for c in range(n_chunks):
-                mb = {k: v[c * microbatch:(c + 1) * microbatch] for k, v in batch.items()}
+                mb = {k: constrain(v[c * mbatch:(c + 1) * mbatch], "batch", *([None] * (v.ndim - 1)))
+                      for k, v in batch.items()}
                 loss, g = _grads(loss_fn, params, mb)
                 loss_sum = loss_sum + loss
                 for k, gk in g.items():
@@ -103,6 +161,9 @@ def make_train_step(
         else:
             loss, grads = _grads(loss_fn, params, batch)
             grads = {k: g.coalesce() if g.is_sparse else g for k, g in grads.items()}
+        if n_dp > 1:
+            loss = _mean_over(groups, n_dp, loss.clone())
+            grads = {k: _mean_over(groups, n_dp, g) for k, g in grads.items()}
 
         gnorm = optax_global_norm(grads)
         if grad_clip > 0:

@@ -460,6 +460,9 @@ def test_placement_auto_on_one_device(monkeypatch):
     assert p == placement.single_device() and p.n_devices == 1
     X, mask = p.put(np.zeros((1, 4, F), np.float32), np.ones((1, 4), bool), torch.device("cpu"))
     assert X.dtype == torch.float32 and mask.dtype == torch.bool
+    # Two cards visible: data-parallel over both, the query axis split in two.
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        placement.auto()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    p = placement.auto()
+    assert p.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert p.n_devices == 2 and p.n_shards(4) == 2 and p.n_shards(3) == 1

@@ -1149,3 +1149,97 @@ def test_shape_checked_wrappers_on_card_tensors(dev):
         plain(x[0], *tables, **kw)
     with pytest.raises(TypeError, match="threshold"):
         plain(x, pf.feature, pf.threshold[:, :4].contiguous(), *tables[2:], **kw)
+
+
+# ---------------------------------------------------------------------------
+# Several cards: placement, the local NCCL mesh and the roofline's compute term.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode,gate", [("fused", None), ("staged", None), ("staged", -3.0)])
+def test_data_parallel_on_one_card_is_bit_equal(dev, mode, gate):
+    """Two shards on cuda:0 against the one-shard batch: scores, top-k and
+    stats equal in every batch, the cold first one included; every shard
+    makes the batch's launches; one host read a batch and no implicit sync
+    once warm. ``gate=-3.0`` keeps nearly every document, which overflows
+    the first batch's cold-start capacities (half the batch)."""
+    from repro_torch.core.lear import LearClassifier
+    from repro_torch.serve.placement import data_parallel
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+    from repro_torch.utils import count_host_transfers
+
+    def service():
+        ens = random_ensemble(51, 200, 5, 24, device=dev)
+        clfs = [LearClassifier(random_ensemble(52 + i, 10, 4, 28, device=dev), s)
+                for i, s in enumerate((20, 60))]
+        svc = RankingService(
+            ens, clfs[0], ServiceConfig(threshold=0.4, execution_mode=mode,
+                                        launch_overhead_trees=512.0),
+            extra_classifiers=clfs[1:], device=dev,
+        )
+        if gate is not None:
+            svc.stage_strategies = [lambda p, m, features=None: m & (features[..., 0] > gate)] * 2
+        return svc
+
+    single, split = service(), service()
+    pl = data_parallel(devices=[dev] * 2)
+    rng = np.random.default_rng(53)
+    batches = [(rng.normal(size=(8, 64, 24)).astype(np.float32),
+                np.arange(64)[None] < rng.integers(16, 65, size=(8, 1))) for _ in range(4)]
+    outs = [single.rank_batch(X, mask) for X, mask in batches[:2]]
+    got = [split.rank_batch(X, mask, placement=pl) for X, mask in batches[:2]]
+    fs.reset_kernel_launches()
+    outs += [single.rank_batch(X, mask) for X, mask in batches[2:]]
+    one = dict(fs.kernel_launches())
+    fs.reset_kernel_launches()
+    with count_host_transfers() as counts:
+        got += [split.rank_batch(X, mask, placement=pl) for X, mask in batches[2:]]
+    assert (counts.explicit_gets, counts.implicit_syncs) == (2, 0), counts
+    assert dict(fs.kernel_launches()) == {k: 2 * n for k, n in one.items()} and sum(one.values())
+    for (t_s, s_s), (t_p, s_p) in zip(outs, got):
+        np.testing.assert_array_equal(s_p, s_s)
+        np.testing.assert_array_equal(t_p, t_s)
+    assert split.stats.overflow_docs == single.stats.overflow_docs
+    assert split.stats.docs_continued == single.stats.docs_continued
+    if gate is not None:
+        assert single.stats.overflow_docs > 0
+
+
+def test_local_nccl_mesh_remesh_and_all_reduce(dev):
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import single_pod_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import remesh
+
+    mesh = make_local_mesh(dev)
+    assert mesh.device_type == "cuda" and mesh.shape == (1, 1)
+    tree = {"w": torch.randn(64, 32).to(torch.bfloat16), "b": np.arange(32, dtype=np.float32)}
+    out = remesh(tree, {"w": ("embed", "ff"), "b": (None,)}, single_pod_rules(), mesh)
+    assert tuple(out["w"].placements) == (Shard(0), Shard(1))
+    assert tuple(out["b"].placements) == (Replicate(), Replicate())
+    assert out["w"].to_local().device.type == "cuda"
+    assert torch.equal(out["w"].full_tensor().cpu(), tree["w"])
+    assert torch.equal(out["b"].full_tensor().cpu(), torch.as_tensor(tree["b"]))
+    t = torch.arange(8, dtype=torch.float32, device=dev)
+    dist.all_reduce(t, group=mesh.get_group("data"))   # one rank: NCCL, the sum is itself
+    torch.cuda.synchronize()
+    assert torch.equal(t.cpu(), torch.arange(8, dtype=torch.float32))
+    assert dist.get_backend(mesh.get_group("data")) in ("nccl", "cpu:gloo,cuda:nccl")
+
+
+def test_roofline_compute_term_is_below_a_timed_gemm(dev):
+    from repro_torch.launch import op_analysis, roofline
+    from repro_torch.utils import device_ms
+
+    n = 8192
+    a = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    tr, _ = op_analysis.trace(torch.mm, a.to("meta"), b.to("meta"))
+    r = roofline.roofline(op_analysis.analyze(tr), chips=1)
+    assert r.flops_by_dtype == {"bfloat16": 2 * n**3}
+    ms = device_ms(lambda: torch.mm(a, b), reps=20)
+    print(f"bf16 GEMM {n}^3: {ms:.4f} ms against a compute term of {r.compute_s * 1e3:.4f} ms "
+          f"({r.compute_s * 1e3 / ms:.1%} of peak)")
+    assert ms / 1e3 >= r.compute_s

@@ -106,6 +106,22 @@ from repro_torch.serve.calibration import last_calibration
 from repro_torch.core.stage import CascadeStage, DenseScorer
 from repro_torch.metrics import ideal_dcg_at_k
 assert len(all_rules()) == 7
+several = {"repro_torch." + m for m in (
+    "distributed", "distributed.sharding", "launch.mesh", "launch.op_analysis",
+    "launch.roofline", "launch.dryrun", "launch.reanalyze", "launch.hillclimb",
+    "train.elastic", "serve.placement",
+)}
+assert several <= set(names), sorted(several - set(names))
+from repro_torch.distributed import Rules, constrain, sharding_rules, spec_to_placements
+from repro_torch.launch.mesh import join_ranks, make_local_mesh, make_production_mesh
+from repro_torch.launch.dryrun import all_cells, run_cell
+from repro_torch.launch.hillclimb import variants
+from repro_torch.launch.op_analysis import analyze, trace
+from repro_torch.launch.roofline import lm_model_flops, lm_param_count, roofline
+from repro_torch.train import remesh
+from repro_torch.train.elastic import validate_divisibility
+from repro_torch.serve.placement import data_parallel, local
+assert len(list(all_cells())) == 84 and sum(map(len, variants().values())) == 13
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib", "jaxtyping", "repro."))

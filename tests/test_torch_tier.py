@@ -11,7 +11,8 @@ placement — against single-query serving and the reference tier.
   peaks — the state the reference's warmup leaves;
 - a degraded rung is bit-exact with a standalone service at the rung's
   config, in the port and in the reference;
-- the single-device placement is the plain path.
+- the single-device placement is the plain path, and the mesh placements
+  (``local``, ``data_parallel``) serve the same batch bit for bit.
 
 Threaded tests run on a virtual clock (``tests/torch_faults.py``) and
 every wait is bounded.
@@ -341,9 +342,11 @@ def test_single_device_placement_is_the_plain_path():
     t_b, s_b = b.rank_batch(X, mask, placement=pl)
     np.testing.assert_array_equal(s_a, s_b)
     np.testing.assert_array_equal(t_a, t_b)
-    for unported in (placement.local, placement.data_parallel):
-        with pytest.raises(NotImplementedError, match="placement"):
-            unported()
+    # The mesh placements serve the same batch bit for bit.
+    for pl in (placement.local("cpu"), placement.data_parallel(devices=["cpu"] * 2)):
+        t_c, s_c = _services()[1].rank_batch(X, mask, placement=pl)
+        np.testing.assert_array_equal(s_a, s_c)
+        np.testing.assert_array_equal(t_a, t_c)
 
 
 def test_enable_persistent_cache_points_the_build_at_the_dir(tmp_path, monkeypatch):
