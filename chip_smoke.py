@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the LEAR serving path, its training
 pipeline, the model cells, the LM serving and training paths, NequIP, the
-serving placements and the dry run once on one card.
+several-card train step, the serving placements and the dry run once on
+one card.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc`` in ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
@@ -222,6 +223,24 @@ Phases, each of which must pass:
   and ``full_graph_sm`` train on their synthesized inputs (loss finite;
   step time and peak printed; loss-and-gradient reruns compared);
   ``ogb_products`` by shape on ``meta``.
+- ``parallel_train`` (after ``nequip``): the several-card train step on
+  ``make_local_mesh(cuda:0)`` (a one-rank NCCL group) under
+  ``single_pod_rules``. (a) DLRM-RM2, DeepFM and DIN ``train_batch``
+  (65,536), BERT4Rec (256, the ``cells`` cut), NequIP ``minibatch_lg``
+  with forces, and Qwen3-4B (12 layers) and DeepSeek-MoE-16B (3 layers)
+  ``train_4k`` at ``lm_train``'s cuts, their states placed as DTensors by
+  ``remesh``: three steps under the rules and three without, from the
+  same init; losses, norms and every leaf of the final state (digests of
+  its bits) must be equal; both timed with CUDA events (median of steps
+  2–3) beside each one's peak memory. (b) DLRM-RM2's batch in 2 and 8
+  rank shares in one process: each share's coalesced gradients reduced
+  by ``reduce_sparse_rows``; a table's reduced rows no farther from the
+  float64 sum of the whole batch's terms than the one-process rows plus
+  1e-6 of its max (a hot row sums ~20,000 float32 terms, ROADMAP C16),
+  dense leaves within 1e-6 of the one-process gradient, two runs
+  bit-equal. (c) BERT4Rec with an uneven mask in 2 shares, each
+  divided by the whole batch's masked count: their mean equals the
+  one-process loss within 1e-6.
 - ``placement`` (after ``guards``): ``repro_torch.serve.placement`` at
   lear-msn1 full width, sentinels (50, 150), 8 × 256 batches, fused and
   staged: ``single_device()``, ``local()`` (the (1, 1) ``DeviceMesh``),
@@ -249,7 +268,8 @@ Phases, each of which must pass:
 
 The last lines are a one-line summary of the tier, the gated tail, the
 hybrid, the guards, the placements, the training, the cell (with the
-retrieval cascade), the LM and the NequIP runs and the dry run, the
+retrieval cascade), the LM and the NequIP runs, the several-card train
+step and the dry run, the
 card's name and power limit, one JSON line with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
@@ -3072,7 +3092,8 @@ def _lm_prefill_counting_drops(cfg, params, tokens):
     real = tfm.moe_ffn
 
     def counting(x, router_w, *args, **kw):
-        _, _, weight, token_idx = route(x, router_w, **kw)
+        _, _, weight, token_idx = route(x, router_w, top_k=kw["top_k"],
+                                        capacity_factor=kw["capacity_factor"])
         kept = (torch.gather(weight.transpose(1, 2), 2, token_idx) > 0).sum()
         counts.append(torch.stack([kept, (weight > 0).sum()]))
         return real(x, router_w, *args, **kw)
@@ -3707,6 +3728,305 @@ def phase_nequip(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# [parallel_train]: every family's train step on the (1, 1) mesh under the
+# rules, the sparse-row reduction and BERT4Rec's whole-batch count.
+# ---------------------------------------------------------------------------
+
+PT_STEPS = 3              # steps each way; the median of steps 2-3 is timed
+PT_SHARES = (2, 8)        # rank shares of DLRM-RM2's batch reduced as sparse rows
+PT_TOL = 1e-6             # (b) and (c): of each gradient's max / of the loss
+PT_CHUNK = 1 << 26        # elements a digest reads at a time
+
+
+def _digest(t) -> int:
+    """A weighted sum of ``t``'s bit patterns (int64, wrapping): two
+    tensors of one shape and dtype with equal digests are, but for a
+    collision, bit-equal. Reads ``PT_CHUNK`` elements at a time."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.to_local()
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    flat = t.detach().contiguous().view(-1).view(bits)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for lo in range(0, flat.numel(), PT_CHUNK):
+        part = flat[lo:lo + PT_CHUNK].to(torch.int64)
+        w = torch.arange(lo, lo + part.numel(), device=t.device, dtype=torch.int64)
+        total += (part * (w * 2654435761 % 4294967291 + 1)).sum()
+    return int(total)
+
+
+def _pt_cases():
+    """(label, arch, config, shape, seed): [cells]' recsys train shapes,
+    [nequip]'s minibatch_lg and [lm_train]'s depth-cut train_4k."""
+    from repro_torch.configs import get_config
+
+    for arch in CELL_RECSYS:
+        shape = next(s for s in _cell_shapes(arch) if s.kind == "train")
+        yield f"{arch} {shape.name} B={shape.batch}", arch, get_config(arch), shape, SEED
+    cfg = get_config("nequip")
+    shape = next(s for s in cfg.shapes if s.name == "minibatch_lg")
+    yield "nequip minibatch_lg (forces)", "nequip", cfg, shape, SEED + 83
+    for arch in LM_FULL:
+        cfg = get_config(arch)
+        shape = next(s for s in cfg.shapes if s.name == "train_4k")
+        (B, mb), L = LM_TRAIN_BATCH, LM_TRAIN_LAYERS[arch]
+        yield (f"{arch} train_4k {L} layers {B}x{shape.seq_len}", arch,
+               dataclasses.replace(cfg, n_layers=L),
+               dataclasses.replace(shape, global_batch=B, microbatch=mb), SEED + 71)
+
+
+def _pt_steps(cell, make_state, batch, mesh, rules) -> tuple[list, list, int, dict]:
+    """``PT_STEPS`` steps from ``make_state()`` (under ``rules`` on
+    ``mesh`` when given; no reference to a state outlives its step):
+    per-step device times, losses and grad norms, the peak memory of the
+    steps, and the final state's digests by path."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.distributed import sharding_rules
+    from repro_torch.utils import tree_items
+
+    ctx = sharding_rules(rules, mesh) if mesh is not None else contextlib.nullcontext()
+    times, seen = [], []
+    state = make_state()
+    torch.cuda.reset_peak_memory_stats()
+    with ctx:
+        for _ in range(PT_STEPS):
+            ms, (state, m) = _events_ms(lambda: cell.step(state, batch), 1)
+            times.append(ms)
+            seen.append((float(m["loss"]), float(m["grad_norm"])))
+    peak = torch.cuda.max_memory_allocated()
+    return times, seen, peak, {k: _digest(t) for k, t in tree_items(state)}
+
+
+def _pt_family(label, arch, cfg, shape, seed, mesh, rules, card) -> dict:
+    """(a) for one cell: ``PT_STEPS`` steps without rules, then from the
+    same init under the rules on the (1, 1) mesh (an LM's state placed by
+    remesh as DTensors): losses, norms and every leaf of the final state
+    bit-equal; both timed."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import TransformerConfig
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train import remesh
+
+    cell = make_cell(cfg, shape)
+    lm = isinstance(cfg, TransformerConfig)
+    raw = (_lm_train_batch(cfg.vocab_size, shape.global_batch, shape.seq_len, seed) if lm
+           else synthesize_inputs(cell, seed=seed))
+    batch = as_tensors(raw, DEVICE)
+    init = lambda: cell.init_state(torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    plain_ms, plain, plain_peak, want = _pt_steps(cell, init, batch, None, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    placed = ["plain tensors, replicated"]
+
+    def placed_init():
+        if not lm:
+            return init()
+        t0 = time.perf_counter()
+        state = remesh(init(), cell.state_logical(), rules, mesh)
+        torch.cuda.synchronize()
+        placed[0] = f"DTensors placed by remesh in {time.perf_counter() - t0:.2f} s"
+        return state
+
+    mesh_ms, ruled, peak, got = _pt_steps(cell, placed_init, batch, mesh, rules)
+    gc.collect()
+    torch.cuda.empty_cache()
+    differ = sorted(k for k in want if got.get(k) != want[k])
+    a, b = statistics.median(plain_ms[1:]), statistics.median(mesh_ms[1:])
+    log(f"[parallel_train] (a) {label}: {placed[0]}; {PT_STEPS} steps, loss "
+        + " -> ".join(f"{x:.6g}" for x, _ in ruled)
+        + f"; losses and norms bit-equal {ruled == plain}; {len(want)} leaves of the state, "
+        f"{len(want) - len(differ)} bit-equal (digests); step {b:.2f} ms under the rules vs "
+        f"{a:.2f} ms without (median of steps 2-{PT_STEPS}, CUDA events), overhead "
+        f"{(b / a - 1) * 100:+.1f}%; peak {_gib(peak)} under the rules vs {_gib(plain_peak)} "
+        f"without; {card}")
+    if ruled != plain or differ:
+        raise AssertionError(f"[parallel_train] {label}: differs without rules: {differ[:5]} "
+                             f"{ruled} vs {plain}")
+    if not all(math.isfinite(x) for x, _ in ruled):
+        raise AssertionError(f"[parallel_train] {label}: losses {ruled}")
+    return {"ms": b, "plain_ms": a, "peak": peak, "plain_peak": plain_peak}
+
+
+def _pt_sparse_rows(card: str) -> dict:
+    """(b): DLRM-RM2's train batch of 65,536 at full width cut into 2 and 8
+    rank shares in one process; each share's coalesced gradients of its
+    mean loss, reduced by ``reduce_sparse_rows`` (dense ones averaged).
+    A hot row sums ~20,000 float32 terms, so the one-process gradient is
+    itself some 3e-6 of its leaf's max from the exact sum of its terms: a
+    table's reduced rows must be no farther from the float64 sum of the
+    whole batch's terms than the one-process rows are, plus PT_TOL of the
+    leaf's max; a dense leaf within PT_TOL of the one-process gradient; two
+    runs of the shares bit-equal."""
+    import functools
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import recsys
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train import trainer
+
+    cfg = get_config("dlrm-rm2")
+    shape = next(s for s in _cell_shapes("dlrm-rm2") if s.kind == "train")
+    cell = make_cell(cfg, shape)
+    params = cell.init_state(SEED, device=DEVICE).params
+    batch = as_tensors(synthesize_inputs(cell, seed=SEED), DEVICE)
+    loss_fn = functools.partial(recsys.loss_fn, cfg, sparse_grad=True)
+
+    def grads(b):
+        return trainer._grads(loss_fn, params, b)[1]
+
+    def coalesced(g):
+        return {k: v.coalesce() if v.is_sparse else v for k, v in g.items()}
+
+    raw = grads(batch)
+    exact = {k: torch.sparse_coo_tensor(v._indices(), v._values().double(), v.shape).coalesce()
+             for k, v in raw.items() if v.is_sparse}
+    whole = coalesced(raw)
+    del raw
+    B, out = shape.batch, {}
+    for n in PT_SHARES:
+        runs = []
+        for _ in range(2):
+            parts = [coalesced(grads({k: v[r * B // n:(r + 1) * B // n] for k, v in batch.items()}))
+                     for r in range(n)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            red = {k: trainer.reduce_sparse_rows([p[k] for p in parts], n) if g.is_sparse
+                   else sum(p[k] for p in parts) / n for k, g in whole.items()}
+            torch.cuda.synchronize()
+            t_red = time.perf_counter() - t0
+            runs.append(red)
+            del parts
+        got, rows, worst = runs[0], 0, {"diff": 0.0, "reduced": 0.0, "one": 0.0, "dense": 0.0}
+        for k, want in whole.items():
+            scale = float((want.values() if want.is_sparse else want).abs().max())
+            if not want.is_sparse:
+                worst["dense"] = max(worst["dense"], float((got[k] - want).abs().max()) / scale)
+                continue
+            if not torch.equal(got[k].indices(), want.indices()):
+                raise AssertionError(f"[parallel_train] (b) {n} shares: {k} rows differ")
+            rows += want._nnz()
+            e_red = float((got[k].values().double() - exact[k].values()).abs().max()) / scale
+            e_one = float((want.values().double() - exact[k].values()).abs().max()) / scale
+            diff = float((got[k].values() - want.values()).abs().max()) / scale
+            worst = {**worst, "diff": max(worst["diff"], diff),
+                     "reduced": max(worst["reduced"], e_red), "one": max(worst["one"], e_one)}
+            if e_red > e_one + PT_TOL:
+                raise AssertionError(f"[parallel_train] (b) {n} shares: {k} {e_red} from the "
+                                     f"exact sum, the one-process gradient {e_one}")
+        again = all(torch.equal(runs[0][k].values() if g.is_sparse else runs[0][k],
+                                runs[1][k].values() if g.is_sparse else runs[1][k])
+                    for k, g in whole.items())
+        log(f"[parallel_train] (b) dlrm-rm2 B={B} in {n} shares: {rows:,} touched table rows "
+            f"reduced by reduce_sparse_rows in {t_red * 1e3:.1f} ms; of each leaf's max, the "
+            f"tables' largest distance from the float64 sum of the whole batch's terms "
+            f"{worst['reduced']:.3g} (the one-process gradient's {worst['one']:.3g}), from the "
+            f"one-process rows {worst['diff']:.3g}; dense leaves {worst['dense']:.3g} from the "
+            f"one-process gradient; two runs bit-equal {again}; {card}")
+        if worst["dense"] > PT_TOL or not again:
+            raise AssertionError(f"[parallel_train] (b) {n} shares: {worst}, rerun {again}")
+        out[n] = worst
+        del runs, got
+    del params, whole, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pt_masked_count(card: str) -> float:
+    """(c): BERT4Rec's train batch (the [cells] cut) with an uneven mask
+    (the first half of the rows fully masked, the second one position
+    each) in 2 shares: each share's loss divides by the whole batch's count
+    and is weighted by 2, as under a two-rank split; their mean is the
+    one-process loss within PT_TOL."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import recsys
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+
+    cfg = get_config("bert4rec")
+    shape = next(s for s in _cell_shapes("bert4rec") if s.kind == "train")
+    cell = make_cell(cfg, shape)
+    params = cell.init_state(SEED, device=DEVICE).params
+    raw = synthesize_inputs(cell, seed=SEED)
+    B, S = raw["mask_pos"].shape
+    raw["mask_pos"][:] = 0.0
+    raw["mask_pos"][: B // 2] = 1.0
+    raw["mask_pos"][B // 2:, S // 2] = 1.0
+    batch = as_tensors(raw, DEVICE)
+    with torch.no_grad():
+        whole = float(recsys.bert4rec_masked_loss(cfg, params, batch))
+        total = batch["mask_pos"].sum()
+        shares = [{k: v[r * B // 2:(r + 1) * B // 2] for k, v in batch.items()} for r in range(2)]
+        own = recsys.batch_total
+        try:   # the two-rank split's count: the whole batch's, for n = 2
+            recsys.batch_total = lambda x: (total, 2)
+            split = [float(recsys.bert4rec_masked_loss(cfg, params, b)) for b in shares]
+        finally:
+            recsys.batch_total = own
+        quotients = [float(recsys.bert4rec_masked_loss(cfg, params, b)) for b in shares]
+    got, parent = sum(split) / 2, sum(quotients) / 2
+    err = abs(got - whole) / abs(whole)
+    log(f"[parallel_train] (c) bert4rec B={B} uneven mask ({int(total)} masked) in 2 shares: "
+        f"share-weighted loss {got:.7f}, one-process {whole:.7f} (relative error {err:.3g}); "
+        f"the mean of the shares' own quotients would be {parent:.7f}; {card}")
+    if err > PT_TOL:
+        raise AssertionError(f"[parallel_train] (c): {got} vs {whole}")
+    return err
+
+
+def phase_parallel_train(card: str) -> dict:
+    """[parallel_train]: (a) every family's train step under
+    single_pod_rules on make_local_mesh(cuda:0) bit-equal to the step
+    without rules, both timed; (b) the sparse-row reduction at DLRM-RM2
+    full width; (c) BERT4Rec's whole-batch masked count."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import single_pod_rules
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    before = fs.kernel_launches()
+    mesh, rules = make_local_mesh(DEVICE), single_pod_rules()
+    log(f"[parallel_train] mesh {mesh} (backend {dist.get_backend(mesh.get_group('data'))}), "
+        f"single_pod_rules")
+    times = {}
+    try:
+        for label, arch, cfg, shape, seed in _pt_cases():
+            times[arch] = _pt_family(label, arch, cfg, shape, seed, mesh, rules, card)
+        shares = _pt_sparse_rows(card)
+        count_err = _pt_masked_count(card)
+    finally:
+        dist.destroy_process_group()
+    if fs.kernel_launches() != before:
+        raise AssertionError(f"[parallel_train] launched forest kernels: {fs.kernel_launches()}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[parallel_train] done in {seconds:.1f} s on {card}")
+    over = ", ".join(f"{a} {(t['ms'] / t['plain_ms'] - 1) * 100:+.1f}%" for a, t in times.items())
+    reduced = " / ".join(f"{e['reduced']:.2g}" for e in shares.values())
+    summary = (f"parallel_train: {len(times)} cells bit-equal on the (1, 1) mesh "
+               f"(overhead {over}); sparse rows in 2 / 8 shares {reduced} from the exact sum "
+               f"(one process {next(iter(shares.values()))['one']:.2g}); "
+               f"bert4rec split count {count_err:.2g}")
+    return {"summary": summary, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # [placement]: the mesh placements of the serving path, and re-meshing.
 # ---------------------------------------------------------------------------
 
@@ -3981,7 +4301,9 @@ def phase_dryrun(card: str, proc: subprocess.Popen, out_dir: str) -> dict:
             f"compute {r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, collective "
             f"{r['collective_s']:.4g} s ({r['coll_breakdown']}), dominant {r['dominant']}, "
             f"useful ratio {r['useful_ratio']:.3f}; divisibility problems "
-            f"{len(rec['divisibility'])}")
+            f"{len(rec['divisibility'])}"
+            + (f"; activation collectives over \"model\" {rec['activation_collectives']}"
+               if "activation_collectives" in rec else ""))
         if not all(math.isfinite(r[k]) and r[k] >= 0 for k in ("compute_s", "memory_s",
                                                                "collective_s")):
             raise AssertionError(f"[dryrun] {rec['arch']} {rec['shape']}: terms {r}")
@@ -4070,6 +4392,8 @@ def main() -> int:
         elapsed("lm_train")
         nequip = phase_nequip(card)
         elapsed("nequip")
+        parallel_train = phase_parallel_train(card)
+        elapsed("parallel_train")
         dryrun = phase_dryrun(card, dry_proc, dry_dir)
         elapsed("dryrun")
         kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"], cells["cases"],
@@ -4120,7 +4444,8 @@ def main() -> int:
         + ", ".join(f"B={B} {ms:.4f} ms" for B, ms in sorted(full.items()))
         + f"; {hybrid['summary']}; {guards['summary']}; {train['summary']}; "
         f"{placement['summary']}; {cells['summary']}; {lm['summary']}; "
-        f"{lm_train['summary']}; {nequip['summary']}; {dryrun['summary']}; "
+        f"{lm_train['summary']}; {nequip['summary']}; {parallel_train['summary']}; "
+        f"{dryrun['summary']}; "
         f"run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -18,7 +18,8 @@ so for each cell this:
    roofline terms (:mod:`repro_torch.launch.roofline`) to
    ``artifacts/dryrun/<cell>.json``, with the trace as ``.ops.json.gz``.
 
-The collective term, per device, counts the parameters' traffic only:
+The collective term, per device, reckons the parameters' traffic from the
+rules:
 
 - a parameter split over a ``"batch"`` axis (FSDP: ``"embed"`` → "data")
   is all-gathered over those axes once per pass over the weights (one per
@@ -28,10 +29,18 @@ The collective term, per device, counts the parameters' traffic only:
   gradient all-reduced over them (counted twice, ring = reduce-scatter +
   all-gather).
 
-Activation collectives (tensor-parallel all-reduces over "model", the MoE's
-all-to-alls, the row-sharded embeddings' exchanges) are not reckoned: the
-step runs unsharded, and tensor- or expert-parallel execution is not
-ported. XLA's temporary bytes and GSPMD's chosen collectives have no
+A train cell of the LM family also counts its activation collectives
+(:func:`activation_collectives`): its step runs once more on ``meta``,
+with its state placed on the fake mesh as ``DTensor``\\ s and its inputs
+split over ``"batch"``, and every ``_c10d_functional`` op over the
+``"model"`` group is recorded (the tensor-parallel sums of the attention
+and FFN outputs and their gradients, the vocab-sharded lookup and softmax,
+the MoE's gathers of its experts' outputs) at this device's bytes. A cell
+whose state or batch does not divide over the mesh has no sharded step,
+and the record says so under ``activation_collectives``; ``trace_s``
+includes this trace. RecSys and NequIP cells run with their
+parameters replicated over ``"model"`` and have no activation
+collectives. XLA's temporary bytes and GSPMD's chosen collectives have no
 counterpart here.
 
 Usage::
@@ -47,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -73,7 +83,7 @@ from repro_torch.distributed.sharding import (
 from repro_torch.launch import op_analysis
 from repro_torch.launch import roofline as rf
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.train.elastic import axis_sizes, logical_leaves, validate_divisibility
+from repro_torch.train.elastic import axis_sizes, logical_leaves, remesh, validate_divisibility
 from repro_torch.utils import tree_items
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "../../../artifacts/dryrun")
@@ -134,6 +144,38 @@ def rule_collectives(params: Any, logical: Any, rules: Rules, sizes: dict[str, i
     return out
 
 
+@dataclasses.dataclass
+class _GroupTrace(op_analysis.OpTrace):
+    """An :class:`~repro_torch.launch.op_analysis.OpTrace` that records
+    only the ``_c10d_functional`` collectives over the group named
+    ``group``."""
+
+    group: str = ""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.namespace == "_c10d_functional" and self.group in (*args, *kwargs.values()):
+            return super().__torch_dispatch__(func, types, args, kwargs)
+        return func(*args, **kwargs)
+
+
+def activation_collectives(cell, rules: Rules, mesh: DeviceMesh) -> dict[str, float]:
+    """This device's bytes, by kind, of the collectives over ``"model"``
+    in one step of a train ``cell`` whose state is placed on ``mesh`` by
+    its logical axes (``DTensor``\\ s on ``meta``) and whose inputs are
+    split over ``"batch"``. Raises ``ValueError`` where the step cannot run
+    sharded."""
+    out = {k: 0.0 for k in op_analysis.COLLECTIVES}
+    names = mesh.mesh_dim_names
+    if "model" not in names or mesh.size(names.index("model")) == 1:
+        return out
+    state = remesh(cell.abstract_state(), cell.state_logical(), rules, mesh, src_data_rank=None)
+    tr = _GroupTrace(group=mesh.get_group("model").group_name)
+    with sharding_rules(rules, mesh), tr:
+        cell.step(state, cell.input_specs())
+    return op_analysis.analyze(tr).coll_breakdown
+
+
 def trace_step(cell) -> tuple[op_analysis.OpTrace, Any]:
     """One step of ``cell`` traced at global shape on its ``meta`` state
     and inputs; a 0-dim integer input (a decode step's position, which the
@@ -169,6 +211,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                     + validate_divisibility(inputs, ilog, rules, mesh))
         s_total, s_local = placed_bytes(state, slog, rules, mesh)
         i_total, i_local = placed_bytes(inputs, ilog, rules, mesh)
+        act = None
+        if shape.kind == "train" and isinstance(cfg, TransformerConfig):
+            try:
+                act = activation_collectives(cell, rules, mesh)
+            except ValueError as e:
+                act = f"no sharded step: {e}"
     with sharding_rules(rules):
         tr, out = trace_step(cell)
     t_trace = time.time() - t0
@@ -180,6 +228,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     else:
         passes = 1
     coll = rule_collectives(params, plog, rules, sizes, train, passes)
+    if isinstance(act, dict):
+        coll = {k: v + act[k] for k, v in coll.items()}
     model_flops = (
         rf.lm_model_flops(cfg, shape) if isinstance(cfg, TransformerConfig) else 0.0
     )
@@ -192,6 +242,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             "trace_s": round(t_trace, 1),
             "chips": chips,
             "divisibility": problems,
+            **({} if act is None else {"activation_collectives": act}),
             "memory": {
                 "argument_size_in_bytes": s_total + i_total,
                 "output_size_in_bytes": out_bytes,

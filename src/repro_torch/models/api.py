@@ -121,7 +121,10 @@ def _train_cell(cfg, shape, loss_fn, abstract_params_fn, param_logical,
                 init_fn, inputs_fn, inputs_logical, microbatch=0,
                 accum_dtype=F32) -> Cell:
     opt = get_optimizer(cfg.optimizer)
-    step = make_train_step(loss_fn, opt, microbatch=microbatch, accum_dtype=accum_dtype)
+    # The step splits over "batch" only the inputs whose leading logical
+    # axis is "batch" (none of NequIP's).
+    step = partial(make_train_step(loss_fn, opt, microbatch=microbatch, accum_dtype=accum_dtype),
+                   input_logical=inputs_logical())
 
     def abstract_state():
         params = abstract_params_fn()

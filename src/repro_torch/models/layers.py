@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.distributed.parallel import LOCAL, ModelAxis
 from repro_torch.distributed.sharding import constrain
 
 NEG_INF = -1e30
@@ -194,7 +195,14 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def glu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-            w_down: torch.Tensor) -> torch.Tensor:
+            w_down: torch.Tensor, tp: ModelAxis = LOCAL) -> torch.Tensor:
+    """``(silu(x @ w_gate) · (x @ w_up)) @ w_down``. With ``"ff"`` on
+    ``tp``'s axis, the weights hold this rank's columns of the hidden width
+    (rows of ``w_down``): the partial products are summed over the axis."""
+    split = tp.on("ff")
+    if split:
+        x = tp.copy(x)
     h = silu(x @ w_gate) * (x @ w_up)
     h = constrain(h, "batch", None, "ff")
-    return h @ w_down
+    y = h @ w_down
+    return tp.reduce(y) if split else y

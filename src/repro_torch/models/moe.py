@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.parallel import LOCAL, ModelAxis
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import silu
 
@@ -73,8 +74,13 @@ def moe_ffn(
     *,
     top_k: int,
     capacity_factor: float,
+    tp: ModelAxis = LOCAL,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output [G, T, D], aux load-balance loss [])."""
+    """Returns (output [G, T, D], aux load-balance loss []). With
+    ``"experts"`` on ``tp``'s axis the expert weights hold this rank's experts (a contiguous block): the
+    routing runs whole on every rank, each rank runs its experts' slots,
+    and the axis gathers the slots' outputs before they are weighted and
+    summed, so the combine is the one-rank combine."""
     G, T, D = x.shape
     E = router_w.shape[1]
     probs, top_idx, weight, token_idx = route(
@@ -92,11 +98,17 @@ def moe_ffn(
     w_sel = torch.gather(weight.transpose(1, 2), 2, token_idx)
     w_sel = torch.clamp_min(w_sel, 0.0)                                # padding → 0
     x_sel = constrain(x_sel, "groups", "experts", None, None)
+    split = tp.on("experts")
+    if split:
+        n_local = w_gate.shape[0]
+        x_sel = tp.copy(x_sel)[:, tp.rank * n_local:(tp.rank + 1) * n_local]
 
     h = silu(torch.einsum("gecd,edf->gecf", x_sel, w_gate)) * torch.einsum(
         "gecd,edf->gecf", x_sel, w_up
     )
     y_sel = torch.einsum("gecf,efd->gecd", h, w_down)                  # [G, E, C, D]
+    if split:
+        y_sel = tp.gather(y_sel, 1)
     y_sel = y_sel * w_sel[..., None].to(y_sel.dtype)
 
     # Back to the tokens: slot[g, e, t] = the capacity slot token t holds in

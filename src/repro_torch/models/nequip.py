@@ -47,6 +47,14 @@ distributions (the numbers differ from ``jax.random``'s);
 the reference's parameters across. Edges and node aggregates carry the
 reference's sharding constraints (:func:`~repro_torch.distributed.constrain`:
 the identity on a plain tensor).
+
+On several ranks no input is split (their leading logical axes are
+``"nodes"``, ``"edges"`` or per-graph, none ``"batch"``): every rank runs
+the whole step with its parameters replicated over every mesh axis, which
+is exact, and the train step reduces nothing. Cutting a graph batch by
+whole graphs would not be: the synthetic batches draw edges across graphs.
+The reference's ``"edges"`` sharding (edges over the ranks, node
+aggregates reduced per layer) is not run.
 """
 
 from __future__ import annotations

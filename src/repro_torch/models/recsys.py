@@ -25,6 +25,12 @@ table never passes through host memory; on the ``meta`` device it only
 shapes. The inputs carry the reference's sharding constraints
 (:func:`~repro_torch.distributed.constrain`: the identity on a plain
 tensor), and the logical-axis tables are its data.
+
+On several ranks the train step splits the batch over ``"batch"`` and the
+parameters stay plain tensors, replicated over ``"model"`` (exact: every
+``"model"`` rank computes its share's step whole); their ``rows`` sharding
+over ``"model"`` is not run. BERT4Rec's masked loss divides by the whole
+batch's masked count (:func:`~repro_torch.distributed.parallel.batch_total`).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecSysConfig
+from repro_torch.distributed.parallel import batch_total
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import rms_norm
 from repro_torch.utils import resolve_device, tree_items
@@ -386,7 +393,13 @@ def bert4rec_masked_loss(cfg: RecSysConfig, params: Params, batch,
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, batch["labels"].long()[..., None], dim=-1)[..., 0]
     nll = (logz - gold) * batch["mask_pos"]
-    return nll.sum() / torch.clamp_min(batch["mask_pos"].sum(), 1.0)
+    count, n = batch_total(batch["mask_pos"].sum())
+    if n == 1:
+        return nll.sum() / torch.clamp_min(count, 1.0)
+    # A rank's share of a batch split over n ranks: the whole batch's
+    # masked count, and n times the quotient, so that the step's mean over
+    # the ranks is the one-program loss.
+    return n * (nll.sum() / torch.clamp_min(count, 1.0))
 
 
 def bert4rec_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool = False

@@ -59,6 +59,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.distributed.parallel import LOCAL, ModelAxis
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import (
     apply_rope,
@@ -192,25 +193,41 @@ def abstract_params(cfg: TransformerConfig) -> Params:
 
 
 def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positions,
-               pos: int | None, k_cache: torch.Tensor | None, v_cache: torch.Tensor | None):
+               pos: int | None, k_cache: torch.Tensor | None, v_cache: torch.Tensor | None,
+               tp: ModelAxis):
     """Prefill (``pos`` None): attention over ``x``'s sequence, whose keys
     and values are written to ``k_cache`` / ``v_cache`` ``[B, S, Hkv, Dh]``;
     training passes no caches and writes none. Decode: the token's keys and
     values are written at ``pos`` and it attends the cache up to and
-    including them."""
+    including them. With ``"qkv"`` on ``tp``'s axis the weights hold this
+    rank's columns: where the heads split into whole heads over the ranks,
+    each rank attends with its own heads; where they do not (fewer
+    key/value heads than ranks), the projections are gathered, every rank
+    attends with every head and keeps its columns of the output. Either way
+    the output projection's partial sums are summed over the axis."""
     B, S, D = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    Dh = cfg.d_head
+    heads = tp.on("qkv")
+    if heads:
+        x = tp.copy(x)
     q = x @ layer["attn/wq"]
     k = x @ layer["attn/wk"]
     v = x @ layer["attn/wv"]
     if cfg.qkv_bias:
         q, k, v = q + layer["attn/bq"], k + layer["attn/bk"], v + layer["attn/bv"]
+    gathered = heads and bool(cfg.n_heads % tp.size or cfg.n_kv_heads % tp.size)
+    if gathered:
+        q, k, v = (tp.gather(t, 2, grad="sum") for t in (q, k, v))
+    H, Hkv = q.shape[-1] // Dh, k.shape[-1] // Dh
     q = q.reshape(B, S, H, Dh)
     k = k.reshape(B, S, Hkv, Dh)
     v = v.reshape(B, S, Hkv, Dh)
     if cfg.qk_norm:
-        q = rms_norm(q, layer["attn/q_norm"])
-        k = rms_norm(k, layer["attn/k_norm"])
+        q_norm, k_norm = layer["attn/q_norm"], layer["attn/k_norm"]
+        if heads:   # replicated scales: each rank's gradient is a part
+            q_norm, k_norm = tp.copy(q_norm), tp.copy(k_norm)
+        q = rms_norm(q, q_norm)
+        k = rms_norm(k, k_norm)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -231,19 +248,26 @@ def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, pos
             kv_block=min(cfg.attn_kv_block, S),
             causal_skip=cfg.causal_skip,
         )
-    return out.reshape(B, S, H * Dh) @ layer["attn/wo"]
+    out = out.reshape(B, S, H * Dh)
+    if gathered:
+        n = layer["attn/wo"].shape[-2]
+        out = out[..., tp.rank * n:(tp.rank + 1) * n]
+    out = out @ layer["attn/wo"]
+    return tp.reduce(out) if heads else out
 
 
 def _layer(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positions,
-           pos: int | None, k_cache, v_cache, moe: bool) -> tuple[torch.Tensor, torch.Tensor]:
+           pos: int | None, k_cache, v_cache, moe: bool, tp: ModelAxis
+           ) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer; returns (x, the MoE aux loss, 0 for a dense layer)."""
     seq_axis = "seq_sp" if cfg.seq_parallel else None
-    x = x + _attention(cfg, layer, rms_norm(x, layer["ln1"]), positions, pos, k_cache, v_cache)
+    x = x + _attention(cfg, layer, rms_norm(x, layer["ln1"]), positions, pos, k_cache, v_cache,
+                       tp)
     x = constrain(x, "batch", seq_axis, None)
     h = rms_norm(x, layer["ln2"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not moe:
-        h = glu_mlp(h, layer["mlp/w_gate"], layer["mlp/w_up"], layer["mlp/w_down"])
+        h = glu_mlp(h, layer["mlp/w_gate"], layer["mlp/w_up"], layer["mlp/w_down"], tp)
     else:
         B, S, D = h.shape
         # Decode: one dispatch group of every sequence's token; prefill:
@@ -252,11 +276,12 @@ def _layer(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positio
         y, aux = moe_ffn(
             groups, layer["moe/router"], layer["moe/w_gate"], layer["moe/w_up"],
             layer["moe/w_down"], top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            tp=tp,
         )
         y = y.reshape(B, S, D)
         if cfg.n_shared_experts:
             y = y + glu_mlp(h, layer["shared/w_gate"], layer["shared/w_up"],
-                            layer["shared/w_down"])
+                            layer["shared/w_down"], tp)
         h = y
     return constrain(x + h, "batch", seq_axis, None), aux
 
@@ -278,15 +303,27 @@ def _remat(cfg: TransformerConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=context_fn)
 
 
-def _embed_lookup(cfg: TransformerConfig, embed: torch.Tensor, tokens: torch.Tensor
-                  ) -> torch.Tensor:
+def _embed_lookup(cfg: TransformerConfig, embed: torch.Tensor, tokens: torch.Tensor,
+                  tp: ModelAxis) -> torch.Tensor:
     """Token embedding. ``embed_onehot``: the lookup as a one-hot matmul
     (the reference's layout for a vocab-sharded table; exact, since each
-    output sums one product)."""
+    output sums one product). With ``"vocab"`` on ``tp``'s axis the table
+    holds this rank's rows: each rank looks up the tokens it holds, zeros
+    elsewhere, and the axis sums them (exact: one term is not zero)."""
+    ids = tokens.long()
+    inside = None
+    if tp.on("vocab"):
+        ids = ids - tp.rank * embed.shape[0]
+        inside = (ids >= 0) & (ids < embed.shape[0])
+        ids = torch.where(inside, ids, 0)
     if not cfg.embed_onehot:
-        return F.embedding(tokens.long(), embed)
-    onehot = F.one_hot(tokens.reshape(-1).long(), embed.shape[0]).to(embed.dtype)
-    return (onehot @ embed).reshape(*tokens.shape, embed.shape[1])
+        x = F.embedding(ids, embed)
+    else:
+        onehot = F.one_hot(ids.reshape(-1), embed.shape[0]).to(embed.dtype)
+        x = (onehot @ embed).reshape(*tokens.shape, embed.shape[1])
+    if inside is None:
+        return x
+    return tp.reduce(torch.where(inside[..., None], x, 0.0))
 
 
 def _forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, positions,
@@ -296,8 +333,15 @@ def _forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, posit
     :func:`_attention` says, or, ``None``, the training mode: no cache, and
     each layer checkpointed under ``cfg.remat`` while autograd records.
     Returns (the final-normed hidden states, the MoE aux loss summed over
-    the layers, float32)."""
-    x = _embed_lookup(cfg, params["embed"], tokens).to(_dtype(cfg))
+    the layers, float32).
+
+    ``DTensor`` parameters (a train step's, placed by
+    :func:`~repro_torch.train.elastic.remesh`) are used through
+    :meth:`ModelAxis.use` where they are used: a layer's inside its
+    checkpoint, so its gathered weights are dropped with its activations."""
+    tp = ModelAxis.of(params, functools.partial(param_logical, cfg))
+    use = tp.use
+    x = _embed_lookup(cfg, use(params["embed"]), tokens, tp).to(_dtype(cfg))
     x = constrain(x, "batch", None, None)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = caches is None and cfg.remat and torch.is_grad_enabled()
@@ -306,17 +350,18 @@ def _forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, posit
         keys = tuple(stack)
 
         def body(x, *weights, moe=moe, keys=keys):
-            return _layer(cfg, dict(zip(keys, weights)), x, positions, None, None, None, moe)
+            return _layer(cfg, {k: use(w) for k, w in zip(keys, weights)}, x, positions,
+                          None, None, None, moe, tp)
 
         body = _remat(cfg, body) if remat else body
         for i in range(n_layers):
             if caches is None:
                 x, aux = body(x, *(stack[k][i] for k in keys))
             else:
-                x, aux = _layer(cfg, {k: v[i] for k, v in stack.items()}, x, positions, pos,
-                                caches[name]["k"][i], caches[name]["v"][i], moe)
+                x, aux = _layer(cfg, {k: use(v[i]) for k, v in stack.items()}, x, positions, pos,
+                                caches[name]["k"][i], caches[name]["v"][i], moe, tp)
             aux_total = aux_total + aux
-    return rms_norm(x, params["final_norm"]), aux_total
+    return rms_norm(x, use(params["final_norm"])), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -331,13 +376,32 @@ def _ce_chunk(hb: torch.Tensor, lm_head: torch.Tensor, lb: torch.Tensor) -> torc
     return (logz - gold).sum()
 
 
+def _ce_chunk_vocab(hb: torch.Tensor, lm_head: torch.Tensor, lb: torch.Tensor,
+                    tp: ModelAxis) -> torch.Tensor:
+    """:func:`_ce_chunk` over this rank's columns of a vocab-sharded
+    ``lm_head``: the logsumexp from the axis's maximum and its sum of
+    exponentials, the gold logit from the rank that holds it."""
+    logits = (tp.copy(hb) @ lm_head).float()
+    top = tp.max(logits.amax(dim=-1))
+    logz = top + torch.log(tp.reduce(torch.exp(logits - top[..., None]).sum(dim=-1)))
+    ids = lb.long() - tp.rank * lm_head.shape[-1]
+    inside = (ids >= 0) & (ids < lm_head.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(inside, ids, 0)[..., None])[..., 0]
+    gold = tp.reduce(torch.where(inside, gold, 0.0))
+    return (logz - gold).sum()
+
+
 def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
-                          chunk: int = 512) -> torch.Tensor:
+                          chunk: int = 512, tp: ModelAxis = LOCAL) -> torch.Tensor:
     """Mean next-token CE without materializing ``[B, S, V]``: per chunk of
     ``chunk`` positions (every sequence's), float32 logits, their
     logsumexp and the gold logit; each chunk is checkpointed (recomputed in
     the backward pass) and the chunk totals are summed in order, then
-    divided by ``B·S``."""
+    divided by ``B·S``. With ``"vocab"`` on ``tp``'s axis, ``lm_head``
+    holds this rank's columns (:func:`_ce_chunk_vocab`)."""
+    fn = _ce_chunk
+    if tp.on("vocab"):
+        fn = functools.partial(_ce_chunk_vocab, tp=tp)
     B, S, D = h.shape
     chunk = min(chunk, S)
     if S % chunk:
@@ -346,9 +410,9 @@ def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
         if torch.is_grad_enabled():
-            part = checkpoint(_ce_chunk, h[:, sl], lm_head, labels[:, sl], use_reentrant=False)
+            part = checkpoint(fn, h[:, sl], lm_head, labels[:, sl], use_reentrant=False)
         else:
-            part = _ce_chunk(h[:, sl], lm_head, labels[:, sl])
+            part = fn(h[:, sl], lm_head, labels[:, sl])
         total = total + part
     return total / (B * S)
 
@@ -360,7 +424,8 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch: Mapping[str, torch.Te
     tokens, labels = batch["tokens"], batch["labels"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     h, aux = _forward(cfg, params, tokens, positions, None)
-    ce = chunked_cross_entropy(h, params["lm_head"], labels)
+    tp = ModelAxis.of(params, functools.partial(param_logical, cfg))
+    ce = chunked_cross_entropy(h, tp.use(params["lm_head"]), labels, tp=tp)
     return ce + 0.01 * aux
 
 

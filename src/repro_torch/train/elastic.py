@@ -105,16 +105,21 @@ def _host_tensor(leaf: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def remesh(tree: Any, logical_tree: Any, rules: Rules, mesh: DeviceMesh) -> Any:
+def remesh(tree: Any, logical_tree: Any, rules: Rules, mesh: DeviceMesh,
+           src_data_rank: int | None = 0) -> Any:
     """Re-place ``tree`` onto ``mesh`` under ``rules``: every array leaf
     becomes a ``DTensor`` with the placements its logical axes resolve to.
-    Raises ``ValueError`` on a dimension that would not divide."""
+    Raises ``ValueError`` on a dimension that would not divide.
+    ``src_data_rank=None``: each rank cuts its shard from its own ``tree``
+    with no communication (every rank holds the same values, or ``meta``
+    tensors)."""
     problems = validate_divisibility(tree, logical_tree, rules, mesh)
     if problems:
         raise ValueError(f"re-mesh would shard non-divisible dims: {problems[:5]}")
 
     def put(leaf: Any, logical: Any) -> DTensor:
         t = _host_tensor(leaf)
-        return distribute_tensor(t, mesh, spec_to_placements(mesh, rules.resolve(*logical), t.ndim))
+        return distribute_tensor(t, mesh, spec_to_placements(mesh, rules.resolve(*logical), t.ndim),
+                                 src_data_rank=src_data_rank)
 
     return _map(put, tree, logical_tree)

@@ -1,7 +1,8 @@
 """Train-step factory: grad accumulation, aux metrics, optional grad clip.
 
 The port of :mod:`repro.train.trainer`. ``make_train_step(loss_fn,
-optimizer, microbatch)`` returns ``step(state, batch) → (state, metrics)``:
+optimizer, microbatch)`` returns ``step(state, batch, input_logical=None)
+→ (state, metrics)``:
 
 - ``microbatch > 0`` splits the batch on its leading axis into equal
   chunks, runs forward and backward on each in turn and sums the gradients
@@ -12,16 +13,26 @@ optimizer, microbatch)`` returns ``step(state, batch) → (state, metrics)``:
   embedding lookup with ``sparse_grad=True``) stays sparse: the chunks'
   are summed, then coalesced, so the global norm counts each row once.
 - ``grad_clip > 0`` scales every gradient by ``min(1, clip / norm)``.
-- Data parallel: under :func:`~repro_torch.distributed.sharding_rules`
-  with a mesh whose ``"batch"`` axes hold more than one rank, every rank
-  is given the whole batch and takes its shard along the leading
-  (``"batch"``) axis: from each microbatch of the one-program step, its
-  contiguous ``1/n`` (so a microbatch of ``m`` rows becomes ``m/n`` rows a
-  rank, and an MoE's dispatch groups, one per sequence, stay whole). The
-  gradients and the loss are summed over the ranks with
-  ``dist.all_reduce`` and divided by their count before the norm, the
-  clip and the optimizer, so every rank takes the step the one-program
-  step takes on the whole batch (to rounding). Dense gradients only.
+- Several ranks: under :func:`~repro_torch.distributed.sharding_rules`
+  with a mesh, every rank is given the whole batch. The inputs whose
+  leading logical axis is ``"batch"`` (``input_logical``, the cell's
+  :meth:`~repro_torch.models.api.Cell.input_logical`) are split over the
+  ranks of the mesh axes ``"batch"`` resolves to: each rank takes, from
+  each microbatch of the one-program step, its contiguous ``1/n`` (so a
+  microbatch of ``m`` rows becomes ``m/n`` rows a rank, and an MoE's
+  dispatch groups, one per sequence, stay whole). Other inputs go whole
+  to every rank; a step with no split input runs whole on every rank and
+  reduces nothing (NequIP's graph batches). The loss runs under
+  :func:`~repro_torch.distributed.parallel.rank_share`, so a count over
+  the batch can cross ranks (BERT4Rec). Then the loss and the gradients
+  are summed over the ranks and divided by their count before the norm,
+  the clip and the optimizer: a plain gradient by ``all_reduce``, a
+  sparse one by gathering every rank's rows (:func:`reduce_sparse_rows`),
+  a ``DTensor`` one (parameters placed by
+  :func:`~repro_torch.train.elastic.remesh`; the model computes on their
+  ``"model"`` shards, :class:`~repro_torch.distributed.parallel.ModelAxis`)
+  by redistributing it to its parameter's placements. Every rank takes
+  the step the one-program step takes on the whole batch (to rounding).
 
 Parameters are a flat ``dict[str, Tensor]``; the state is the reference's
 ``TrainState(params, opt_state, step)``.
@@ -34,9 +45,15 @@ from collections.abc import Callable
 from typing import Any
 
 import torch
-import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import constrain, current_mesh, current_rules, mesh_axes
+from repro_torch.distributed.parallel import (
+    all_reduce_,
+    batch_groups,
+    gather_parts,
+    rank_share,
+)
+from repro_torch.distributed.sharding import constrain
 from repro_torch.train.optimizer import Optimizer
 
 
@@ -76,44 +93,58 @@ def _values(g: torch.Tensor, fn: Callable) -> torch.Tensor:
     return fn(g)
 
 
-def _data_parallel() -> tuple[list, int, int]:
-    """``(groups, n, r)``: the process groups of the mesh axes that
-    ``"batch"`` resolves to, their rank count and this rank's index among
-    them (major to minor); ``([], 1, 0)`` without rules, mesh or split."""
-    rules, mesh = current_rules(), current_mesh()
-    if rules is None or mesh is None:
-        return [], 1, 0
-    names = mesh.mesh_dim_names
-    coord = mesh.get_coordinate()
-    groups, n, r = [], 1, 0
-    for a in mesh_axes(rules.physical("batch")):
-        size = mesh.size(names.index(a))
-        if size > 1:
-            groups.append(mesh.get_group(a))
-        n, r = n * size, r * size + coord[names.index(a)]
-    return groups, n, r
+def _split_keys(batch: dict, input_logical: dict | None) -> set:
+    """The inputs whose leading logical axis is ``"batch"`` (every input
+    when no logical axes are given)."""
+    if input_logical is None:
+        return set(batch)
+    return {k for k in batch if tuple(input_logical.get(k) or (None,))[0] == "batch"}
 
 
-def _rank_rows(batch: dict, n: int, r: int, microbatch: int) -> dict:
-    """Rank ``r``'s rows of every leaf: its ``1/n`` of each microbatch
-    (of the whole batch without microbatching)."""
-    lead = next(iter(batch.values())).shape[0]
+def _rank_share(v: torch.Tensor, n: int, r: int, microbatch: int) -> torch.Tensor:
+    """Rank ``r``'s rows of ``v``: its contiguous ``1/n`` of each
+    microbatch of ``v``'s own leading axis (of the whole axis without
+    microbatching)."""
+    lead = v.shape[0]
     chunk = microbatch or lead
     if lead % chunk or chunk % n:
         raise ValueError(f"batch {lead} / microbatch {chunk} do not split over {n} ranks")
     part = chunk // n
-    rows = torch.cat([torch.arange(c + r * part, c + (r + 1) * part)
-                      for c in range(0, lead, chunk)])
-    return {k: v[rows.to(v.device)] for k, v in batch.items()}
+    return v.reshape(lead // chunk, chunk, *v.shape[1:])[:, r * part:(r + 1) * part].reshape(
+        -1, *v.shape[1:])
 
 
-def _mean_over(groups: list, n: int, t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over every rank of ``groups`` (in place), over ``n``."""
-    if t.is_sparse:
-        raise NotImplementedError("data-parallel steps take dense gradients")
-    for g in groups:
-        dist.all_reduce(t, group=g)
-    return t.div_(n)
+def reduce_sparse_rows(parts: list[torch.Tensor], n: int) -> torch.Tensor:
+    """The mean of ``n`` ranks' sparse row gradients from their coalesced
+    parts in rank order: the rows concatenated in that order, coalesced
+    (a row's values summed), divided by ``n``. Every rank computes it from
+    the same parts, so it is bit-equal on every rank."""
+    first = parts[0]
+    g = torch.sparse_coo_tensor(
+        torch.cat([p.indices() for p in parts], dim=1),
+        torch.cat([p.values() for p in parts]), first.shape, check_invariants=False,
+    ).coalesce()
+    return _values(g, lambda v: v / n)
+
+
+def _reduce(g: torch.Tensor, p: torch.Tensor, groups: list, n: int) -> torch.Tensor:
+    """A rank's gradient made the step's: a ``DTensor``'s reduced by its
+    parameter's placements, a plain one summed over the batch ``groups``
+    (sparse rows gathered), each divided by the ``n`` ranks the batch was
+    split over."""
+    if isinstance(g, DTensor):
+        g = g.redistribute(p.device_mesh, p.placements)
+        return g if n == 1 else g / n
+    if n == 1:
+        return g
+    if g.is_sparse:
+        idx = gather_parts(g.indices().t(), groups)
+        val = gather_parts(g.values(), groups)
+        return reduce_sparse_rows([
+            torch.sparse_coo_tensor(i.t(), v, g.shape, is_coalesced=True, check_invariants=False)
+            for i, v in zip(idx, val, strict=True)
+        ], n)
+    return all_reduce_(g, groups).div_(n)
 
 
 def make_train_step(
@@ -123,47 +154,26 @@ def make_train_step(
     grad_clip: float = 0.0,
     accum_dtype: torch.dtype = torch.float32,
 ):
-    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+    def step(state: TrainState, batch, input_logical: dict | None = None
+             ) -> tuple[TrainState, dict]:
         params = state.params
-        groups, n_dp, r_dp = _data_parallel()
+        split = _split_keys(batch, input_logical)
+        groups, n_dp, r_dp = batch_groups() if split else ([], 1, 0)
         mbatch = microbatch
         if n_dp > 1:
-            batch = _rank_rows(batch, n_dp, r_dp, microbatch)
+            batch = {k: _rank_share(v, n_dp, r_dp, microbatch) if k in split else v
+                     for k, v in batch.items()}
             mbatch = microbatch // n_dp
-        if mbatch:
-            lead = next(iter(batch.values())).shape[0]
-            if lead % mbatch:
-                raise ValueError(f"batch {lead} is not a multiple of microbatch {mbatch}")
-            n_chunks = lead // mbatch
-            loss_sum = torch.zeros((), dtype=torch.float32, device=state.step.device)
-            gsum: dict[str, torch.Tensor] = {}
-            for c in range(n_chunks):
-                mb = {k: constrain(v[c * mbatch:(c + 1) * mbatch], "batch", *([None] * (v.ndim - 1)))
-                      for k, v in batch.items()}
-                loss, g = _grads(loss_fn, params, mb)
-                loss_sum = loss_sum + loss
-                for k, gk in g.items():
-                    if gk.is_sparse:
-                        gsum[k] = gk if k not in gsum else gsum[k] + gk
-                    else:
-                        acc = gsum.get(k, torch.zeros(gk.shape, dtype=accum_dtype, device=gk.device))
-                        gsum[k] = acc + gk.to(accum_dtype)
-                del g   # the next chunk's backward runs without this one's gradients
-            loss = loss_sum / n_chunks
-            # Dense sums are divided in place (the same arithmetic): a second
-            # float32 copy of every gradient would not fit beside an LM's state.
-            grads = {
-                k: _values(g.coalesce(), lambda v: v / n_chunks) if g.is_sparse
-                else g.div_(n_chunks)
-                for k, g in gsum.items()
-            }
-            del gsum
-        else:
-            loss, grads = _grads(loss_fn, params, batch)
-            grads = {k: g.coalesce() if g.is_sparse else g for k, g in grads.items()}
+        with rank_share(groups, n_dp):
+            if mbatch:
+                loss, grads = _accumulate(loss_fn, params, batch, split, mbatch, accum_dtype,
+                                          state.step.device)
+            else:
+                loss, grads = _grads(loss_fn, params, batch)
+                grads = {k: g.coalesce() if g.is_sparse else g for k, g in grads.items()}
         if n_dp > 1:
-            loss = _mean_over(groups, n_dp, loss.clone())
-            grads = {k: _mean_over(groups, n_dp, g) for k, g in grads.items()}
+            loss = all_reduce_(loss.clone(), groups).div_(n_dp)
+        grads = {k: _reduce(g, params[k], groups, n_dp) for k, g in grads.items()}
 
         gnorm = optax_global_norm(grads)
         if grad_clip > 0:
@@ -171,10 +181,65 @@ def make_train_step(
             grads = {k: _values(g, lambda v: v * scale) for k, g in grads.items()}
 
         new_params, new_opt = optimizer.update(grads, state.opt_state, params)
-        new_state = TrainState(params=new_params, opt_state=new_opt, step=state.step + 1)
+        new_state = _placed_like(
+            TrainState(params=new_params, opt_state=new_opt, step=state.step + 1), state)
+        if isinstance(gnorm, DTensor):
+            gnorm = gnorm.full_tensor()
         return new_state, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+def _placed_like(new: Any, old: Any) -> Any:
+    """``new`` with every ``DTensor`` leaf redistributed to the placements
+    of the same leaf of ``old``: a reduction over a sharded dimension (an
+    Adafactor moment) leaves its result ``Partial``, and the state keeps
+    the placements its logical axes give it."""
+    if isinstance(new, DTensor):
+        if isinstance(old, DTensor) and tuple(new.placements) != tuple(old.placements):
+            return new.redistribute(old.device_mesh, old.placements)
+        return new
+    if isinstance(new, dict):
+        return {k: _placed_like(v, old[k]) for k, v in new.items()}
+    if dataclasses.is_dataclass(new):
+        return dataclasses.replace(new, **{f.name: _placed_like(getattr(new, f.name),
+                                                                getattr(old, f.name))
+                                           for f in dataclasses.fields(new)})
+    return new
+
+
+def _accumulate(loss_fn: Callable, params: dict, batch: dict, split: set, mbatch: int,
+                accum_dtype: torch.dtype, device: torch.device
+                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The mean loss and gradients over the microbatches of ``mbatch``
+    rows of the split inputs (the others go whole to every microbatch)."""
+    lead = {batch[k].shape[0] for k in split}
+    if len(lead) != 1 or next(iter(lead)) % mbatch:
+        raise ValueError(f"batch {sorted(lead)} is not one multiple of microbatch {mbatch}")
+    n_chunks = next(iter(lead)) // mbatch
+    loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+    gsum: dict[str, torch.Tensor] = {}
+    for c in range(n_chunks):
+        mb = {k: constrain(v[c * mbatch:(c + 1) * mbatch], "batch", *([None] * (v.ndim - 1)))
+              if k in split else v for k, v in batch.items()}
+        loss, g = _grads(loss_fn, params, mb)
+        loss_sum = loss_sum + loss
+        for k, gk in g.items():
+            if gk.is_sparse:
+                gsum[k] = gk if k not in gsum else gsum[k] + gk
+            else:
+                acc = gsum.get(k)
+                if acc is None:
+                    acc = torch.zeros_like(gk, dtype=accum_dtype)
+                gsum[k] = acc + gk.to(accum_dtype)
+        del g   # the next chunk's backward runs without this one's gradients
+    # Dense sums are divided in place (the same arithmetic): a second
+    # float32 copy of every gradient would not fit beside an LM's state.
+    grads = {
+        k: _values(g.coalesce(), lambda v: v / n_chunks) if g.is_sparse else g.div_(n_chunks)
+        for k, g in gsum.items()
+    }
+    return loss_sum / n_chunks, grads
 
 
 def optax_global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:

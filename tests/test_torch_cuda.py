@@ -1243,3 +1243,134 @@ def test_roofline_compute_term_is_below_a_timed_gemm(dev):
     print(f"bf16 GEMM {n}^3: {ms:.4f} ms against a compute term of {r.compute_s * 1e3:.4f} ms "
           f"({r.compute_s * 1e3 / ms:.1%} of peak)")
     assert ms / 1e3 >= r.compute_s
+
+
+# ---------------------------------------------------------------------------
+# The train step on the (1, 1) mesh, the sparse-row reduction and the
+# whole-batch masked count (chip_smoke.py's [parallel_train] at smoke size).
+# ---------------------------------------------------------------------------
+
+_PT_SHAPES = {
+    "recsys": dict(kind="train", batch=64, microbatch=16),
+    "nequip": dict(kind="train", n_nodes=10, n_edges=20, graph_batch=8),
+    "lm": dict(kind="train", seq_len=64, global_batch=4, microbatch=2),
+}
+
+
+def _pt_cell(arch: str):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec, TransformerConfig
+    from repro_torch.models.api import make_cell
+
+    cfg = get_smoke_config(arch)
+    kind = ("lm" if isinstance(cfg, TransformerConfig) else "nequip" if arch == "nequip"
+            else "recsys")
+    return make_cell(cfg, ShapeSpec(name="t", **_PT_SHAPES[kind])), kind == "lm"
+
+
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "deepfm", "din", "bert4rec", "nequip",
+                                  "qwen3-4b", "deepseek-moe-16b"])
+def test_train_steps_on_the_local_mesh_equal_the_steps_without_rules(dev, arch):
+    """Two steps under single_pod_rules on make_local_mesh(cuda) (an LM's
+    state placed as DTensors by remesh) bit-equal to two without rules."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding_rules, single_pod_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train import remesh
+    from repro_torch.utils import tree_items
+
+    cell, lm = _pt_cell(arch)
+    batch = as_tensors(synthesize_inputs(cell, seed=4), dev)
+    mesh, rules = make_local_mesh(dev), single_pod_rules()
+
+    def run(state, ruled):
+        seen = []
+        for _ in range(2):
+            if ruled:
+                with sharding_rules(rules, mesh):
+                    state, m = cell.step(state, batch)
+            else:
+                state, m = cell.step(state, batch)
+            seen.append((float(m["loss"]), float(m["grad_norm"])))
+        return state, seen
+
+    want, plain = run(cell.init_state(0, dev), False)
+    state = cell.init_state(0, dev)
+    if lm:
+        state = remesh(state, cell.state_logical(), rules, mesh)
+    got, ruled = run(state, True)
+    assert ruled == plain
+    want = dict(tree_items(want))
+    for k, t in tree_items(got):
+        if lm:
+            assert isinstance(t, DTensor), k
+            t = t.to_local()
+        assert torch.equal(t, want[k]), k
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_sparse_row_reduction_on_the_card(dev, n):
+    """DLRM-RM2 smoke (tables as row-wise tables): ``n`` shares' coalesced
+    gradients reduced by reduce_sparse_rows within 1e-6 of the whole
+    batch's, and bit-equal across two runs."""
+    import functools
+
+    from repro_torch.models import recsys
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train import trainer
+
+    cell, _ = _pt_cell("dlrm-rm2")
+    params = cell.init_state(0, dev).params
+    batch = as_tensors(synthesize_inputs(cell, seed=5), dev)
+    loss_fn = functools.partial(recsys.loss_fn, cell.cfg, sparse_grad=True)
+
+    def grads(b):
+        return {k: g.coalesce() for k, g in trainer._grads(loss_fn, params, b)[1].items()
+                if g.is_sparse}
+
+    whole = grads(batch)
+    assert whole
+    B = batch["label"].shape[0]
+    runs = [
+        {k: trainer.reduce_sparse_rows(
+            [p[k] for p in [grads({kk: v[r * B // n:(r + 1) * B // n] for kk, v in batch.items()})
+                            for r in range(n)]], n) for k in whole}
+        for _ in range(2)
+    ]
+    for k, want in whole.items():
+        got = runs[0][k]
+        assert torch.equal(got.indices(), want.indices()), k
+        scale = float(want.values().abs().max())
+        assert float((got.values() - want.values()).abs().max()) <= 1e-6 * scale, k
+        assert torch.equal(got.values(), runs[1][k].values()), k
+
+
+def test_bert4rec_split_count_on_the_card(dev):
+    """An uneven mask in two shares: each share divides by the whole
+    batch's count and is weighted by 2; their mean is the one-process loss
+    within 1e-6."""
+    from repro_torch.models import recsys
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+
+    cell, _ = _pt_cell("bert4rec")
+    params = cell.init_state(0, dev).params
+    raw = synthesize_inputs(cell, seed=6)
+    B, S = raw["mask_pos"].shape
+    raw["mask_pos"][:] = 0.0
+    raw["mask_pos"][: B // 2] = 1.0
+    raw["mask_pos"][B // 2:, S // 2] = 1.0
+    batch = as_tensors(raw, dev)
+    total = batch["mask_pos"].sum()
+    own = recsys.batch_total
+    with torch.no_grad():
+        whole = float(recsys.bert4rec_masked_loss(cell.cfg, params, batch))
+        try:
+            recsys.batch_total = lambda x: (total, 2)
+            split = [float(recsys.bert4rec_masked_loss(
+                cell.cfg, params, {k: v[r * B // 2:(r + 1) * B // 2] for k, v in batch.items()}))
+                for r in range(2)]
+        finally:
+            recsys.batch_total = own
+    assert abs(sum(split) / 2 - whole) <= 1e-6 * abs(whole)

@@ -22,11 +22,7 @@ train step against :mod:`repro.distributed` and :mod:`repro.train`.
 
 import dataclasses
 import json
-import os
 import re
-import socket
-import subprocess
-import sys
 import types
 
 import numpy as np
@@ -38,6 +34,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from torch.distributed.tensor import Replicate, Shard  # noqa: E402
 
+import gloo_ranks  # noqa: E402
 from lm_parity import F32_TOL  # noqa: E402
 from repro import configs as ref_configs  # noqa: E402
 import repro.distributed as ref_distributed  # noqa: E402
@@ -55,7 +52,6 @@ from repro_torch.models.api import make_cell  # noqa: E402
 from repro_torch.train import elastic  # noqa: E402
 from repro_torch.utils import tree_items  # noqa: E402
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TABLES = ("single_pod_rules", "multi_pod_rules", "local_rules")
 
 
@@ -257,39 +253,14 @@ dist.destroy_process_group()
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 ARCHS = ("qwen3-4b", "deepseek-moe-16b")
 
 
 def _run_ranks(path: str) -> None:
     """Four ranks, each stepping every arch of ``ARCHS`` once with the
     rules and once alone; rank r writes ``<path>/<arch>/rank<r>.json``."""
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
-    procs = [
-        subprocess.Popen(
-            [sys.executable, "-c", _RANK_PROG, str(port), str(r), str(WORLD), ",".join(ARCHS),
-             path, str(B), str(S), str(MICRO)],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for r in range(WORLD)
-    ]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs, strict=True)):
-        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    gloo_ranks.run(_RANK_PROG, WORLD, ",".join(ARCHS), path, str(B), str(S), str(MICRO),
+                   timeout=240)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,9 @@
   reference's ``argument_size_in_bytes``;
 - the collectives and the compute term are counted as the module
   docstrings say, and a trace survives ``save`` / ``load``;
+- the DeepSeek-MoE-16B smoke step on a fake ``(4, 2)`` group (the
+  reference's 8-device rule table) issues collectives over ``"model"``,
+  and the dry run adds them to the collective term;
 - a fake 16 × 16 dry run of smoke cells (in a subprocess: the fake process
   group is process-wide) writes records with the reference's keys
   (``lower_s`` and ``compile_s`` become ``trace_s``; XLA's temporary and
@@ -225,3 +228,46 @@ def test_fake_16x16_dry_run_writes_the_reference_record(tmp_path):
         got = json.load(open(tmp_path / f"{n}.json"))["roofline"]
         for k in ("compute_s", "memory_s", "collective_s", "bound_s", "coll_breakdown"):
             assert got[k] == pytest.approx(want[k], rel=1e-12), (n, k)
+
+
+_ACTIVATION_PROG = r"""
+import json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.distributed.sharding import Rules
+from repro_torch.launch import dryrun
+from repro_torch.models.api import make_cell
+
+rules = Rules(table={
+    "batch": ("data",), "groups": ("data",), "edges": ("data",),
+    "seq": None, "embed": None, "ff": "model", "qkv": "model",
+    "vocab": "model", "heads": None, "kv_seq": None, "layers": None,
+    "experts": "model", "expert_ff": None, "rows": "model",
+    "cands": ("data", "model"), "nodes": None, "dense": None,
+})
+cell = make_cell(get_smoke_config("deepseek-moe-16b"),
+                 ShapeSpec(name="t", kind="train", seq_len=32, global_batch=8, microbatch=4))
+with dryrun.fake_world(8):
+    mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+    act = dryrun.activation_collectives(cell, rules, mesh)
+    one = dryrun.activation_collectives(
+        cell, rules, init_device_mesh("cpu", (8, 1), mesh_dim_names=("data", "model")))
+print("ACT", json.dumps({"act": act, "one": one}))
+"""
+
+
+def test_sharded_step_has_activation_collectives_on_a_fake_4x2_group():
+    """Tensor-parallel sums (all-reduce) and the MoE's gather of its
+    experts' outputs (all-gather) over "model"; none where "model" has one
+    rank."""
+    res = subprocess.run(
+        [sys.executable, "-c", _ACTIVATION_PROG], capture_output=True, text=True,
+        timeout=300, cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+    )
+    line = [x for x in res.stdout.splitlines() if x.startswith("ACT ")]
+    assert line, res.stdout + res.stderr[-4000:]
+    got = json.loads(line[0][4:])
+    assert got["act"]["all-reduce"] > 0 and got["act"]["all-gather"] > 0, got
+    assert sum(got["act"].values()) > 0
+    assert sum(got["one"].values()) == 0, got
