@@ -229,7 +229,9 @@ Phases, each of which must pass:
   (65,536), BERT4Rec (256, the ``cells`` cut), NequIP ``minibatch_lg``
   with forces, and Qwen3-4B (12 layers) and DeepSeek-MoE-16B (3 layers)
   ``train_4k`` at ``lm_train``'s cuts, their states placed as DTensors by
-  ``remesh``: three steps under the rules and three without, from the
+  ``remesh`` (RecSys and NequIP step on their local shards: on one rank
+  the row-sharded lookups and the edge split must be the identity):
+  three steps under the rules and three without, from the
   same init; losses, norms and every leaf of the final state (digests of
   its bits) must be equal; both timed with CUDA events (median of steps
   2–3) beside each one's peak memory. (b) DLRM-RM2's batch in 2 and 8
@@ -258,18 +260,23 @@ Phases, each of which must pass:
 - ``dryrun`` (after ``nequip``; traced in a process of its own, started
   after ``cells``): ``repro_torch.launch.dryrun.run_cell`` for the three
   hillclimb cells (lear-msn1 ``rank_xl``, qwen2.5-14b ``train_4k``,
-  nequip ``ogb_products``) on a fake 16 × 16 process group, printing each
-  cell's roofline terms, per-device memory and ``trace_s``; then every
+  nequip ``ogb_products``) and dlrm-rm2 ``train_batch`` on a fake 16 × 16
+  process group, printing each cell's roofline terms, per-device memory,
+  ``trace_s`` and its activation collectives (the row lookups' and node
+  aggregates' sums); then every
   step that ``cells``, ``lm`` and ``lm_train`` timed, traced on ``meta``
   at its own config and shape, with its ``chips=1`` H100 roofline beside
   the measured time and the phase's own bound. No measured time may be
   below its compute term (the memory term is printed only: L2 can beat an
   HBM reckoning).
+- ``examples`` (after ``dryrun``): the five ``examples/torch_*.py`` with
+  ``--smoke`` on the card, each in a process of its own, all at once;
+  each must exit 0.
 
 The last lines are a one-line summary of the tier, the gated tail, the
 hybrid, the guards, the placements, the training, the cell (with the
 retrieval cascade), the LM and the NequIP runs, the several-card train
-step and the dry run, the
+step, the dry run and the examples, the
 card's name and power limit, one JSON line with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
@@ -3825,15 +3832,18 @@ def _pt_family(label, arch, cfg, shape, seed, mesh, rules, card) -> dict:
     plain_ms, plain, plain_peak, want = _pt_steps(cell, init, batch, None, None)
     gc.collect()
     torch.cuda.empty_cache()
-    placed = ["plain tensors, replicated"]
+    placed = [""]
 
     def placed_init():
-        if not lm:
-            return init()
         t0 = time.perf_counter()
-        state = remesh(init(), cell.state_logical(), rules, mesh)
+        # RecSys and NequIP: each rank cuts its shards from its own init (a
+        # scatter would copy DLRM-RM2's 45.56 GB of tables); they step on
+        # their local shards.
+        state = remesh(init(), cell.state_logical(), rules, mesh,
+                       src_data_rank=0 if lm else None)
         torch.cuda.synchronize()
-        placed[0] = f"DTensors placed by remesh in {time.perf_counter() - t0:.2f} s"
+        placed[0] = (f"DTensors placed by remesh in {time.perf_counter() - t0:.2f} s"
+                     + ("" if lm else ", stepped on their local shards"))
         return state
 
     mesh_ms, ruled, peak, got = _pt_steps(cell, placed_init, batch, mesh, rules)
@@ -4255,7 +4265,8 @@ def phase_placement(card: str) -> dict:
 # chips=1 roofline beside its measured time.
 # ---------------------------------------------------------------------------
 
-DRYRUN_CELLS = (("lear-msn1", "rank_xl"), ("qwen2.5-14b", "train_4k"), ("nequip", "ogb_products"))
+DRYRUN_CELLS = (("lear-msn1", "rank_xl"), ("qwen2.5-14b", "train_4k"), ("nequip", "ogb_products"),
+                ("dlrm-rm2", "train_batch"))
 
 
 def start_dryrun(out_dir: str) -> subprocess.Popen:
@@ -4302,7 +4313,7 @@ def phase_dryrun(card: str, proc: subprocess.Popen, out_dir: str) -> dict:
             f"{r['collective_s']:.4g} s ({r['coll_breakdown']}), dominant {r['dominant']}, "
             f"useful ratio {r['useful_ratio']:.3f}; divisibility problems "
             f"{len(rec['divisibility'])}"
-            + (f"; activation collectives over \"model\" {rec['activation_collectives']}"
+            + (f"; activation collectives {rec['activation_collectives']}"
                if "activation_collectives" in rec else ""))
         if not all(math.isfinite(r[k]) and r[k] >= 0 for k in ("compute_s", "memory_s",
                                                                "collective_s")):
@@ -4331,6 +4342,48 @@ def phase_dryrun(card: str, proc: subprocess.Popen, out_dir: str) -> dict:
     log(f"[dryrun] done in {seconds:.1f} s on {card}")
     return {"summary": f"dryrun: {len(records)} cells on the fake 16x16 mesh; {len(TIMED)} "
                        f"timed steps, none below its compute term"}
+
+
+# ---------------------------------------------------------------------------
+# [examples]: the port's examples at smoke size on the card.
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("torch_quickstart.py", "torch_serve_ranking.py", "torch_serve_progressive.py",
+            "torch_cascade_retrieval.py", "torch_train_lm.py")
+EXAMPLES_TIMEOUT_S = 240
+
+
+def phase_examples(card: str) -> dict:
+    """Each ``examples/torch_*.py --smoke`` in a process of its own, all at
+    once, on the card (the examples' default device); any nonzero exit
+    fails the phase."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = {name: subprocess.Popen([sys.executable, os.path.join(ROOT, "examples", name),
+                                     "--smoke"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name in EXAMPLES}
+    failed = []
+    try:
+        for name, p in procs.items():
+            out, _ = p.communicate(timeout=EXAMPLES_TIMEOUT_S)
+            lines = [x for x in out.splitlines() if x.strip()]
+            log(f"[examples] {name} --smoke: exit {p.returncode}; last line: "
+                f"{lines[-1] if lines else '(none)'}")
+            if p.returncode:
+                failed.append(name)
+                log(out[-3000:])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t_phase
+    log(f"[examples] {len(EXAMPLES) - len(failed)} of {len(EXAMPLES)} ran in {seconds:.1f} s "
+        f"on {card}")
+    if failed:
+        raise AssertionError(f"[examples] failed: {failed}")
+    return {"summary": f"examples: {len(EXAMPLES)} at smoke size in {seconds:.1f} s"}
 
 
 def main() -> int:
@@ -4396,6 +4449,8 @@ def main() -> int:
         elapsed("parallel_train")
         dryrun = phase_dryrun(card, dry_proc, dry_dir)
         elapsed("dryrun")
+        examples = phase_examples(card)
+        elapsed("examples")
         kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"], cells["cases"],
                                 placement["cases"])
         gated = phase_gated()
@@ -4445,7 +4500,7 @@ def main() -> int:
         + f"; {hybrid['summary']}; {guards['summary']}; {train['summary']}; "
         f"{placement['summary']}; {cells['summary']}; {lm['summary']}; "
         f"{lm_train['summary']}; {nequip['summary']}; {parallel_train['summary']}; "
-        f"{dryrun['summary']}; "
+        f"{dryrun['summary']}; {examples['summary']}; "
         f"run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -27,10 +27,25 @@ Two kinds of parallelism, both read from the current
   the batch axes the batch was split over, the parameter's own placement
   over ``"model"``.
 
-The ``"model"`` collectives are ``torch.distributed._functional_collectives``
-ops, so a step traced on ``meta`` tensors over a fake group records them
-(:mod:`repro_torch.launch.dryrun`); a ``"model"`` axis of one rank runs
-none.
+- **Local shards** (RecSys, NequIP). A step that runs on its parameters'
+  local shards (:func:`local_shards`: each ``DTensor`` leaf replicated over
+  every axis but ``"model"``) gives the model plain tensors;
+  :meth:`ModelAxis.of` then returns the axis those shards were cut on, so
+  a row-sharded table (``"rows"`` → "model") is looked up as the LM's
+  vocab-sharded embedding is.
+- **Edges over their ranks** (NequIP). The train step gives each rank of
+  the mesh axes that ``"edges"`` resolves to its contiguous share of the
+  edges and runs the loss under :func:`edge_share`; the model gathers node
+  arrays at its edges through :meth:`Axis.copy` and sums its per-edge
+  messages into nodes through :meth:`Axis.reduce` over every edge rank
+  (:func:`edge_axis`).
+
+``copy`` and ``reduce`` are each other's transposes, and each one's
+backward is the other's autograd op, so they can be differentiated twice
+(NequIP's forces loss differentiates a gradient). The collectives are
+``torch.distributed._functional_collectives`` ops, so a step traced on
+``meta`` tensors over a fake group records them
+(:mod:`repro_torch.launch.dryrun`); an axis of one rank runs none.
 """
 
 from __future__ import annotations
@@ -61,7 +76,10 @@ def _wait(t: torch.Tensor) -> torch.Tensor:
 
 
 def _sum(t: torch.Tensor, group: Any) -> torch.Tensor:
-    return _wait(funcol.all_reduce(t, "sum", group))
+    """``t`` summed over ``group``, or over each group of a tuple in turn."""
+    for g in group if isinstance(group, tuple) else (group,):
+        t = _wait(funcol.all_reduce(t, "sum", g))
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -69,9 +87,9 @@ def _sum(t: torch.Tensor, group: Any) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def batch_groups() -> tuple[list, int, int]:
+def axis_groups(logical: str) -> tuple[list, int, int]:
     """``(groups, n, r)``: the process groups of the mesh axes that
-    ``"batch"`` resolves to (those of more than one rank), their rank count
+    ``logical`` resolves to (those of more than one rank), their rank count
     and this rank's index among them (major to minor); ``([], 1, 0)``
     without rules or mesh."""
     rules, mesh = current_rules(), current_mesh()
@@ -80,7 +98,7 @@ def batch_groups() -> tuple[list, int, int]:
     names = mesh.mesh_dim_names
     coord = mesh.get_coordinate()
     groups, n, r = [], 1, 0
-    for a in mesh_axes(rules.physical("batch")):
+    for a in mesh_axes(rules.physical(logical)):
         size = mesh.size(names.index(a))
         if size > 1:
             groups.append(mesh.get_group(a))
@@ -110,7 +128,11 @@ def split_ranks() -> int:
 
 
 def all_reduce_(t: torch.Tensor, groups: list) -> torch.Tensor:
-    """``t`` summed over every rank of ``groups``, in place."""
+    """``t`` summed over every rank of ``groups``: in place, or in a
+    contiguous copy of a strided ``t`` (NCCL takes no other; a matmul's
+    weight gradient may come back transposed)."""
+    if groups and not t.is_contiguous():
+        t = t.contiguous()
     for g in groups:
         dist.all_reduce(t, group=g)
     return t
@@ -130,6 +152,10 @@ def _gather_lists(parts: list[torch.Tensor], group: Any) -> list[torch.Tensor]:
     """Every rank of ``group``'s list of parts (each rank holds as many),
     concatenated in rank order."""
     size = dist.get_world_size(group)
+    if parts[0].is_meta:
+        # A trace on meta (the dry run) cannot read the lengths: every
+        # rank's parts are taken as long as this rank's.
+        return [p for _ in range(size) for p in parts]
     lens = torch.tensor([p.shape[0] for p in parts], dtype=torch.int64, device=parts[0].device)
     all_lens = [torch.empty_like(lens) for _ in range(size)]
     dist.all_gather(all_lens, lens, group=group)
@@ -166,17 +192,18 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _sum(g.contiguous(), ctx.group), None
+        return _Reduce.apply(g, ctx.group), None
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
+        ctx.group = group
         return _sum(x.contiguous(), group)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return _Copy.apply(g, ctx.group), None
 
 
 class _Gather(torch.autograd.Function):
@@ -195,7 +222,27 @@ class _Gather(torch.autograd.Function):
 
 
 @dataclasses.dataclass(frozen=True)
-class ModelAxis:
+class Axis:
+    """Ranks that split a computation: their process ``group`` (or a tuple
+    of groups, one per mesh axis, summed over in turn), their count and
+    this rank's index among them."""
+
+    group: Any
+    size: int
+    rank: int
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` unchanged; its gradient summed over the ranks (where a
+        whole tensor enters the split computation)."""
+        return x if self.size == 1 else _Copy.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks; the gradient passes unchanged."""
+        return x if self.size == 1 else _Reduce.apply(x, self.group)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis(Axis):
     """The ``"model"`` axis of the mesh a model's ``DTensor`` parameters
     live on: its group, size and this rank's index, the logical axes its
     parameters are split over on it, and the mesh axes the current batch
@@ -203,15 +250,14 @@ class ModelAxis:
 
     split: frozenset[str]
     batch_axes: frozenset[str]
-    group: Any
-    size: int
-    rank: int
 
     @staticmethod
     def of(params: dict[str, torch.Tensor],
            logical: Callable[[], dict[str, tuple]]) -> ModelAxis:
-        """The axis of ``params``' mesh (:data:`LOCAL` for plain tensors or
-        a mesh without ``"model"``). Which logical axes (``logical()``, by
+        """The axis of ``params``' mesh (for plain tensors, the axis of the
+        local shards a step runs on, :func:`local_shards`, else
+        :data:`LOCAL`; :data:`LOCAL` on a mesh without ``"model"``).
+        Which logical axes (``logical()``, by
         parameter; called for ``DTensor`` parameters only) are split over ``"model"`` is read from the parameters'
         own placements, not from the rules in force: a step under another
         table than the one that placed them still computes on what each
@@ -219,8 +265,9 @@ class ModelAxis:
         (one leaf split on a logical axis, another whole on it) and where
         the batch is split over ``"model"`` too."""
         first = next(iter(params.values()))
-        if not isinstance(first, DTensor) or MODEL_AXIS not in (
-                first.device_mesh.mesh_dim_names or ()):
+        if not isinstance(first, DTensor):
+            return _SHARDS.get()
+        if MODEL_AXIS not in (first.device_mesh.mesh_dim_names or ()):
             return LOCAL
         mesh = first.device_mesh
         d = mesh.mesh_dim_names.index(MODEL_AXIS)
@@ -241,8 +288,8 @@ class ModelAxis:
         if size > 1 and split_ranks() > 1 and MODEL_AXIS in batch:
             raise ValueError(f"the batch is split over {MODEL_AXIS!r}, which holds the "
                              "parameters' tensor-parallel shards")
-        return ModelAxis(frozenset(split), batch, mesh.get_group(MODEL_AXIS), size,
-                         mesh.get_coordinate()[d])
+        return ModelAxis(mesh.get_group(MODEL_AXIS), size, mesh.get_coordinate()[d],
+                         frozenset(split), batch)
 
     def on(self, logical: str) -> bool:
         """Whether the parameters split the logical axis over ``"model"``."""
@@ -269,15 +316,6 @@ class ModelAxis:
             w = w.redistribute(w.device_mesh, target)
         return w.to_local(grad_placements=grad)
 
-    def copy(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` unchanged; its gradient summed over the group (where a
-        replicated tensor enters sharded computation)."""
-        return x if self.size == 1 else _Copy.apply(x, self.group)
-
-    def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the group; the gradient passes unchanged."""
-        return x if self.size == 1 else _Reduce.apply(x, self.group)
-
     def gather(self, x: torch.Tensor, dim: int, grad: str = "slice") -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim`` in rank order. Each
         rank's gradient is its own slice of the gradient (``"slice"``:
@@ -296,4 +334,47 @@ class ModelAxis:
 
 #: The axis of plain parameters: one rank, nothing split; every collective
 #: is the identity.
-LOCAL = ModelAxis(frozenset(), frozenset(), None, 1, 0)
+LOCAL = ModelAxis(None, 1, 0, frozenset(), frozenset())
+
+
+_SHARDS: contextvars.ContextVar[ModelAxis] = contextvars.ContextVar("local_shards",
+                                                                  default=LOCAL)
+
+
+@contextlib.contextmanager
+def local_shards(tp: ModelAxis) -> Iterator[None]:
+    """Mark the block as running on parameters' local shards cut on
+    ``tp``'s axis: :meth:`ModelAxis.of` returns ``tp`` for plain tensors."""
+    token = _SHARDS.set(tp)
+    try:
+        yield
+    finally:
+        _SHARDS.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# Edges over their ranks.
+# ---------------------------------------------------------------------------
+
+
+#: One rank: every collective is the identity.
+WHOLE = Axis((), 1, 0)
+
+_EDGES: contextvars.ContextVar[Axis] = contextvars.ContextVar("edge_share", default=WHOLE)
+
+
+@contextlib.contextmanager
+def edge_share(groups: list, n: int, r: int) -> Iterator[None]:
+    """Mark the block as running this rank's share (index ``r``) of edges
+    split over the ``n`` ranks of ``groups``."""
+    token = _EDGES.set(Axis(tuple(groups), n, r) if n > 1 else WHOLE)
+    try:
+        yield
+    finally:
+        _EDGES.reset(token)
+
+
+def edge_axis() -> Axis:
+    """The ranks the current step's edges are split over (:data:`WHOLE`
+    outside an edge share)."""
+    return _EDGES.get()

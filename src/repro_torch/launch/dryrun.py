@@ -29,19 +29,26 @@ rules:
   gradient all-reduced over them (counted twice, ring = reduce-scatter +
   all-gather).
 
-A train cell of the LM family also counts its activation collectives
+A train cell also counts its activation collectives
 (:func:`activation_collectives`): its step runs once more on ``meta``,
 with its state placed on the fake mesh as ``DTensor``\\ s and its inputs
-split over ``"batch"``, and every ``_c10d_functional`` op over the
-``"model"`` group is recorded (the tensor-parallel sums of the attention
-and FFN outputs and their gradients, the vocab-sharded lookup and softmax,
-the MoE's gathers of its experts' outputs) at this device's bytes. A cell
-whose state or batch does not divide over the mesh has no sharded step,
-and the record says so under ``activation_collectives``; ``trace_s``
-includes this trace. RecSys and NequIP cells run with their
-parameters replicated over ``"model"`` and have no activation
-collectives. XLA's temporary bytes and GSPMD's chosen collectives have no
-counterpart here.
+split as the step splits them, and every ``_c10d_functional`` op over the
+``"model"`` group (NequIP: over every axis ``"edges"`` resolves to) is
+recorded at this device's bytes: the LM's tensor-parallel sums of the
+attention and FFN outputs and their gradients, its vocab-sharded lookup
+and softmax and the MoE's gathers of its experts' outputs; RecSys's
+row-sharded lookups' sums and BERT4Rec's block sums, gathered
+projections and sharded softmax; NequIP's per-layer node-aggregate sums
+over the edge ranks and, in the backward, their transposes (the gathers'
+gradient sums), twice over with forces. A cell whose state or batch does
+not divide over the mesh has no sharded step, and the record says so
+under ``activation_collectives``; ``trace_s`` includes this trace.
+
+A train cell's inputs are reckoned as its step splits them
+(:func:`~repro_torch.train.trainer.step_input_logical`): the leading
+``"batch"`` or ``"edges"`` axis, nothing else, so NequIP's node arrays
+count whole on every device. XLA's temporary bytes and GSPMD's chosen
+collectives have no counterpart here.
 
 Usage::
 
@@ -71,7 +78,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, list_archs
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import ForestConfig, TransformerConfig
 from repro_torch.distributed.sharding import (
     Rules,
     mesh_axes,
@@ -84,6 +91,7 @@ from repro_torch.launch import op_analysis
 from repro_torch.launch import roofline as rf
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train.elastic import axis_sizes, logical_leaves, remesh, validate_divisibility
+from repro_torch.train.trainer import step_input_logical
 from repro_torch.utils import tree_items
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "../../../artifacts/dryrun")
@@ -147,30 +155,43 @@ def rule_collectives(params: Any, logical: Any, rules: Rules, sizes: dict[str, i
 @dataclasses.dataclass
 class _GroupTrace(op_analysis.OpTrace):
     """An :class:`~repro_torch.launch.op_analysis.OpTrace` that records
-    only the ``_c10d_functional`` collectives over the group named
-    ``group``."""
+    only the ``_c10d_functional`` collectives over the groups named in
+    ``groups``."""
 
-    group: str = ""
+    groups: frozenset = frozenset()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func.namespace == "_c10d_functional" and self.group in (*args, *kwargs.values()):
+        if func.namespace == "_c10d_functional" and self.groups & {
+                a for a in (*args, *kwargs.values()) if isinstance(a, str)}:
             return super().__torch_dispatch__(func, types, args, kwargs)
-        return func(*args, **kwargs)
+        return op_analysis.run_op(func, args, kwargs)
+
+
+def activation_axes(cell, rules: Rules) -> tuple[str, ...]:
+    """The mesh axes a train step's activations cross: ``"model"``, and
+    for a cell whose edges are split (NequIP), every axis ``"edges"``
+    resolves to."""
+    axes = ["model"]
+    if any(tuple(lg or (None,))[0] == "edges" for lg in cell.input_logical().values()):
+        axes += [a for a in mesh_axes(rules.physical("edges")) if a not in axes]
+    return tuple(axes)
 
 
 def activation_collectives(cell, rules: Rules, mesh: DeviceMesh) -> dict[str, float]:
-    """This device's bytes, by kind, of the collectives over ``"model"``
-    in one step of a train ``cell`` whose state is placed on ``mesh`` by
-    its logical axes (``DTensor``\\ s on ``meta``) and whose inputs are
-    split over ``"batch"``. Raises ``ValueError`` where the step cannot run
-    sharded."""
+    """This device's bytes, by kind, of the collectives over the
+    :func:`activation_axes` in one step of a train ``cell`` whose state is
+    placed on ``mesh`` by its logical axes (``DTensor``\\ s on ``meta``) and
+    whose inputs are split over ``"batch"`` (and ``"edges"``). Raises
+    ``ValueError`` where the step cannot run sharded."""
     out = {k: 0.0 for k in op_analysis.COLLECTIVES}
     names = mesh.mesh_dim_names
-    if "model" not in names or mesh.size(names.index("model")) == 1:
+    axes = [a for a in activation_axes(cell, rules)
+            if a in names and mesh.size(names.index(a)) > 1]
+    if not axes:
         return out
     state = remesh(cell.abstract_state(), cell.state_logical(), rules, mesh, src_data_rank=None)
-    tr = _GroupTrace(group=mesh.get_group("model").group_name)
+    tr = _GroupTrace(groups=frozenset(mesh.get_group(a).group_name for a in axes))
     with sharding_rules(rules, mesh), tr:
         cell.step(state, cell.input_specs())
     return op_analysis.analyze(tr).coll_breakdown
@@ -207,12 +228,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         sizes = axis_sizes(mesh)
         state, slog = cell.abstract_state(), cell.state_logical()
         inputs, ilog = cell.input_specs(), cell.input_logical()
+        if shape.kind == "train":   # what the step splits, not every rule
+            ilog = step_input_logical(ilog)
         problems = (validate_divisibility(state, slog, rules, mesh)
                     + validate_divisibility(inputs, ilog, rules, mesh))
         s_total, s_local = placed_bytes(state, slog, rules, mesh)
         i_total, i_local = placed_bytes(inputs, ilog, rules, mesh)
         act = None
-        if shape.kind == "train" and isinstance(cfg, TransformerConfig):
+        if shape.kind == "train" and not isinstance(cfg, ForestConfig):
             try:
                 act = activation_collectives(cell, rules, mesh)
             except ValueError as e:

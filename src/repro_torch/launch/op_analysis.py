@@ -99,6 +99,15 @@ _SPARSE_META = {
 }
 
 
+def run_op(func, args: tuple, kwargs: dict) -> Any:
+    """``func(*args, **kwargs)``, with :data:`_SPARSE_META`'s stand-ins for
+    the sparse ops meta tensors lack."""
+    x = args[0] if args else None
+    if isinstance(x, torch.Tensor) and x.is_meta and x.is_sparse and func in _SPARSE_META:
+        return _SPARSE_META[func](x)
+    return func(*args, **kwargs)
+
+
 @dataclasses.dataclass
 class OpTrace(TorchDispatchMode):
     """Records every aten op dispatched inside ``with OpTrace() as tr:``.
@@ -112,11 +121,7 @@ class OpTrace(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        x = args[0] if args else None
-        if isinstance(x, torch.Tensor) and x.is_meta and x.is_sparse and func in _SPARSE_META:
-            out = _SPARSE_META[func](x)
-        else:
-            out = func(*args, **kwargs)
+        out = run_op(func, args, kwargs)
         flops = 0
         formula = flop_registry.get(func.overloadpacket)
         if formula is not None:

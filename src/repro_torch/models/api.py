@@ -18,7 +18,10 @@ The port of :mod:`repro.models.api`. ``make_cell(cfg, shape)`` returns a
   a JAX key).
 
 Parameters are flat ``dict[str, Tensor]`` keyed by the reference's pytree
-paths. Every family of the registry has its cells: RecSys
+paths. On several ranks an LM train cell computes on its ``DTensor``
+state; a RecSys or NequIP train cell steps a placed state on its local
+shards (:func:`~repro_torch.train.trainer.make_train_step`'s
+``param_logical``). Every family of the registry has its cells: RecSys
 (:mod:`repro_torch.models.recsys`), the LM's ``train``, ``prefill`` and
 ``decode`` (:mod:`repro_torch.models.transformer`; a train cell
 accumulates microbatch gradients in bfloat16 under Adafactor, float32
@@ -119,12 +122,14 @@ def _opt_logical(opt_name: str, abstract_params: dict, param_logical: dict):
 
 def _train_cell(cfg, shape, loss_fn, abstract_params_fn, param_logical,
                 init_fn, inputs_fn, inputs_logical, microbatch=0,
-                accum_dtype=F32) -> Cell:
+                accum_dtype=F32, local_shards=False) -> Cell:
     opt = get_optimizer(cfg.optimizer)
-    # The step splits over "batch" only the inputs whose leading logical
-    # axis is "batch" (none of NequIP's).
+    # The step splits the inputs whose leading logical axis is "batch"
+    # (over the batch ranks) or "edges" (NequIP's, over the edge ranks);
+    # ``local_shards``: a placed state steps on its local shards.
     step = partial(make_train_step(loss_fn, opt, microbatch=microbatch, accum_dtype=accum_dtype),
-                   input_logical=inputs_logical())
+                   input_logical=inputs_logical(),
+                   param_logical=param_logical if local_shards else None)
 
     def abstract_state():
         params = abstract_params_fn()
@@ -265,7 +270,7 @@ def _nequip_cell(cfg: NequIPConfig, shape: ShapeSpec) -> Cell:
         lambda: nequip_mod.init(cfg, None, "meta", d_feat),
         nequip_mod.param_logical(cfg, d_feat),
         lambda gen, dev: nequip_mod.init(cfg, gen, dev, d_feat),
-        lambda: specs, lambda: logical,
+        lambda: specs, lambda: logical, local_shards=True,
     )
 
 
@@ -347,7 +352,7 @@ def _recsys_cell(cfg: RecSysConfig, shape: ShapeSpec) -> Cell:
             cfg, shape, partial(recsys_mod.loss_fn, cfg, sparse_grad=sparse),
             abstract, plogical, init_fn,
             lambda: specs, lambda: logical,
-            microbatch=shape.microbatch,
+            microbatch=shape.microbatch, local_shards=True,
         )
 
     if not shape.n_candidates:

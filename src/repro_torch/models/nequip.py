@@ -48,13 +48,28 @@ the reference's parameters across. Edges and node aggregates carry the
 reference's sharding constraints (:func:`~repro_torch.distributed.constrain`:
 the identity on a plain tensor).
 
-On several ranks no input is split (their leading logical axes are
-``"nodes"``, ``"edges"`` or per-graph, none ``"batch"``): every rank runs
-the whole step with its parameters replicated over every mesh axis, which
-is exact, and the train step reduces nothing. Cutting a graph batch by
-whole graphs would not be: the synthetic batches draw edges across graphs.
-The reference's ``"edges"`` sharding (edges over the ranks, node
-aggregates reduced per layer) is not run.
+On several ranks the train step splits the edges (``edge_src``,
+``edge_dst``) over the ranks that ``"edges"`` resolves to (``("data",
+"model")``: every rank of a pod), each rank taking a contiguous share
+(:func:`~repro_torch.distributed.parallel.edge_axis`), as the reference's
+``"edges"`` constraints do. Node arrays stay whole on every rank (the
+reference's ``"nodes"`` → "data" placement is not run) and so do the
+parameters. In the Megatron pattern over the edge ranks
+(:class:`~repro_torch.distributed.parallel.Axis`):
+
+- a node array gathered at the edges (positions, each layer's features)
+  and an edge-side parameter (the radial MLP; the message mix under
+  ``premix_messages``) enter through ``copy``: the identity forward, their
+  gradient summed over the ranks;
+- a segment sum of messages into nodes goes through ``reduce``: summed
+  over the ranks forward, the identity backward.
+
+So every node-side quantity, the energies, the forces (``−∂E/∂positions``
+through ``copy``'s sum) and every gradient come out whole and alike on
+each rank, and the step reduces nothing. ``copy`` and ``reduce`` are
+each other's backward, so the forces loss's double backward crosses the
+ranks too. Cutting a graph batch by whole graphs would not be exact: the
+synthetic batches draw edges across graphs.
 """
 
 from __future__ import annotations
@@ -66,6 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import NequIPConfig
+from repro_torch.distributed.parallel import WHOLE, Axis, edge_axis
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import so3
 from repro_torch.utils import resolve_device, tree_items
@@ -185,12 +201,21 @@ def param_logical(cfg: NequIPConfig, d_feat: int = 0) -> dict[str, tuple]:
 # ---------------------------------------------------------------------------
 
 
+def _edge_side(cfg: NequIPConfig) -> tuple[str, ...]:
+    """The layer parameters applied per edge (their gradients are partial
+    sums on each edge rank)."""
+    keys = ("radial_w0", "radial_w1", "radial_w2")
+    return keys + tuple(f"w_msg/{l}" for l in LS) if cfg.premix_messages else keys
+
+
 def _interaction(cfg: NequIPConfig, layer: Mapping[str, torch.Tensor], h, edge_src,
-                 edge_dst, rbf, Y, n_nodes: int) -> dict[int, torch.Tensor]:
-    """One NequIP interaction layer. h: {l: [N, mul, 2l+1]}."""
+                 edge_dst, rbf, Y, n_nodes: int, ex: Axis = WHOLE) -> dict[int, torch.Tensor]:
+    """One NequIP interaction layer. h: {l: [N, mul, 2l+1]}; the edges are
+    this rank's share over ``ex``."""
     paths = so3.allowed_paths(cfg.l_max)
     mul = cfg.d_hidden
     dt = getattr(torch, cfg.dtype)
+    h_edges = {l: ex.copy(h[l]) for l in LS}                           # gathered at the edges
 
     # Radial weights per (path, channel).
     r = silu(rbf @ layer["radial_w0"])
@@ -200,7 +225,7 @@ def _interaction(cfg: NequIPConfig, layer: Mapping[str, torch.Tensor], h, edge_s
     msgs: dict[int, list[torch.Tensor]] = {l: [] for l in LS}
     for p_idx, (l1, l2, l3) in enumerate(paths):
         C = torch.as_tensor(so3.clebsch_gordan(l1, l2, l3), device=rbf.device).to(dt)
-        h_src = _gather(h[l1], edge_src)                               # [E, mul, d1]
+        h_src = _gather(h_edges[l1], edge_src)                         # [E, mul, d1]
         # m[e, u, m3] = Σ_{m1 m2} C[m3, m1, m2] h_src[e, u, m1] Y[e, m2]
         m = torch.einsum("abc,eub,ec->eua", C, h_src, Y[l2].to(dt))
         msgs[l3].append(m * r[:, p_idx, :, None])                      # [E, mul, d3]
@@ -216,10 +241,12 @@ def _interaction(cfg: NequIPConfig, layer: Mapping[str, torch.Tensor], h, edge_s
                 blk = w_msg[p_i * mul:(p_i + 1) * mul]                 # [mul, mul]
                 term = torch.einsum("eud,um->emd", m, blk)
                 pre = term if pre is None else pre + term
-            mixed = constrain(segment_sum(pre, edge_dst, n_nodes), "nodes", None, None) * inv_deg
+            mixed = constrain(ex.reduce(segment_sum(pre, edge_dst, n_nodes)),
+                              "nodes", None, None) * inv_deg
         else:
             stacked = torch.cat(msgs[l], dim=1)                        # [E, P_l*mul, d]
-            agg = constrain(segment_sum(stacked, edge_dst, n_nodes), "nodes", None, None) * inv_deg
+            agg = constrain(ex.reduce(segment_sum(stacked, edge_dst, n_nodes)),
+                            "nodes", None, None) * inv_deg
             mixed = torch.einsum("nkd,km->nmd", agg, w_msg)
         out[l] = torch.einsum("ncd,cm->nmd", h[l], layer[f"w_self/{l}"].to(dt)) + mixed
 
@@ -252,11 +279,14 @@ def forward_energy(cfg: NequIPConfig, params: Params, positions, species, edge_s
                    edge_dst, graph_id=None, n_graphs: int = 1, node_feat=None
                    ) -> torch.Tensor:
     """Per-graph energies [n_graphs] (one graph without ``graph_id``).
-    positions [N, 3]; edges index into nodes."""
+    positions [N, 3]; edges index into nodes (inside a train step, this
+    rank's share of them: :func:`~repro_torch.distributed.parallel.edge_axis`)."""
+    ex = edge_axis()
     n_nodes = positions.shape[0]
     edge_src = constrain(edge_src.long(), "edges")
     edge_dst = constrain(edge_dst.long(), "edges")
-    rel = _gather(positions, edge_src) - _gather(positions, edge_dst)  # [E, 3]
+    pos = ex.copy(positions)
+    rel = _gather(pos, edge_src) - _gather(pos, edge_dst)              # [E, 3]
     # Smooth norm: grad of ‖·‖ at 0 is NaN, and degenerate (self-)edges must
     # not poison the force computation.
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
@@ -266,9 +296,11 @@ def forward_energy(cfg: NequIPConfig, params: Params, positions, species, edge_s
 
     h = _embed_nodes(cfg, params, species.long(), node_feat)
     stack = {k[len("layers/"):]: v for k, v in params.items() if k.startswith("layers/")}
+    edge_side = _edge_side(cfg)
+    stack = {k: ex.copy(v) if k in edge_side else v for k, v in stack.items()}
     for i in range(cfg.n_layers):
         h = _interaction(cfg, {k: v[i] for k, v in stack.items()}, h, edge_src, edge_dst,
-                         rbf, Y, n_nodes)
+                         rbf, Y, n_nodes, ex)
     atom_e = (silu(h[0][..., 0]) @ params["readout_w"])[..., 0]        # [N]
     if graph_id is None:
         return atom_e.sum()[None]

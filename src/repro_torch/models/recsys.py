@@ -26,16 +26,32 @@ shapes. The inputs carry the reference's sharding constraints
 (:func:`~repro_torch.distributed.constrain`: the identity on a plain
 tensor), and the logical-axis tables are its data.
 
-On several ranks the train step splits the batch over ``"batch"`` and the
-parameters stay plain tensors, replicated over ``"model"`` (exact: every
-``"model"`` rank computes its share's step whole); their ``rows`` sharding
-over ``"model"`` is not run. BERT4Rec's masked loss divides by the whole
-batch's masked count (:func:`~repro_torch.distributed.parallel.batch_total`).
+On several ranks the train step splits the batch over ``"batch"``, and a
+state placed by :func:`~repro_torch.train.elastic.remesh` runs on its
+local shards (:func:`~repro_torch.distributed.parallel.local_shards`):
+each table (DLRM's ``tables/t*``, DeepFM's ``table`` and ``first_order``,
+DIN's ``item_table``, BERT4Rec's ``item_embed``; ``"rows"`` → "model")
+holds rows ``[r·V/m, (r+1)·V/m)`` on rank ``r`` of ``m``. A lookup is the
+LM's vocab-sharded one (:func:`_take`): each rank looks up the ids it
+holds, zeros the others, and the ``"model"`` axis sums the parts
+(:meth:`~repro_torch.distributed.parallel.ModelAxis.reduce`). Only held
+ids are looked up, so a table's sparse gradient holds this rank's touched
+rows at local indices. :func:`embedding_bag` sums a bag's rows on each
+rank before that sum, so a bag whose ids lie on several ranks adds its
+float32 terms in another order than one program (``ROADMAP.md`` C17).
+BERT4Rec's blocks are tensor parallel over ``"qkv"`` and ``"ff"`` (its
+projection's columns cut across q, k and v, so the projection is gathered
+and every rank attends with every head), and its tied softmax runs over
+the vocab-sharded ``item_embed`` as the LM's sharded cross-entropy does.
+Its masked loss divides by the whole batch's masked count
+(:func:`~repro_torch.distributed.parallel.batch_total`). Serving keeps
+whole tables.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
+from functools import partial
 from typing import Any
 
 import numpy as np
@@ -43,7 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecSysConfig
-from repro_torch.distributed.parallel import batch_total
+from repro_torch.distributed.parallel import LOCAL, ModelAxis, batch_total
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import rms_norm
 from repro_torch.utils import resolve_device, tree_items
@@ -63,17 +79,47 @@ def pad_rows(v: int) -> int:
     return -(-v // ROW_PAD) * ROW_PAD
 
 
-def _take(table: torch.Tensor, ids: torch.Tensor, sparse_grad: bool = False) -> torch.Tensor:
+def _held(table: torch.Tensor, ids: torch.Tensor, sparse_grad: bool, tp: ModelAxis
+          ) -> torch.Tensor:
+    """This rank's part of a lookup in its rows of a row-sharded table: the
+    rows of the ids it holds, zeros at the others. Only the held ids are
+    looked up, so a sparse gradient has no entry for an id held elsewhere."""
+    n, d = table.shape
+    local = ids.long().reshape(-1) - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    if table.device.type == "meta":
+        # A trace on meta (the dry run) cannot count the held ids: every id
+        # is looked up and the others zeroed (the same shapes and sums).
+        rows = F.embedding(torch.where(inside, local, 0), table, sparse=sparse_grad)
+        return torch.where(inside[:, None], rows, 0.0).reshape(*ids.shape, d)
+    at = inside.nonzero().squeeze(1)
+    rows = F.embedding(local[at], table, sparse=sparse_grad)
+    return rows.new_zeros((local.shape[0], d)).index_copy(0, at, rows).reshape(*ids.shape, d)
+
+
+def _take(table: torch.Tensor, ids: torch.Tensor, sparse_grad: bool = False,
+          tp: ModelAxis = LOCAL) -> torch.Tensor:
     """Rows of ``table`` at ``ids`` (any shape) → ``[..., D]``. Ids are
-    widened to int64: the largest tables hold more than 2³¹ elements."""
-    return F.embedding(ids.long(), table, sparse=sparse_grad)
+    widened to int64: the largest tables hold more than 2³¹ elements. With
+    ``"rows"`` on ``tp``'s axis the table holds this rank's rows: each rank
+    looks up the ids it holds and the axis sums the parts (exact: one term
+    is not zero)."""
+    if not tp.on("rows"):
+        return F.embedding(ids.long(), table, sparse=sparse_grad)
+    return tp.reduce(_held(table, ids, sparse_grad, tp))
 
 
 def embedding_bag(
-    table: torch.Tensor, ids: torch.Tensor, combine: str = "sum", sparse_grad: bool = False
+    table: torch.Tensor, ids: torch.Tensor, combine: str = "sum", sparse_grad: bool = False,
+    tp: ModelAxis = LOCAL,
 ) -> torch.Tensor:
-    """table [V, D]; ids [..., n_per_bag] → [..., D] (sum/mean over the bag)."""
-    out = _take(table, ids, sparse_grad).sum(dim=-2)
+    """table [V, D]; ids [..., n_per_bag] → [..., D] (sum/mean over the bag).
+    With ``"rows"`` on ``tp``'s axis each rank sums the rows it holds, then
+    the axis sums the bags."""
+    if tp.on("rows"):
+        out = tp.reduce(_held(table, ids, sparse_grad, tp).sum(dim=-2))
+    else:
+        out = _take(table, ids, sparse_grad).sum(dim=-2)
     if combine == "mean":
         out = out / ids.shape[-1]
     return out
@@ -164,11 +210,12 @@ def dot_interact(vecs: torch.Tensor) -> torch.Tensor:
 
 def dlrm_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool = False
                  ) -> torch.Tensor:
+    tp = ModelAxis.of(params, partial(dlrm_logical, cfg))
     dense = constrain(batch["dense"], "batch", None)              # [B, 13]
     sparse = constrain(batch["sparse"], "batch", None, None)      # [B, 26, hot]
     bot = _mlp(dense, params, "bot", torch.relu)                  # [B, D]
     embs = [
-        embedding_bag(params[f"tables/t{i}"], sparse[:, i], sparse_grad=sparse_grad)
+        embedding_bag(params[f"tables/t{i}"], sparse[:, i], sparse_grad=sparse_grad, tp=tp)
         for i in range(len(cfg.vocab_sizes))
     ]
     vecs = torch.stack([bot, *embs], dim=1)                       # [B, 27, D]
@@ -225,9 +272,10 @@ def deepfm_logical(cfg: RecSysConfig) -> dict[str, tuple]:
 
 def deepfm_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool = False
                    ) -> torch.Tensor:
+    tp = ModelAxis.of(params, partial(deepfm_logical, cfg))
     ids = constrain(batch["ids"], "batch", None)                  # [B, 39] global ids
-    v = _take(params["table"], ids, sparse_grad)                  # [B, 39, D]
-    w = _take(params["first_order"], ids, sparse_grad)[..., 0]    # [B, 39]
+    v = _take(params["table"], ids, sparse_grad, tp)              # [B, 39, D]
+    w = _take(params["first_order"], ids, sparse_grad, tp)[..., 0]  # [B, 39]
     fm1 = w.sum(dim=-1)
     s = v.sum(dim=1)
     fm2 = 0.5 * ((s * s).sum(dim=-1) - (v * v).sum(dim=(1, 2)))
@@ -286,11 +334,12 @@ def _din_user_vec(params: Params, hist_vec, target_vec, hist_mask) -> torch.Tens
 
 def din_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool = False
                 ) -> torch.Tensor:
+    tp = ModelAxis.of(params, partial(din_logical, cfg))
     hist = constrain(batch["hist_ids"], "batch", None)            # [B, S]
     target = constrain(batch["target_id"], "batch")               # [B]
     hist_mask = hist >= 0
-    hist_vec = _take(params["item_table"], hist.clamp_min(0), sparse_grad)
-    target_vec = _take(params["item_table"], target, sparse_grad)
+    hist_vec = _take(params["item_table"], hist.clamp_min(0), sparse_grad, tp)
+    target_vec = _take(params["item_table"], target, sparse_grad, tp)
     user = _din_user_vec(params, hist_vec, target_vec, hist_mask)
     feats = torch.cat([user, target_vec, user * target_vec], dim=-1)
     return _mlp(feats, params, "out")[..., 0]
@@ -363,35 +412,72 @@ def bert4rec_logical(cfg: RecSysConfig) -> dict[str, tuple]:
 
 
 def bert4rec_encode(cfg: RecSysConfig, params: Params, ids: torch.Tensor,
-                    sparse_grad: bool = False) -> torch.Tensor:
-    """ids [B, S] → hidden [B, S, D]; bidirectional (no causal mask)."""
+                    sparse_grad: bool = False, tp: ModelAxis = LOCAL) -> torch.Tensor:
+    """ids [B, S] → hidden [B, S, D]; bidirectional (no causal mask). With
+    ``"qkv"`` / ``"ff"`` on ``tp``'s axis the blocks hold this rank's
+    columns (Megatron: ``copy`` in, ``reduce`` out). The projection's
+    columns cut across q, k and v, so it is gathered: every rank attends
+    with every head and keeps its columns of the output for its rows of
+    ``wo``."""
     B, S = ids.shape
     D, H = cfg.embed_dim, cfg.n_heads
     Dh = D // H
-    x = _take(params["item_embed"], ids, sparse_grad) + params["pos_embed"][None, :S]
+    x = _take(params["item_embed"], ids, sparse_grad, tp) + params["pos_embed"][None, :S]
     x = constrain(x, "batch", None, None)
+    heads, ff = tp.on("qkv"), tp.on("ff")
     for layer in range(cfg.n_blocks):
         blk = {k: params[f"blocks/{k}"][layer] for k in _BLOCK_KEYS}
         h = rms_norm(x, blk["ln1"])
-        qkv = (h @ blk["wqkv"]).reshape(B, S, 3, H, Dh)
+        if heads:
+            qkv = tp.gather(tp.copy(h) @ blk["wqkv"], 2, grad="sum")
+        else:
+            qkv = h @ blk["wqkv"]
+        qkv = qkv.reshape(B, S, 3, H, Dh)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(Dh)
         attn = torch.softmax(scores, dim=-1)
         o = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, D)
-        x = x + o @ blk["wo"]
+        if heads:
+            n = blk["wo"].shape[0]
+            x = x + tp.reduce(o[..., tp.rank * n:(tp.rank + 1) * n] @ blk["wo"])
+        else:
+            x = x + o @ blk["wo"]
         h = rms_norm(x, blk["ln2"])
         # jax.nn.gelu defaults to the tanh approximation.
-        x = x + F.gelu(h @ blk["w1"] + blk["b1"], approximate="tanh") @ blk["w2"] + blk["b2"]
+        if ff:
+            y = F.gelu(tp.copy(h) @ blk["w1"] + blk["b1"], approximate="tanh") @ blk["w2"]
+            x = x + tp.reduce(y) + blk["b2"]
+        else:
+            x = x + F.gelu(h @ blk["w1"] + blk["b1"], approximate="tanh") @ blk["w2"] + blk["b2"]
     return rms_norm(x, params["final_ln"])
+
+
+def _tied_logits(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor, tp: ModelAxis
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, gold logit) of the tied softmax ``h · tableᵀ``. With
+    ``"rows"`` on ``tp``'s axis the table holds this rank's items: the
+    logsumexp from the axis's maximum and its sum of exponentials, the gold
+    logit from the rank that holds the label (the LM's sharded
+    cross-entropy)."""
+    if not tp.on("rows"):
+        logits = torch.einsum("bsd,vd->bsv", h, table)
+        gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+        return torch.logsumexp(logits, dim=-1), gold
+    logits = torch.einsum("bsd,vd->bsv", tp.copy(h), table)
+    top = tp.max(logits.amax(dim=-1))
+    logz = top + torch.log(tp.reduce(torch.exp(logits - top[..., None]).sum(dim=-1)))
+    ids = labels - tp.rank * table.shape[0]
+    inside = (ids >= 0) & (ids < table.shape[0])
+    gold = torch.take_along_dim(logits, torch.where(inside, ids, 0)[..., None], dim=-1)[..., 0]
+    return logz, tp.reduce(torch.where(inside, gold, 0.0))
 
 
 def bert4rec_masked_loss(cfg: RecSysConfig, params: Params, batch,
                          sparse_grad: bool = False) -> torch.Tensor:
     """Cloze training: predict items at masked positions (tied softmax)."""
-    h = bert4rec_encode(cfg, params, batch["ids"], sparse_grad)   # [B, S, D]
-    logits = torch.einsum("bsd,vd->bsv", h, params["item_embed"])
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, batch["labels"].long()[..., None], dim=-1)[..., 0]
+    tp = ModelAxis.of(params, partial(bert4rec_logical, cfg))
+    h = bert4rec_encode(cfg, params, batch["ids"], sparse_grad, tp)   # [B, S, D]
+    logz, gold = _tied_logits(h, params["item_embed"], batch["labels"].long(), tp)
     nll = (logz - gold) * batch["mask_pos"]
     count, n = batch_total(batch["mask_pos"].sum())
     if n == 1:

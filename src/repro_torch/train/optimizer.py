@@ -135,7 +135,10 @@ def is_rowwise_table(p: torch.Tensor) -> bool:
 
 
 def adagrad_rowwise(lr: float = 0.01, eps: float = 1e-8) -> Optimizer:
-    """Row-wise Adagrad for big tables; dense Adagrad elsewhere."""
+    """Row-wise Adagrad for big tables; dense Adagrad elsewhere. ``init``
+    picks the tables by :func:`is_rowwise_table` (on the whole parameter);
+    ``update`` follows the state it made (one accumulator per row), so a
+    table's local shard of fewer rows keeps its row-wise step."""
 
     def init(params: dict[str, torch.Tensor]) -> dict:
         return {"acc": {
@@ -148,11 +151,12 @@ def adagrad_rowwise(lr: float = 0.01, eps: float = 1e-8) -> Optimizer:
         new_p, new_a = {}, {}
         for k, p in params.items():
             g, a = grads[k], state["acc"][k]
-            if is_rowwise_table(p) and g.is_sparse:
+            rowwise = a.ndim < p.ndim
+            if rowwise and g.is_sparse:
                 new_p[k], new_a[k] = _rowwise_sparse_(g, a, p, lr, eps)
                 continue
             g = _dense(g)
-            if is_rowwise_table(p):
+            if rowwise:
                 a = a + (g * g).mean(dim=-1)
                 step = g / (torch.sqrt(a)[:, None] + eps)
             else:

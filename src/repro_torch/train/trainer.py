@@ -20,9 +20,7 @@ optimizer, microbatch)`` returns ``step(state, batch, input_logical=None)
   ranks of the mesh axes ``"batch"`` resolves to: each rank takes, from
   each microbatch of the one-program step, its contiguous ``1/n`` (so a
   microbatch of ``m`` rows becomes ``m/n`` rows a rank, and an MoE's
-  dispatch groups, one per sequence, stay whole). Other inputs go whole
-  to every rank; a step with no split input runs whole on every rank and
-  reduces nothing (NequIP's graph batches). The loss runs under
+  dispatch groups, one per sequence, stay whole). The loss runs under
   :func:`~repro_torch.distributed.parallel.rank_share`, so a count over
   the batch can cross ranks (BERT4Rec). Then the loss and the gradients
   are summed over the ranks and divided by their count before the norm,
@@ -33,6 +31,25 @@ optimizer, microbatch)`` returns ``step(state, batch, input_logical=None)
   ``"model"`` shards, :class:`~repro_torch.distributed.parallel.ModelAxis`)
   by redistributing it to its parameter's placements. Every rank takes
   the step the one-program step takes on the whole batch (to rounding).
+- The inputs whose leading logical axis is ``"edges"`` (NequIP's
+  ``edge_src`` and ``edge_dst``) are split the same way over the ranks of
+  the axes ``"edges"`` resolves to, and the loss runs under
+  :func:`~repro_torch.distributed.parallel.edge_share`: the model's
+  node sums cross those ranks, so the loss and every gradient come out
+  whole on each of them and the step reduces nothing for them. Other
+  inputs (node arrays, per-graph targets) go whole to every rank.
+- ``param_logical`` (the parameters' logical axes; the RecSys and NequIP
+  cells bind it): a state of ``DTensor``\\ s whose every leaf is
+  replicated over all mesh axes but ``"model"`` is stepped on its local
+  shards, plain tensors, under
+  :func:`~repro_torch.distributed.parallel.local_shards` (the model reads
+  the ``"model"`` axis through ``ModelAxis.of``: RecSys's row-sharded
+  tables, BERT4Rec's blocks); gradients are reduced over the batch ranks
+  only (a table's sparse rows stay at this rank's local indices and are
+  never gathered over ``"model"``), the global norm sums the squares of
+  the shards over ``"model"``, the optimizer updates each shard (row-wise
+  Adagrad's rows in place) and the new state goes back on the old
+  placements.
 
 Parameters are a flat ``dict[str, Tensor]``; the state is the reference's
 ``TrainState(params, opt_state, step)``.
@@ -40,20 +57,26 @@ Parameters are a flat ``dict[str, Tensor]``; the state is the reference's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections.abc import Callable
 from typing import Any
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.distributed.parallel import (
+    MODEL_AXIS,
+    ModelAxis,
     all_reduce_,
-    batch_groups,
+    axis_groups,
+    edge_share,
     gather_parts,
+    local_shards,
     rank_share,
 )
 from repro_torch.distributed.sharding import constrain
+from repro_torch.train.elastic import map_tree
 from repro_torch.train.optimizer import Optimizer
 
 
@@ -93,12 +116,23 @@ def _values(g: torch.Tensor, fn: Callable) -> torch.Tensor:
     return fn(g)
 
 
-def _split_keys(batch: dict, input_logical: dict | None) -> set:
-    """The inputs whose leading logical axis is ``"batch"`` (every input
-    when no logical axes are given)."""
+def _split_keys(batch: dict, input_logical: dict | None, axis: str = "batch") -> set:
+    """The inputs whose leading logical axis is ``axis`` (for ``"batch"``,
+    every input when no logical axes are given)."""
     if input_logical is None:
-        return set(batch)
-    return {k for k in batch if tuple(input_logical.get(k) or (None,))[0] == "batch"}
+        return set(batch) if axis == "batch" else set()
+    return {k for k in batch if tuple(input_logical.get(k) or (None,))[0] == axis}
+
+
+def step_input_logical(input_logical: dict) -> dict:
+    """The inputs' logical axes as the step splits them: each input's
+    leading axis where it is ``"batch"`` or ``"edges"``, no other."""
+    def cut(lg):
+        lg = tuple(lg or ())
+        return tuple(a if i == 0 and a in ("batch", "edges") else None
+                     for i, a in enumerate(lg))
+
+    return {k: cut(v) for k, v in input_logical.items()}
 
 
 def _rank_share(v: torch.Tensor, n: int, r: int, microbatch: int) -> torch.Tensor:
@@ -154,40 +188,96 @@ def make_train_step(
     grad_clip: float = 0.0,
     accum_dtype: torch.dtype = torch.float32,
 ):
-    def step(state: TrainState, batch, input_logical: dict | None = None
-             ) -> tuple[TrainState, dict]:
+    def step(state: TrainState, batch, input_logical: dict | None = None,
+             param_logical: dict | None = None) -> tuple[TrainState, dict]:
+        placed = None
+        if param_logical is not None and _on_local_shards(state.params):
+            placed = state
+            state = map_tree(lambda t, _: t.to_local() if isinstance(t, DTensor) else t,
+                             state, state)
         params = state.params
         split = _split_keys(batch, input_logical)
-        groups, n_dp, r_dp = batch_groups() if split else ([], 1, 0)
+        edges = _split_keys(batch, input_logical, "edges")
+        groups, n_dp, r_dp = axis_groups("batch") if split else ([], 1, 0)
+        e_groups, n_e, r_e = axis_groups("edges") if edges else ([], 1, 0)
         mbatch = microbatch
         if n_dp > 1:
             batch = {k: _rank_share(v, n_dp, r_dp, microbatch) if k in split else v
                      for k, v in batch.items()}
             mbatch = microbatch // n_dp
-        with rank_share(groups, n_dp):
-            if mbatch:
-                loss, grads = _accumulate(loss_fn, params, batch, split, mbatch, accum_dtype,
-                                          state.step.device)
-            else:
-                loss, grads = _grads(loss_fn, params, batch)
-                grads = {k: g.coalesce() if g.is_sparse else g for k, g in grads.items()}
+        if n_e > 1:
+            batch = {k: _rank_share(v, n_e, r_e, 0) if k in edges else v
+                     for k, v in batch.items()}
+        with rank_share(groups, n_dp), edge_share(e_groups, n_e, r_e):
+            tp = (ModelAxis.of(placed.params, lambda: param_logical) if placed is not None
+                  else None)
+            with local_shards(tp) if tp is not None else contextlib.nullcontext():
+                if mbatch:
+                    loss, grads = _accumulate(loss_fn, params, batch, split, mbatch,
+                                              accum_dtype, state.step.device)
+                else:
+                    loss, grads = _grads(loss_fn, params, batch)
+                    grads = {k: g.coalesce() if g.is_sparse else g for k, g in grads.items()}
         if n_dp > 1:
             loss = all_reduce_(loss.clone(), groups).div_(n_dp)
         grads = {k: _reduce(g, params[k], groups, n_dp) for k, g in grads.items()}
 
-        gnorm = optax_global_norm(grads)
+        if tp is not None and tp.size > 1:
+            sharded = {k for k, p in placed.params.items() if _model_shard(p)}
+            gnorm = optax_global_norm(grads, sharded, tp)
+        else:
+            gnorm = optax_global_norm(grads)
         if grad_clip > 0:
             scale = torch.clamp_max(grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
             grads = {k: _values(g, lambda v: v * scale) for k, g in grads.items()}
 
         new_params, new_opt = optimizer.update(grads, state.opt_state, params)
-        new_state = _placed_like(
-            TrainState(params=new_params, opt_state=new_opt, step=state.step + 1), state)
+        new_state = TrainState(params=new_params, opt_state=new_opt, step=state.step + 1)
+        if placed is not None:
+            new_state = _rewrap(new_state, placed)
+        else:
+            new_state = _placed_like(new_state, state)
         if isinstance(gnorm, DTensor):
             gnorm = gnorm.full_tensor()
         return new_state, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+def _model_shard(p: Any) -> bool:
+    """Whether ``p`` is a ``DTensor`` split over ``"model"``."""
+    if not isinstance(p, DTensor):
+        return False
+    names = p.device_mesh.mesh_dim_names
+    return isinstance(p.placements[names.index(MODEL_AXIS)], Shard)
+
+
+def _on_local_shards(params: dict) -> bool:
+    """Whether ``params`` are ``DTensor``\\ s replicated over every mesh
+    axis but ``"model"`` (raises where they are ``DTensor``\\ s otherwise
+    placed: such a state needs the ``DTensor`` step)."""
+    leaves = [p for p in params.values() if isinstance(p, DTensor)]
+    if not leaves:
+        return False
+    for p in leaves:
+        names = p.device_mesh.mesh_dim_names
+        if any(n != MODEL_AXIS and not isinstance(pl, Replicate)
+               for n, pl in zip(names, p.placements)):
+            raise ValueError(f"a local-shard step needs every leaf replicated over all axes "
+                             f"but {MODEL_AXIS!r}; got {p.placements}")
+    return True
+
+
+def _rewrap(new: TrainState, placed: TrainState) -> TrainState:
+    """``new``'s local tensors as ``DTensor``\\ s on the placements of
+    the same leaves of ``placed``."""
+    def wrap(t: Any, old: Any) -> Any:
+        if not isinstance(old, DTensor):
+            return t
+        return DTensor.from_local(t, old.device_mesh, old.placements, run_check=False,
+                                  shape=old.shape, stride=old.stride())
+
+    return map_tree(wrap, new, placed)
 
 
 def _placed_like(new: Any, old: Any) -> Any:
@@ -242,11 +332,19 @@ def _accumulate(loss_fn: Callable, params: dict, batch: dict, split: set, mbatch
     return loss_sum / n_chunks, grads
 
 
-def optax_global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
+def optax_global_norm(grads: dict[str, torch.Tensor], sharded: set = frozenset(),
+                      tp: ModelAxis | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient; a coalesced sparse
-    gradient counts its stored rows (each row once)."""
-    return torch.sqrt(sum(
-        torch.sum(torch.square((g.values() if g.is_sparse else g).float()))
-        for g in grads.values()
-    ))
+    gradient counts its stored rows (each row once). The gradients named in
+    ``sharded`` are this rank's shards over ``tp``'s axis: their squares
+    are summed over it."""
+    def sq(g):
+        return torch.sum(torch.square((g.values() if g.is_sparse else g).float()))
+
+    if not sharded:
+        return torch.sqrt(sum(sq(g) for g in grads.values()))
+    zero = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+    split = sum((sq(g) for k, g in grads.items() if k in sharded), zero)
+    whole = sum((sq(g) for k, g in grads.items() if k not in sharded), zero)
+    return torch.sqrt(tp.reduce(split) + whole)
 

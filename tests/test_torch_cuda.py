@@ -1271,8 +1271,9 @@ def _pt_cell(arch: str):
 @pytest.mark.parametrize("arch", ["dlrm-rm2", "deepfm", "din", "bert4rec", "nequip",
                                   "qwen3-4b", "deepseek-moe-16b"])
 def test_train_steps_on_the_local_mesh_equal_the_steps_without_rules(dev, arch):
-    """Two steps under single_pod_rules on make_local_mesh(cuda) (an LM's
-    state placed as DTensors by remesh) bit-equal to two without rules."""
+    """Two steps under single_pod_rules on make_local_mesh(cuda) (the
+    state placed as DTensors by remesh: an LM computes on them, RecSys and
+    NequIP step on their local shards) bit-equal to two without rules."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.distributed import sharding_rules, single_pod_rules
@@ -1281,7 +1282,7 @@ def test_train_steps_on_the_local_mesh_equal_the_steps_without_rules(dev, arch):
     from repro_torch.train import remesh
     from repro_torch.utils import tree_items
 
-    cell, lm = _pt_cell(arch)
+    cell, _ = _pt_cell(arch)
     batch = as_tensors(synthesize_inputs(cell, seed=4), dev)
     mesh, rules = make_local_mesh(dev), single_pod_rules()
 
@@ -1297,17 +1298,13 @@ def test_train_steps_on_the_local_mesh_equal_the_steps_without_rules(dev, arch):
         return state, seen
 
     want, plain = run(cell.init_state(0, dev), False)
-    state = cell.init_state(0, dev)
-    if lm:
-        state = remesh(state, cell.state_logical(), rules, mesh)
+    state = remesh(cell.init_state(0, dev), cell.state_logical(), rules, mesh)
     got, ruled = run(state, True)
     assert ruled == plain
     want = dict(tree_items(want))
     for k, t in tree_items(got):
-        if lm:
-            assert isinstance(t, DTensor), k
-            t = t.to_local()
-        assert torch.equal(t, want[k]), k
+        assert isinstance(t, DTensor), k
+        assert torch.equal(t.to_local(), want[k]), k
 
 
 @pytest.mark.parametrize("n", [2, 8])

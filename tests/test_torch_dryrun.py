@@ -271,3 +271,69 @@ def test_sharded_step_has_activation_collectives_on_a_fake_4x2_group():
     assert got["act"]["all-reduce"] > 0 and got["act"]["all-gather"] > 0, got
     assert sum(got["act"].values()) > 0
     assert sum(got["one"].values()) == 0, got
+
+
+_RECSYS_NEQUIP_PROG = r"""
+import dataclasses, json
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+
+out = {}
+for arch, shape in (
+    ("dlrm-rm2", next(s for s in get_config("dlrm-rm2").shapes if s.name == "train_batch")),
+    ("nequip", next(s for s in get_config("nequip").shapes if s.name == "ogb_products")),
+    ("dlrm-rm2", ShapeSpec(name="uneven", kind="train", batch=24)),
+):
+    cfg = dataclasses.replace(get_smoke_config(arch), shapes=(shape,))
+    record, _ = dryrun.run_cell(arch, shape.name, multi_pod=False, override_cfg=cfg)
+    out[f"{arch} {shape.name}"] = record
+print("RECORDS", json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def recsys_nequip_records():
+    """The fake 16 x 16 dry run of DLRM-RM2's ``train_batch`` and NequIP's
+    ``ogb_products`` (registry shapes, smoke widths), and of a DLRM batch
+    of 24, which does not split over 16 data ranks."""
+    res = subprocess.run(
+        [sys.executable, "-c", _RECSYS_NEQUIP_PROG], capture_output=True, text=True,
+        timeout=300, cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+    )
+    line = [x for x in res.stdout.splitlines() if x.startswith("RECORDS ")]
+    assert line, res.stdout + res.stderr[-4000:]
+    return json.loads(line[0][len("RECORDS "):])
+
+
+def test_dlrm_train_records_row_lookup_sums_over_model(recsys_nequip_records):
+    """Rows over "model": each of the 26 tables' lookups is summed over the
+    axis, [4,096 rows a device, 26 tables, D] float32 at least once, and the
+    collective term counts it beside the parameters' traffic."""
+    rec = recsys_nequip_records["dlrm-rm2 train_batch"]
+    cfg = port_configs.get_smoke_config("dlrm-rm2")
+    act = rec["activation_collectives"]
+    lookups = 65536 // 16 * len(cfg.vocab_sizes) * cfg.embed_dim * 4
+    assert act["all-reduce"] >= lookups, act
+    assert rec["roofline"]["coll_breakdown"]["all-reduce"] >= act["all-reduce"] / 256
+
+
+def test_nequip_ogb_products_records_per_layer_node_sums(recsys_nequip_records):
+    """Edges over all 256 ranks: every layer sums its node aggregates
+    (``[N, paths · mul, 2l + 1]`` for l = 0, 1, 2) over the edge ranks; the
+    node arrays count whole on each device."""
+    rec = recsys_nequip_records["nequip ogb_products"]
+    cfg = port_configs.get_smoke_config("nequip")
+    shape = next(s for s in port_configs.get_config("nequip").shapes if s.name == "ogb_products")
+    n = -(-shape.n_nodes // 512) * 512
+    act = rec["activation_collectives"]
+    assert act["all-reduce"] >= cfg.n_layers * n * cfg.d_hidden * (1 + 3 + 5) * 4, act
+    positions = n * 3 * 4
+    node_feat = n * shape.d_feat * 4
+    assert rec["memory"]["per_device_argument_bytes"] >= positions + node_feat, rec["memory"]
+
+
+def test_a_batch_that_does_not_split_says_so(recsys_nequip_records):
+    rec = recsys_nequip_records["dlrm-rm2 uneven"]
+    assert rec["activation_collectives"].startswith("no sharded step"), rec
+    assert rec["divisibility"], rec

@@ -9,7 +9,11 @@ generation — and NequIP's — so3, the model, the neighbor sampler — among
 them — and the serving guards': the host-read guard, the shape-checked
 lane and the analyzer) and the
 ``chip_smoke`` script (without running it) and
-check that no ``jax*`` or ``repro.*`` module was loaded. Without a card, ``chip_smoke.py`` must fail
+check that no ``jax*`` or ``repro.*`` module was loaded. The port's
+examples (``examples/torch_*.py``) and tools (``tools/torch_*.py``) are
+loaded in the same interpreter, and every
+``import`` statement in them (inside functions too) names neither JAX nor
+``repro``. Without a card, ``chip_smoke.py`` must fail
 and print no result, also when it is alone in a directory.
 """
 
@@ -122,6 +126,12 @@ from repro_torch.train import remesh
 from repro_torch.train.elastic import validate_divisibility
 from repro_torch.serve.placement import data_parallel, local
 assert len(list(all_cells())) == 84 and sum(map(len, variants().values())) == 13
+import glob, importlib.util, os
+scripts = sorted(glob.glob("examples/torch_*.py") + glob.glob("tools/torch_*.py"))
+assert len(scripts) >= 7, scripts
+for path in scripts:   # loaded as modules: their main() does not run
+    spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib", "jaxtyping", "repro."))
@@ -145,6 +155,29 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     n_modules, leaked = out.stdout.strip().split(" ", 1)
     assert int(n_modules) >= 20, out.stdout
     assert leaked == "[]", leaked
+
+
+_SCRIPTS = sorted(
+    os.path.relpath(os.path.join(d, f), ROOT)
+    for d in (os.path.join(ROOT, "examples"), os.path.join(ROOT, "tools"))
+    for f in os.listdir(d) if f.startswith("torch_") and f.endswith(".py")
+) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _SCRIPTS)
+def test_script_imports_name_no_jax_and_nothing_of_repro(path):
+    import ast
+
+    tree = ast.parse(open(os.path.join(ROOT, path)).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+    assert names, path
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -1,5 +1,6 @@
-"""The train step on a ``(data, model)`` mesh: tensor and expert
-parallelism over ``"model"`` for the LM family, in ``gloo`` processes.
+"""The train step on a ``(data, model)`` mesh, in ``gloo`` processes:
+tensor and expert parallelism over ``"model"`` for the LM family, RecSys
+tables split by rows over ``"model"``, NequIP's edges over every rank.
 
 - Mesh ``(2, 2)`` in four ranks under ``single_pod_rules`` (FSDP over
   ``"data"``: ``embed`` → "data"; ``ff``, ``qkv``, ``vocab``, ``experts``
@@ -9,8 +10,18 @@ parallelism over ``"model"`` for the LM family, in ``gloo`` processes.
   Llama-4-Maverick (Adafactor's factored moments on sharded leaves; no
   microbatches, as its cell accumulates them in bfloat16). Their states
   are placed by ``remesh`` from ``state_logical()``; the step runs on
-  those ``DTensor``\\ s. DLRM-RM2 (sparse rows) and a NequIP graph batch
-  run on the same mesh with plain parameters, replicated over ``"model"``.
+  those ``DTensor``\\ s. DLRM-RM2 (row-wise Adagrad on sparse rows: every
+  smoke table counts as row-wise here; also with bags of three ids, whose
+  rows lie on both ranks, C17), DeepFM, DIN and BERT4Rec (its
+  blocks tensor parallel over ``"qkv"`` and ``"ff"``, its tied softmax
+  over the row-sharded ``item_embed``), placed the same way, step on
+  their local shards: each rank holds half of every table's rows and of
+  its row-wise state, and a table's sparse gradient holds exactly the
+  one-program step's touched rows in the rank's range. A NequIP graph
+  batch with forces splits its edges over the four ranks (in float64 at
+  1e-6, also on a ``(2, 1)`` mesh; in float32 at NequIP's tolerance):
+  each rank runs its quarter (half) of the padded edges, and the forces
+  loss's double backward crosses the ranks.
 - Mesh ``(4, 2)`` in eight ranks: the reference's own case
   (``tests/test_distributed.py::test_8device_spmd_train_step``), its rule
   table (no FSDP), DeepSeek-MoE-16B smoke, B 8, sequence 32, microbatch 4.
@@ -34,8 +45,10 @@ the shard its logical axes resolve to (no parameter is replicated behind
 the rules' back); the gradients within 1e-5 of each leaf's max (the
 tensor-parallel partial sums add rounding: 1.4e-6 seen); and every
 updated parameter within 1e-6 of its leaf's max plus AdamW's first-step
-term (C13). The families with plain parameters are bit-equal across
-ranks and within 1e-6 of the one-process step.
+term (C13). The RecSys and NequIP cases hold their gradients within 1e-6
+of each leaf's max (a leaf whose gradient is rounding only, DIN's last
+attention bias, is held by its update), NequIP's float32 case at 1e-4.
+On the one-rank mesh the local-shard step is bit-equal to the plain one.
 """
 
 import json
@@ -64,8 +77,9 @@ from repro_torch.configs.base import ShapeSpec, TransformerConfig
 from repro_torch.distributed import sharding_rules, single_pod_rules
 from repro_torch.distributed.sharding import Rules
 from repro_torch.launch.mesh import join_ranks
+from repro_torch.models import nequip
 from repro_torch.models.api import make_cell
-from repro_torch.train import trainer
+from repro_torch.train import optimizer, trainer
 from repro_torch.train.elastic import axis_sizes, logical_leaves, remesh
 from repro_torch.train.optimizer import get_optimizer
 from repro_torch.utils import tree_items
@@ -93,13 +107,38 @@ TABLES = {
 }
 seen = []
 norm = trainer.optax_global_norm
-trainer.optax_global_norm = lambda g: seen.append(g) or norm(g)
+trainer.optax_global_norm = lambda g, *a: seen.append(g) or norm(g, *a)
+# Every smoke table row-wise (its padded 512 rows), so the row-wise state
+# is placed and stepped too.
+optimizer.ROWWISE_MIN_ROWS = 512
+edges_seen = []   # the edges each NequIP energy of a step ran on
+energy = nequip.forward_energy
+nequip.forward_energy = lambda cfg, p, pos, sp, src, *a, **k: (
+    edges_seen.append(int(src.shape[0])) or energy(cfg, p, pos, sp, src, *a, **k))
 LR, EPS = 1e-3, 1e-8
 
 
-def full(t):
+def full(t, like=None):
+    # A local shard (a local-shard step's gradient) goes whole through the
+    # placements of ``like``.
+    if isinstance(like, DTensor) and not isinstance(t, DTensor):
+        t = t.to_dense() if t.is_sparse else t
+        t = DTensor.from_local(t, like.device_mesh, like.placements, run_check=False,
+                               shape=like.shape, stride=like.stride())
     t = t.full_tensor() if isinstance(t, DTensor) else t
     return (t.to_dense() if t.is_sparse else t).float()
+
+
+def touched(g, like):
+    # (this rank's touched rows at global indices, the row range it holds)
+    # of a sparse local-shard gradient; (all rows, everything) otherwise.
+    if not g.is_sparse:
+        return None
+    rows = g.coalesce().indices()[0]
+    if not isinstance(like, DTensor) or not isinstance(like.placements[1], Shard):
+        return rows.tolist(), (0, g.shape[0])
+    lo = mesh.get_coordinate()[1] * g.shape[0]
+    return (rows + lo).tolist(), (lo, lo + g.shape[0])
 
 
 def rel(a, b):
@@ -121,34 +160,49 @@ def report(name, **out):
 
 
 sizes = axis_sizes(mesh)
-for name, (arch, cell_shape, placed_by, step_by) in json.load(open(f"{path}/{shape}/manifest.json")).items():
+for name, (arch, cell_shape, placed_by, step_by, dtype, config) in json.load(
+        open(f"{path}/{shape}/manifest.json")).items():
     if step_by is None:   # a case of another mesh
         continue
     rules, step_rules = TABLES[placed_by], TABLES[step_by]
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype, **config)
     lm = isinstance(cfg, TransformerConfig)
     cell = make_cell(cfg, ShapeSpec(name="t", **cell_shape))
     flat = dict(np.load(f"{path}/{name}/params.npz"))
     batch = {k: torch.as_tensor(v) for k, v in np.load(f"{path}/{name}/batch.npz").items()}
+    batch = {k: v.to(getattr(torch, dtype)) if v.is_floating_point() else v
+             for k, v in batch.items()}
 
     def init():
-        params = {k: torch.tensor(v) for k, v in flat.items()}
+        params = {k: torch.tensor(v).to(getattr(torch, dtype)) for k, v in flat.items()}
         return trainer.init_state(params, get_optimizer(cfg.optimizer))
 
-    state = remesh(init(), cell.state_logical(), rules, mesh) if lm else init()
+    state = remesh(init(), cell.state_logical(), rules, mesh)
     seen.clear()
+    edges_seen.clear()
     try:
         with sharding_rules(step_rules, mesh):
             new, m = cell.step(state, batch)
+        n_edges = sorted(set(edges_seen))
     except ValueError as e:
         report(name, error=str(e))
         continue
     one, one_m = cell.step(init(), batch)
+    logical_axes = cell.state_logical().params
     g_mp, g_one = seen
-    excess, grad_rel = 0.0, 0.0
+    excess, grad_rel, rows_held = 0.0, 0.0, True
+    # A leaf whose gradient is zero but for rounding (DIN's last attention
+    # bias, which the softmax makes shift-invariant) is held by its update.
+    top = max(float(full(g).abs().max()) for g in g_one.values())
     for k, want in one.params.items():
-        a, b = full(g_mp[k]), full(g_one[k])
-        grad_rel = max(grad_rel, rel(a, b))
+        a, b = full(g_mp[k], new.params[k]), full(g_one[k])
+        held = float(b.abs().max()) >= 2**-23 * top
+        mine = touched(g_mp[k], new.params[k])
+        if mine is not None:
+            lo, hi = mine[1]
+            one_rows = g_one[k].coalesce().indices()[0]
+            rows_held &= mine[0] == one_rows[(one_rows >= lo) & (one_rows < hi)].tolist()
+        grad_rel = max(grad_rel, rel(a, b) if held else 0.0)
         gmin = torch.where(a.sign() == b.sign(), torch.minimum(a.abs(), b.abs()), 0.0)
         bound = LR * (a - b).abs() * EPS / (gmin + EPS) ** 2 + 1e-6 * want.abs().max()
         excess = max(excess, float(((full(new.params[k]) - want).abs() - bound).max()))
@@ -159,10 +213,15 @@ for name, (arch, cell_shape, placed_by, step_by) in json.load(open(f"{path}/{sha
         total += leaf.numel() * leaf.element_size()
         ways = math.prod(sizes[a] for e in rules.resolve(*lg)
                          for a in ((e,) if isinstance(e, str) else (e or ())))
-        want_bytes += leaf.numel() * leaf.element_size() // (ways if lm else 1)
+        want_bytes += leaf.numel() * leaf.element_size() // ways
     report(name, loss=float(m["loss"]), one_loss=float(one_m["loss"]),
            norm=float(m["grad_norm"]), one_norm=float(one_m["grad_norm"]),
-           grad_rel=grad_rel, param_excess=excess,
+           grad_rel=grad_rel, param_excess=excess, rows_held=rows_held,
+           sparse=sorted(k for k, g in g_mp.items() if g.is_sparse),
+           local_tables={k: [list(v.to_local().shape), list(v.shape)]
+                         for k, v in new.params.items()
+                         if (logical_axes[k] or (None,))[0] == "rows"},
+           edges=n_edges,
            dtensor=all(isinstance(v, DTensor) for v in new.params.values()),
            local_bytes=local, want_bytes=want_bytes, total_bytes=total,
            shards={f"{k}@{shard_key(t)}": digest([t]) for k, t in tree_items(new)},
@@ -171,6 +230,8 @@ dist.destroy_process_group()
 """
 
 LM = dict(kind="train", seq_len=32, global_batch=8, microbatch=4)
+RECSYS = dict(kind="train", batch=16, microbatch=8)
+GRAPHS = dict(kind="train", n_nodes=10, n_edges=20, graph_batch=8)   # forces: a double backward
 # name -> (arch, shape, mesh, the table that places the state, the table
 # the step runs under).
 CASES = {
@@ -179,16 +240,30 @@ CASES = {
     "minitron-4b": ("minitron-4b", LM, "2x2", "single_pod", "single_pod"),
     "llama4-maverick-400b-a17b": ("llama4-maverick-400b-a17b", dict(LM, microbatch=0), "2x2",
                                   "single_pod", "single_pod"),
-    "dlrm-rm2": ("dlrm-rm2", dict(kind="train", batch=16, microbatch=8), "2x2", "single_pod",
-                 "single_pod"),
-    "nequip": ("nequip", dict(kind="train", n_nodes=10, n_edges=20, graph_batch=8), "2x2",
-               "single_pod", "single_pod"),
+    "dlrm-rm2": ("dlrm-rm2", RECSYS, "2x2", "single_pod", "single_pod"),
+    "dlrm-rm2 bags": ("dlrm-rm2", RECSYS, "2x2", "single_pod", "single_pod"),
+    "deepfm": ("deepfm", dict(kind="train", batch=16), "2x2", "single_pod", "single_pod"),
+    "din": ("din", dict(kind="train", batch=16), "2x2", "single_pod", "single_pod"),
+    "bert4rec": ("bert4rec", RECSYS, "2x2", "single_pod", "single_pod"),
+    "nequip": ("nequip", GRAPHS, "2x2", "single_pod", "single_pod"),
+    "nequip f32": ("nequip", GRAPHS, "2x2", "single_pod", "single_pod"),
+    "nequip 2x1": ("nequip", GRAPHS, "2x1", "single_pod", "single_pod"),
     "qwen3-4b ff_qkv_off": ("qwen3-4b", LM, "2x2", "single_pod", "ff_qkv_off"),
     "qwen3-4b batch_on_model": ("qwen3-4b", LM, "2x2", "single_pod", "batch_on_model"),
     "deepseek-moe-16b 4x2": ("deepseek-moe-16b", LM, "4x2", "reference", "reference"),
 }
+# NequIP's forces in float32 are some 1e-5 of their max from the float64
+# step on these molecules, so a change of summation order moves them by as
+# much (ROADMAP C18): these cases run the float64 step, "nequip f32" is
+# held at NequIP's stated tolerance (TOL of tests/test_torch_nequip.py).
+FLOAT64 = ("nequip", "nequip 2x1")
+# Config fields a case changes (on both sides): bags of three ids, whose
+# rows lie on both "model" ranks (ROADMAP C17).
+CONFIG = {"dlrm-rm2 bags": {"multi_hot": 3}}
+NEQUIP_TOL = 1e-4
 LM_2X2 = ("qwen3-4b", "deepseek-moe-16b", "minitron-4b", "llama4-maverick-400b-a17b")
-MESH_2X2 = (*LM_2X2, "dlrm-rm2", "nequip")
+RECSYS_2X2 = ("dlrm-rm2", "dlrm-rm2 bags", "deepfm", "din", "bert4rec")
+MESH_2X2 = (*LM_2X2, *RECSYS_2X2, "nequip")
 
 
 def _world(shape: str) -> int:
@@ -202,15 +277,16 @@ def mesh_runs(tmp_path_factory):
     path = tmp_path_factory.mktemp("mp")
     built = {}   # one case for each arch and shape
     for name, (arch, shape, *_) in CASES.items():
-        key = json.dumps([arch, shape])
+        key = json.dumps([arch, shape, CONFIG.get(name)])
         if key not in built:
-            built[key] = case(arch, shape)
+            built[key] = case(arch, shape, config=CONFIG.get(name))
         built[key].save(path / name)
     procs = {}
-    for shape in ("2x2", "4x2"):
+    for shape in ("2x2", "4x2", "2x1"):
         (path / shape).mkdir()
         with open(path / shape / "manifest.json", "w") as f:
-            json.dump({name: (arch, cell_shape, placed, step if mesh == shape else None)
+            json.dump({name: (arch, cell_shape, placed, step if mesh == shape else None,
+                              "float64" if name in FLOAT64 else "float32", CONFIG.get(name, {}))
                        for name, (arch, cell_shape, mesh, placed, step) in CASES.items()}, f)
         procs[shape] = gloo_ranks.start(_RANK_PROG, _world(shape), str(path), shape)
     try:
@@ -218,12 +294,14 @@ def mesh_runs(tmp_path_factory):
     finally:
         for p in procs.values():
             gloo_ranks.join(p)
-    return {name: (ref_loss[json.dumps([arch, shape])],
+    return {name: (ref_loss[json.dumps([arch, shape, CONFIG.get(name)])],
                    [json.load(open(path / name / f"{mesh}.{r}.json")) for r in range(_world(mesh))])
             for name, (arch, shape, mesh, _, _) in CASES.items()}
 
 
-def _hold(ref_loss: float, ranks: list, lm: bool) -> None:
+def _hold(ref_loss: float, ranks: list, lm: bool, tol: float = 1e-6) -> None:
+    """``tol``: the loss, norm and gradients' bound against one process
+    (the LM's gradients 1e-5)."""
     r0 = ranks[0]
     for r in ranks:   # the identical step on every rank
         assert (r["loss"], r["norm"], r["step"]) == (r0["loss"], r0["norm"], 1), r
@@ -231,22 +309,58 @@ def _hold(ref_loss: float, ranks: list, lm: bool) -> None:
     for r in ranks:   # ranks holding the same shard hold the same bits
         for key, d in r["shards"].items():
             assert shards.setdefault(key, d) == d, key
-    assert abs(r0["loss"] - r0["one_loss"]) <= 1e-6 * abs(r0["one_loss"]), r0
-    assert abs(r0["norm"] - r0["one_norm"]) <= 1e-6 * abs(r0["one_norm"]), r0
+    assert abs(r0["loss"] - r0["one_loss"]) <= tol * abs(r0["one_loss"]), r0
+    assert abs(r0["norm"] - r0["one_norm"]) <= tol * abs(r0["one_norm"]), r0
     assert r0["param_excess"] <= 0.0, r0
     for r in ranks:
         assert r["local_bytes"] == r["want_bytes"], r
-    if lm:
-        assert r0["dtensor"], r0
-        assert r0["grad_rel"] <= 1e-5, r0
-    else:
-        assert r0["grad_rel"] <= 1e-6, r0
+        assert r["rows_held"], r
+    assert r0["dtensor"], r0
+    assert r0["grad_rel"] <= (1e-5 if lm else tol), r0
     np.testing.assert_allclose(r0["loss"], ref_loss, rtol=F32_TOL)
 
 
 @pytest.mark.parametrize("arch", MESH_2X2)
 def test_step_on_a_2x2_mesh(arch, mesh_runs):
     _hold(*mesh_runs[arch], lm=arch in LM_2X2)
+
+
+@pytest.mark.parametrize("arch", RECSYS_2X2)
+def test_recsys_tables_are_split_by_rows_over_model(arch, mesh_runs):
+    """Each rank holds half of every table's rows (and of its row-wise
+    Adagrad state: ``local_bytes`` above); a table's sparse gradient holds
+    exactly the one-program step's touched rows in this rank's range, at
+    local indices (``rows_held``)."""
+    _, ranks = mesh_runs[arch]
+    for r in ranks:
+        assert r["local_tables"], r
+        for k, (local, whole) in r["local_tables"].items():
+            assert local == [whole[0] // 2, *whole[1:]], (k, r["rank"])
+    if arch.startswith("dlrm"):   # row-wise Adagrad: the tables' gradients are sparse rows
+        assert ranks[0]["sparse"] == sorted(ranks[0]["local_tables"]), ranks[0]
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "2x2"])
+def test_nequip_forces_step_with_edges_over_every_rank(mesh, mesh_runs):
+    """NequIP's forces loss (a double backward through the node sums over
+    the edge ranks) on 2 and 4 ranks, in float64: each rank runs its
+    contiguous share of the padded edges, and the step is within 1e-6 of
+    one process, its parameter gradients included. A collective whose
+    backward could not be differentiated would leave the other ranks'
+    share out of them."""
+    ref_loss, ranks = mesh_runs["nequip" if mesh == "2x2" else f"nequip {mesh}"]
+    _hold(ref_loss, ranks, lm=False)
+    n = len(ranks)
+    edges = 512   # the GRAPHS batch's 160 edges padded to 512
+    for r in ranks:
+        assert r["edges"] == [edges // n], r
+
+
+def test_nequip_float32_step_with_edges_over_every_rank(mesh_runs):
+    """The same step in float32, held at NequIP's stated tolerance (1e-4):
+    the one-process float32 step is itself ~1e-5 of its gradients' max
+    from float64 on these molecules (C18)."""
+    _hold(*mesh_runs["nequip f32"], lm=False, tol=NEQUIP_TOL)
 
 
 def test_lm_ranks_hold_a_fraction_of_the_state(mesh_runs):
@@ -319,6 +433,52 @@ def test_lm_step_on_the_one_rank_mesh_is_the_plain_step(arch):
     want = dict(tree_items(want))
     for k, t in tree_items(got):
         assert isinstance(t, DTensor), k
+        assert torch.equal(t.to_local(), want[k]), k
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("dlrm-rm2", RECSYS), ("bert4rec", RECSYS), ("nequip", GRAPHS),
+])
+def test_local_shard_step_on_the_one_rank_mesh_is_the_plain_step(arch, shape):
+    """On ``make_local_mesh("cpu")`` a RecSys or NequIP state placed by
+    ``remesh`` steps on its local shards: a row-sharded lookup over one
+    rank and an edge split over one rank are the identity, so two steps
+    are bit-equal to two plain steps, every leaf back on its placements."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding_rules, single_pod_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train import remesh
+    from repro_torch.utils import tree_items
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cell = make_cell(cfg, ShapeSpec(name="t", **shape))
+    batch = as_tensors(synthesize_inputs(cell, seed=4), "cpu")
+    mesh, rules = make_local_mesh("cpu"), single_pod_rules()
+
+    def run(state, ruled):
+        seen = []
+        for _ in range(2):
+            with sharding_rules(rules if ruled else None, mesh if ruled else None):
+                state, m = cell.step(state, batch)
+            seen.append((float(m["loss"]), float(m["grad_norm"])))
+        return state, seen
+
+    want, plain = run(cell.init_state(0, "cpu"), False)
+    placed = remesh(cell.init_state(0, "cpu"), cell.state_logical(), rules, mesh,
+                    src_data_rank=None)
+    got, ruled = run(placed, True)
+    assert ruled == plain
+    want = dict(tree_items(want))
+    for (k, t), (_, p) in zip(tree_items(got), tree_items(placed), strict=True):
+        assert isinstance(t, DTensor) and t.placements == p.placements, k
         assert torch.equal(t.to_local(), want[k]), k
 
 

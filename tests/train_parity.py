@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+from nequip_parity import molecule_batch
 
 from repro import configs as ref_configs
 from repro.models.api import make_cell as ref_make_cell
@@ -70,14 +71,27 @@ class Case:
         return float(jax.jit(self.ref_cell.step)(state, self.batch)[1]["loss"])
 
 
-def case(arch: str, shape: dict, mask: str | None = None, seed: int = 3) -> Case:
+def case(arch: str, shape: dict, mask: str | None = None, seed: int = 3,
+         config: dict | None = None) -> Case:
     """A float32 smoke case of ``arch`` at ``shape`` (``ShapeSpec``'s
-    fields); ``mask`` sets BERT4Rec's masked positions."""
-    pcfg = dataclasses.replace(port_configs.get_smoke_config(arch), dtype="float32")
+    fields); ``mask`` sets BERT4Rec's masked positions. A NequIP graph
+    batch is ``graph_batch`` molecules of ``n_nodes`` atoms and ``n_edges``
+    edges (:func:`nequip_parity.molecule_batch`), padded as the cell's.
+    ``config``: fields of both packages' configs to change."""
+    pcfg = dataclasses.replace(port_configs.get_smoke_config(arch), dtype="float32",
+                               **(config or {}))
     params = make_cell(pcfg, port_base.ShapeSpec(name="t", **shape)).init_state(0, "cpu").params
-    rcfg = dataclasses.replace(ref_configs.get_smoke_config(arch), dtype="float32")
+    rcfg = dataclasses.replace(ref_configs.get_smoke_config(arch), dtype="float32",
+                               **(config or {}))
     ref_cell = ref_make_cell(rcfg, ref_configs.base.ShapeSpec(name="t", **shape))
     raw = ref_synth(ref_cell, seed=seed)
+    if shape.get("graph_batch"):
+        # Molecules, not the synthesized pile of edges on a few nodes, whose
+        # float32 forces are sums of large opposite terms (nequip_parity).
+        atoms = shape["n_nodes"]
+        raw = molecule_batch(shape["graph_batch"], atoms, shape["n_edges"],
+                             raw["positions"].shape[0], raw["edge_src"].shape[0],
+                             pcfg.n_species, seed)
     if mask:
         B, S = raw["mask_pos"].shape
         raw["mask_pos"] = bert4rec_mask(mask, B, S, shape["microbatch"])

@@ -16,6 +16,27 @@ at smoke size run on the CPU in ``gloo`` processes in
   ``single_pod_rules``. Each rank also takes the same step alone on its
   card; loss and grad norm must agree within 1e-6 (relative), and every
   rank must take the identical step.
+- Smoke cases of the families that step on their local shards: DLRM-RM2,
+  DeepFM, DIN and BERT4Rec (float32, batch 16; tables split by rows over
+  "model", the batch over "data") and NequIP's graph batch with forces
+  (float64: its float32 forces on these inputs are some 1e-5 of their
+  max from exact, ROADMAP C18; edges over all four ranks), held as the LM
+  smoke cases.
+- DLRM-RM2 at full width, ``train_batch`` (65,536), three steps: each
+  card holds half of every table's rows (22.78 GB of the 45.56 GB) and of
+  its row-wise state, the batch split over "data". Step 1's loss within
+  1e-6 (relative) of rank 0's one-card step, later steps' within 1e-5;
+  then each rank, its mesh state freed, takes the one-card gradient of
+  the whole batch on its own card and holds its step-1 table rows by C16's
+  rule: the touched rows in its range are the one-card rows, and no
+  farther from the float64 sum of the batch's terms than the one-card
+  rows are, plus 1e-6 of the table's max. Step time and each card's peak
+  beside one card's.
+- NequIP ``minibatch_lg`` with forces (full config, float32), edges over
+  all four ranks, three steps: the loss, grad norm and every step-1
+  gradient within NequIP's tolerance (1e-4 of each tensor's max) of rank
+  0's one-card step, the ranks' final states identical; step time and
+  peak beside one card's.
 - Qwen3-4B at ``chip_smoke.py``'s ``[lm_train]`` cut (12
   layers at full width, bfloat16, ``train_4k``, batch 4 × 4,096,
   microbatch 2), three steps on the mesh, timed on the host clock around
@@ -44,7 +65,19 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = (2, 2)
 SMOKE = ("qwen3-4b", "deepseek-moe-16b", "minitron-4b", "llama4-maverick-400b-a17b")
+SMOKE_LOCAL = {   # arch -> (shape, dtype): the families stepped on their local shards
+    "dlrm-rm2": (dict(kind="train", batch=16, microbatch=8), "float32"),
+    "deepfm": (dict(kind="train", batch=16), "float32"),
+    "din": (dict(kind="train", batch=16), "float32"),
+    "bert4rec": (dict(kind="train", batch=16, microbatch=8), "float32"),
+    "nequip": (dict(kind="train", n_nodes=10, n_edges=20, graph_batch=8), "float64"),
+}
 SMOKE_LIMIT = 1e-6
+DLRM_STEPS = 3
+DLRM_LIMITS = {"step 1 loss": 1e-6, "step 1 grad norm": 1e-5, "step 2 loss": 1e-5}
+DLRM_ROW_TOL = 1e-6       # C16: beyond the one-card rows' own distance from exact
+NEQUIP_STEPS = 3
+NEQUIP_TOL = 1e-4         # chip_smoke.NEQUIP_TOL: of each tensor's max
 FULL_ARCH, FULL_LAYERS, FULL_BATCH, FULL_STEPS = "qwen3-4b", 12, (4, 2), 3
 # The mesh's relative gap to one card, about 10x the sound runs' (2.15e-6,
 # 5.66e-5, 1.50e-4 on NVIDIA H100 80GB HBM3 at 700 W) and below planted
@@ -102,18 +135,24 @@ def _launch() -> int:
     for case in dict.fromkeys(x["case"] for x in reports):
         ranks = [x for x in reports if x["case"] == case]
         r0 = ranks[0]
-        same = all(x["losses"] == r0["losses"] for x in ranks)
+        same = all(x["losses"] == r0["losses"] and x.get("digest") == r0.get("digest")
+                   for x in ranks)
         gaps = _gaps(r0)
-        limits = FULL_LIMITS if r0.get("ms") else dict.fromkeys(gaps, SMOKE_LIMIT)
-        held = same and all(gaps[k] <= limits[k] for k in gaps)
+        limits = r0.get("limits") or (FULL_LIMITS if r0.get("ms") else
+                                      dict.fromkeys(gaps, SMOKE_LIMIT))
+        checks = {k: all(x["checks"][k] for x in ranks) for k in r0.get("checks", {})}
+        held = same and all(gaps[k] <= limits[k] for k in gaps) and all(checks.values())
         ok &= held
         print(f"{case}: {len(ranks)} ranks identical {same}; (loss, grad norm) by step "
               f"{r0['losses']} vs one card {r0['one_losses']}; relative gaps "
               + ", ".join(f"{k} {v:.3g} (limit {limits[k]:g})" for k, v in gaps.items())
+              + "".join(f"; {k} {v}" for k, v in checks.items())
+              + "".join(f"; {k} {v}" for k, v in r0.get("notes", {}).items())
               + f"; held {held}"
               + (f"; step {r0['ms']:.1f} ms on the mesh vs {r0['one_ms']:.1f} alone; peak per "
                  f"card {max(x['peak'] for x in ranks) / 1e9:.2f} GB vs {r0['one_peak']}"
                  if r0.get("ms") else ""), flush=True)
+        ok &= not (r0.get("digest") is not None and not same)
     return 0 if ok else 1
 
 
@@ -139,7 +178,7 @@ def _rank(args) -> None:
     mesh = init_device_mesh("cuda", MESH, mesh_dim_names=("data", "model"))
     rules = single_pod_rules()
 
-    def steps(cell, state, batch, n, ruled):
+    def steps(cell, state, batch, n, ruled, keep=False):
         times, losses = [], []
         for _ in range(n):
             torch.cuda.synchronize()
@@ -152,10 +191,31 @@ def _rank(args) -> None:
             losses.append((float(m["loss"]), float(m["grad_norm"])))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        return times, losses
+        return times, losses, state if keep else None   # no state outlives its use
 
     def report(**kw):
         print(json.dumps({"rank": args.rank, **kw}), flush=True)
+
+    for arch, (shape, dtype) in SMOKE_LOCAL.items():
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+        cell = make_cell(cfg, ShapeSpec(name="t", **shape))
+        batch = {k: v.to(getattr(torch, dtype)) if v.is_floating_point() else v
+                 for k, v in as_tensors(synthesize_inputs(cell, 0), dev).items()}
+
+        def init():
+            st = cell.init_state(0, dev)
+            return dataclasses.replace(st, params={k: v.to(getattr(torch, dtype))
+                                                   for k, v in st.params.items()})
+
+        _, losses, new = steps(cell, remesh(init(), cell.state_logical(), rules, mesh), batch,
+                               1, True, keep=arch == "nequip")
+        digest = _digest_state(new) if arch == "nequip" else None   # replicated
+        del new
+        _, one_losses, _ = steps(cell, init(), batch, 1, False)
+        report(case=f"{arch} smoke {dtype}", losses=losses, one_losses=one_losses, digest=digest)
+
+    _dlrm_full(args, dev, mesh, rules, steps, report)
+    _nequip_full(args, dev, mesh, rules, steps, report)
 
     for arch in SMOKE:
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
@@ -164,9 +224,9 @@ def _rank(args) -> None:
                                         microbatch=mb))
         batch = as_tensors(synthesize_inputs(cell, 0), dev)
         placed = remesh(cell.init_state(0, dev), cell.state_logical(), rules, mesh)
-        _, losses = steps(cell, placed, batch, 1, True)
+        _, losses, _ = steps(cell, placed, batch, 1, True)
         del placed
-        _, one_losses = steps(cell, cell.init_state(0, dev), batch, 1, False)
+        _, one_losses, _ = steps(cell, cell.init_state(0, dev), batch, 1, False)
         report(case=f"{arch} smoke f32", losses=losses, one_losses=one_losses)
 
     cfg = get_config(FULL_ARCH)
@@ -185,14 +245,14 @@ def _rank(args) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # pop(): no reference to the first state outlives its step.
-    times, losses = steps(cell, placed.pop(), batch, FULL_STEPS, True)
+    times, losses, _ = steps(cell, placed.pop(), batch, FULL_STEPS, True)
     peak = torch.cuda.max_memory_allocated()
     one_ms = one_peak = one_losses = None
     dist.barrier()
     if args.rank == 0:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        one_times, one_losses = steps(cell, init(), batch, FULL_STEPS, False)
+        one_times, one_losses, _ = steps(cell, init(), batch, FULL_STEPS, False)
         one_ms = statistics.median(one_times[1:])
         one_peak = f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
     dist.barrier()
@@ -200,6 +260,188 @@ def _rank(args) -> None:
            losses=losses, one_losses=one_losses, ms=statistics.median(times[1:]),
            step_ms=times, one_ms=one_ms, peak=peak, one_peak=one_peak)
     dist.destroy_process_group()
+
+
+def _digest_state(state) -> str:
+    """SHA-256 of every leaf's bits (a ``DTensor``'s ``full_tensor()``, so
+    every rank hashes the same whole state; a collective)."""
+    import hashlib
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.utils import tree_items
+
+    h = hashlib.sha256()
+    for _, t in tree_items(state):
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _spy_grads(seen: list):
+    """Make the trainer hand this list each step's gradients (the ones its
+    norm, clip and optimizer see); returns the undo."""
+    from repro_torch.train import trainer
+
+    norm = trainer.optax_global_norm
+    trainer.optax_global_norm = lambda g, *a: seen.append(g) or norm(g, *a)
+    return lambda: setattr(trainer, "optax_global_norm", norm)
+
+
+def _dlrm_full(args, dev, mesh, rules, steps, report) -> None:
+    """DLRM-RM2 ``train_batch`` at full width on the mesh, held to rank 0's
+    one-card steps and, row by row, to the float64 sum (C16)."""
+    import functools
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import recsys
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train import remesh, trainer
+
+    cfg = get_config("dlrm-rm2")
+    shape = next(s for s in cfg.shapes if s.name == "train_batch")
+    cell = make_cell(cfg, shape)
+    batch = as_tensors(synthesize_inputs(cell, seed=0), dev)
+
+    def init():
+        return cell.init_state(torch.Generator(device=dev).manual_seed(0), dev)
+
+    # Every rank draws the same init and keeps a copy of its shards only:
+    # a scatter from rank 0 would copy the whole 45.56 GB of tables.
+    placed = [remesh(init(), cell.state_logical(), rules, mesh, src_data_rank=None)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    tables = sum(t.to_local().numel() * 4 for k, t in placed[0].params.items()
+                 if k.startswith("tables/"))
+    state_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seen: list = []
+    undo = _spy_grads(seen)
+    try:
+        times, losses, _ = steps(cell, placed.pop(), batch, DLRM_STEPS, True)
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    mine = {k: g for k, g in seen[0].items() if g.is_sparse}   # this rank's step-1 table rows
+    del seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # The one-card gradient of the whole batch on this card: rows by C16.
+    state = init()
+    raw = trainer._grads(functools.partial(recsys.loss_fn, cfg, sparse_grad=True),
+                         state.params, batch)[1]
+    m = mesh.get_coordinate()[1]
+    rows_ok, worst = True, {"mesh": 0.0, "one": 0.0}
+    for k, g in mine.items():
+        exact = torch.sparse_coo_tensor(raw[k]._indices(), raw[k]._values().double(),
+                                        raw[k].shape).coalesce()
+        one = raw[k].coalesce()
+        n = g.shape[0]
+        lo = m * n
+        scale = float(one.values().abs().max())
+        idx = one.indices()[0]
+        at = (idx >= lo) & (idx < lo + n)
+        g = g.coalesce()
+        if not torch.equal(g.indices()[0] + lo, idx[at]):
+            rows_ok = False
+            continue
+        if not g._nnz():   # no id of the batch in this rank's rows
+            continue
+        e_mesh = float((g.values().double() - exact.values()[at]).abs().max()) / scale
+        e_one = float((one.values()[at].double() - exact.values()[at]).abs().max()) / scale
+        worst = {"mesh": max(worst["mesh"], e_mesh), "one": max(worst["one"], e_one)}
+        rows_ok &= e_mesh <= e_one + DLRM_ROW_TOL
+    del raw, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_ms = one_peak = one_losses = None
+    if args.rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        one_times, one_losses, _ = steps(cell, state, batch, DLRM_STEPS, False)
+        one_ms = statistics.median(one_times[1:])
+        one_peak = f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    report(case=f"dlrm-rm2 train_batch B={shape.batch} rows over model", losses=losses,
+           one_losses=one_losses, ms=statistics.median(times[1:]), step_ms=times,
+           one_ms=one_ms, peak=peak, one_peak=one_peak, limits=DLRM_LIMITS,
+           checks={"rows by C16": rows_ok},
+           notes={"tables a card": f"{tables / 1e9:.2f} GB",
+                  "allocated a card before the steps": f"{state_bytes / 1e9:.2f} GB",
+                  "rows from exact (mesh / one card)":
+                      f"{worst['mesh']:.3g} / {worst['one']:.3g}"})
+
+
+def _nequip_full(args, dev, mesh, rules, steps, report) -> None:
+    """NequIP ``minibatch_lg`` with forces, edges over every rank, held to
+    rank 0's one-card step at NEQUIP_TOL."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train import remesh
+
+    cfg = get_config("nequip")
+    shape = next(s for s in cfg.shapes if s.name == "minibatch_lg")
+    cell = make_cell(cfg, shape)
+    batch = as_tensors(synthesize_inputs(cell, seed=83), dev)
+
+    def init():
+        return cell.init_state(torch.Generator(device=dev).manual_seed(83), dev)
+
+    seen: list = []
+    undo = _spy_grads(seen)
+    try:
+        placed = [remesh(init(), cell.state_logical(), rules, mesh)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, new = steps(cell, placed.pop(), batch, NEQUIP_STEPS, True, keep=True)
+        peak = torch.cuda.max_memory_allocated()
+        digest = _digest_state(new)
+        del new
+        mesh_grads = {k: g.clone() for k, g in seen[0].items()}
+        seen.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        one_ms = one_peak = one_losses = None
+        grad_rel = 0.0
+        if args.rank == 0:
+            torch.cuda.reset_peak_memory_stats()
+            one_times, one_losses, _ = steps(cell, init(), batch, NEQUIP_STEPS, False)
+            one_ms = statistics.median(one_times[1:])
+            one_peak = f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            grad_rel = max(float((mesh_grads[k] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                           for k, g in seen[0].items())
+    finally:
+        undo()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    E = batch["edge_src"].shape[0]
+    report(case=f"nequip minibatch_lg (forces) E={E} over {dist.get_world_size()} ranks",
+           losses=losses, one_losses=one_losses, ms=statistics.median(times[1:]),
+           step_ms=times, one_ms=one_ms, peak=peak, one_peak=one_peak, digest=digest,
+           limits={"step 1 loss": NEQUIP_TOL, "step 1 grad norm": NEQUIP_TOL,
+                   "step 2 loss": NEQUIP_TOL},
+           checks={"step-1 gradients within 1e-4 of their max": args.rank != 0
+                   or grad_rel <= NEQUIP_TOL},
+           notes={"step-1 gradients' largest gap": f"{grad_rel:.3g}" if args.rank == 0
+                  else "rank 0 reads"})
 
 
 def main() -> int:
