@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the LEAR serving path, its training
 pipeline, the model cells, the LM serving and training paths, NequIP, the
-several-card train step, the serving placements and the dry run once on
-one card.
+several-card train and serving steps, the serving placements and the dry
+run once on one card.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc`` in ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
@@ -243,6 +243,19 @@ Phases, each of which must pass:
   bit-equal. (c) BERT4Rec with an uneven mask in 2 shares, each
   divided by the whole batch's masked count: their mean equals the
   one-process loss within 1e-6.
+- ``parallel_serve`` (after ``parallel_train``): every serving cell's step
+  on ``make_local_mesh(cuda:0)`` under ``single_pod_rules``
+  (``models.api``'s cells through ``train.trainer.make_serve_step``), its
+  state placed by ``remesh``: the four RecSys families' ``serve_p99`` and
+  ``retrieval_cand`` at ``cells``' shapes and full width (DLRM-RM2's
+  45.56 GB of tables, 1,000,448 candidates), Qwen3-4B (4 of 36 layers)
+  and DeepSeek-MoE-16B (2 of 28: its dense layer and one MoE layer) at
+  full width, prefill 1 x 4,096 and decode at ``lm``'s batches against a
+  32,768-token cache drawn on the card (the placed run's caches placed by
+  ``remesh`` too), and lear-msn1 ``rank_online``. Each one warm step and
+  three timed each way (CUDA events); the outputs (a decode step's caches
+  included) must be bit-equal to the step without rules, and the forest
+  cell must launch its kernel as often (three a step).
 - ``placement`` (after ``guards``): ``repro_torch.serve.placement`` at
   lear-msn1 full width, sentinels (50, 150), 8 × 256 batches, fused and
   staged: ``single_device()``, ``local()`` (the (1, 1) ``DeviceMesh``),
@@ -260,10 +273,12 @@ Phases, each of which must pass:
 - ``dryrun`` (after ``nequip``; traced in a process of its own, started
   after ``cells``): ``repro_torch.launch.dryrun.run_cell`` for the three
   hillclimb cells (lear-msn1 ``rank_xl``, qwen2.5-14b ``train_4k``,
-  nequip ``ogb_products``) and dlrm-rm2 ``train_batch`` on a fake 16 × 16
+  nequip ``ogb_products``), dlrm-rm2 ``train_batch`` and the serving cells
+  dlrm-rm2 ``retrieval_cand`` and qwen3-4b ``decode_32k`` on a fake 16 × 16
   process group, printing each cell's roofline terms, per-device memory,
   ``trace_s`` and its activation collectives (the row lookups' and node
-  aggregates' sums); then every
+  aggregates' sums, the candidates' exchange, the decode's merged
+  softmax); then every
   step that ``cells``, ``lm`` and ``lm_train`` timed, traced on ``meta``
   at its own config and shape, with its ``chips=1`` H100 roofline beside
   the measured time and the phase's own bound. No measured time may be
@@ -276,7 +291,7 @@ Phases, each of which must pass:
 The last lines are a one-line summary of the tier, the gated tail, the
 hybrid, the guards, the placements, the training, the cell (with the
 retrieval cascade), the LM and the NequIP runs, the several-card train
-step, the dry run and the examples, the
+and serving steps, the dry run and the examples, the
 card's name and power limit, one JSON line with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without that last line, as does a machine without a card or a
@@ -4037,6 +4052,208 @@ def phase_parallel_train(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# [parallel_serve]: every serving cell's sharded step on a one-rank mesh.
+# ---------------------------------------------------------------------------
+
+PS_STEPS = 3                  # timed after one warm step each way; the median is printed
+PS_LM_LAYERS = {"qwen3-4b": 4, "deepseek-moe-16b": 2}   # depth cut (DeepSeek: dense + 1 MoE)
+PS_PREFILL = (1, 4096)        # batch, tokens
+PS_DECODE_CACHE = 32768       # tokens of the decode cache; batches as [lm]'s
+
+
+def _ps_equal(got, want) -> bool:
+    """Whether two output trees (tensors, tuples, dicts; ``DTensor``
+    leaves compared by their whole value) are bit-equal."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(want, dict):
+        return all(_ps_equal(got[k], v) for k, v in want.items())
+    if isinstance(want, (tuple, list)):
+        return all(_ps_equal(a, b) for a, b in zip(got, want, strict=True))
+    if isinstance(got, DTensor):
+        got = got.full_tensor()
+    return got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _ps_pair(label, cell, params, inputs, mesh, rules, card, placed_inputs=None) -> dict:
+    """The step without rules on ``params``, then under the rules on the
+    (1, 1) mesh on ``params`` placed by ``remesh`` (and on
+    ``placed_inputs()`` where given: a decode step's caches): one warm step
+    and ``PS_STEPS`` timed each way; the outputs bit-equal and the forest
+    kernel launched as often."""
+    from repro_torch.distributed import sharding_rules
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.train import remesh
+
+    def run(state, inp, ctx):
+        before = fs.kernel_launches()
+        with ctx:
+            cell.step(state, inp)
+            ms, out = _events_ms(lambda: cell.step(state, inp), PS_STEPS)
+        after = fs.kernel_launches()
+        return ms, out, {k: after[k] - before.get(k, 0) for k in after}
+
+    plain_ms, want, plain_n = run(params, inputs, contextlib.nullcontext())
+    t0 = time.perf_counter()
+    placed = remesh(params, cell.state_logical(), rules, mesh, src_data_rank=None)
+    place_s = time.perf_counter() - t0
+    inp = placed_inputs() if placed_inputs is not None else inputs
+    ms, got, n = run(placed, inp, sharding_rules(rules, mesh))
+    equal = _ps_equal(got, want)
+    log(f"[parallel_serve] {label}: placed by remesh in {place_s:.2f} s"
+        + (", inputs placed too" if placed_inputs is not None else "")
+        + f"; outputs bit-equal {equal}; step {ms:.3f} ms under the rules vs {plain_ms:.3f} ms "
+        f"without (median of {PS_STEPS} after one warm step, CUDA events), overhead "
+        f"{(ms / plain_ms - 1) * 100:+.1f}%; forest kernel launches {sum(n.values())} vs "
+        f"{sum(plain_n.values())}; {card}")
+    if not equal or n != plain_n:
+        raise AssertionError(f"[parallel_serve] {label}: bit-equal {equal}, launches {n} vs "
+                             f"{plain_n}")
+    return {"ms": ms, "plain_ms": plain_ms, "launches": n}
+
+
+def _ps_recsys(arch: str, mesh, rules, card) -> dict:
+    """serve_p99 and retrieval_cand of one family at [cells]' shapes and
+    full width, one init shared by both."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+
+    cfg = get_config(arch)
+    out, params = {}, None
+    for shape in (s for s in _cell_shapes(arch) if s.name in ("serve_p99", "retrieval_cand")):
+        cell = make_cell(cfg, shape)
+        if params is None:
+            params = cell.init_state(torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+        inputs = as_tensors(synthesize_inputs(cell, seed=SEED), DEVICE)
+        size = (f"{inputs['cand_ids'].shape[0]:,} candidates" if shape.n_candidates
+                else f"B={shape.batch}")
+        out[shape.name] = _ps_pair(f"{arch} {shape.name} ({size}, full width)", cell, params,
+                                   inputs, mesh, rules, card)
+        del inputs
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ps_lm(arch: str, mesh, rules, card) -> dict:
+    """Prefill and decode of one LM at full width and PS_LM_LAYERS' depth:
+    prefill PS_PREFILL, decode at [lm]'s batch against a cache of
+    PS_DECODE_CACHE tokens drawn on the card (the placed run on a clone of
+    it, placed by remesh)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.api import make_cell
+    from repro_torch.train import remesh
+    from repro_torch.train.trainer import serve_input_logical
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=PS_LM_LAYERS[arch])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 91)
+    params = tfm.init(cfg, gen, DEVICE)
+    rng = np.random.default_rng(SEED + 91)
+    shapes = {s.name: s for s in base.shapes}
+    B, S = PS_PREFILL
+    pre = make_cell(cfg, dataclasses.replace(shapes["prefill_32k"], seq_len=S, global_batch=B))
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+                             device=DEVICE)
+    out = {"prefill": _ps_pair(f"{arch} prefill {B}x{S} ({cfg.n_layers} of {base.n_layers} "
+                               f"layers)", pre, params, {"tokens": tokens}, mesh, rules, card)}
+    Bd, T = LM_DECODE_BATCH[arch], PS_DECODE_CACHE
+    dec = make_cell(cfg, dataclasses.replace(shapes["decode_32k"], seq_len=T, global_batch=Bd))
+    caches = tfm.make_decode_caches(cfg, Bd, T, DEVICE)
+    for t in (t for c in caches.values() for t in c.values()):
+        t.normal_(generator=gen)
+    copy = {n: {kv: t.clone() for kv, t in c.items()} for n, c in caches.items()}
+    token = torch.as_tensor(rng.integers(0, cfg.vocab_size, (Bd, 1)).astype(np.int32),
+                            device=DEVICE)
+    pos = torch.tensor(T - 1, dtype=torch.int32)
+    lg = serve_input_logical(dec.input_logical())["caches"]
+
+    def placed_inputs():
+        return {"token": token, "pos": pos,
+                "caches": remesh(copy, lg, rules, mesh, src_data_rank=None)}
+
+    out["decode"] = _ps_pair(f"{arch} decode B={Bd} at {T - 1} of a {T}-token cache "
+                             f"({cfg.n_layers} layers)", dec, params,
+                             {"token": token, "caches": caches, "pos": pos}, mesh, rules, card,
+                             placed_inputs)
+    del params, caches, copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ps_forest(mesh, rules, card) -> dict:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+
+    cfg = get_config("lear-msn1")
+    shape = next(s for s in cfg.shapes if s.name == "rank_online")
+    cell = make_cell(cfg, shape)
+    params = cell.init_state(SEED, device=torch.device(DEVICE))
+    inputs = as_tensors(synthesize_inputs(cell, seed=SEED), DEVICE)
+    Q, D, _ = inputs["X"].shape
+    out = _ps_pair(f"lear-msn1 rank_online ({Q} x {D})", cell, params, inputs, mesh, rules, card)
+    if out["launches"].get("forest_score", 0) != 3 * (PS_STEPS + 1):
+        raise AssertionError(f"[parallel_serve] lear-msn1: launches {out['launches']}")
+    return out
+
+
+def phase_parallel_serve(card: str) -> dict:
+    """[parallel_serve]: every serving cell's step under single_pod_rules on
+    make_local_mesh(cuda:0), its state placed by remesh, bit-equal to the
+    step without rules, both timed: the four RecSys families' serve_p99
+    and retrieval_cand at [cells]' shapes and full width, Qwen3-4B and
+    DeepSeek-MoE-16B prefill and decode at PS_LM_LAYERS' depth, lear-msn1
+    rank_online (its forest launches equal)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import single_pod_rules
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    mesh, rules = make_local_mesh(DEVICE), single_pod_rules()
+    log(f"[parallel_serve] mesh {mesh} (backend {dist.get_backend(mesh.get_group('data'))}), "
+        f"single_pod_rules")
+    cells = {}
+    try:
+        for arch in CELL_RECSYS:
+            for name, r in _ps_recsys(arch, mesh, rules, card).items():
+                cells[f"{arch} {name}"] = r
+        for arch in LM_FULL:
+            for name, r in _ps_lm(arch, mesh, rules, card).items():
+                cells[f"{arch} {name}"] = r
+        forest = _ps_forest(mesh, rules, card)
+        cells["lear-msn1 rank_online"] = forest
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t_phase
+    log(f"[parallel_serve] done in {seconds:.1f} s on {card}")
+    over = ", ".join(f"{k} {(r['ms'] / r['plain_ms'] - 1) * 100:+.1f}%" for k, r in cells.items())
+    return {"summary": f"parallel_serve: {len(cells)} serving cells bit-equal on the (1, 1) mesh "
+                       f"in {seconds:.1f} s (overhead {over})",
+            "launches": {"forest_score": forest["launches"].get("forest_score", 0),
+                         "forest_score_segments": forest["launches"].get(
+                             "forest_score_segments", 0)},
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # [placement]: the mesh placements of the serving path, and re-meshing.
 # ---------------------------------------------------------------------------
 
@@ -4266,7 +4483,8 @@ def phase_placement(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 DRYRUN_CELLS = (("lear-msn1", "rank_xl"), ("qwen2.5-14b", "train_4k"), ("nequip", "ogb_products"),
-                ("dlrm-rm2", "train_batch"))
+                ("dlrm-rm2", "train_batch"), ("dlrm-rm2", "retrieval_cand"),
+                ("qwen3-4b", "decode_32k"))
 
 
 def start_dryrun(out_dir: str) -> subprocess.Popen:
@@ -4447,6 +4665,10 @@ def main() -> int:
         elapsed("nequip")
         parallel_train = phase_parallel_train(card)
         elapsed("parallel_train")
+        parallel_serve = phase_parallel_serve(card)
+        for name, n in parallel_serve["launches"].items():
+            launches[name] += n
+        elapsed("parallel_serve")
         dryrun = phase_dryrun(card, dry_proc, dry_dir)
         elapsed("dryrun")
         examples = phase_examples(card)
@@ -4500,6 +4722,7 @@ def main() -> int:
         + f"; {hybrid['summary']}; {guards['summary']}; {train['summary']}; "
         f"{placement['summary']}; {cells['summary']}; {lm['summary']}; "
         f"{lm_train['summary']}; {nequip['summary']}; {parallel_train['summary']}; "
+        f"{parallel_serve['summary']}; "
         f"{dryrun['summary']}; {examples['summary']}; "
         f"run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

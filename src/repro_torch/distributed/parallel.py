@@ -39,6 +39,15 @@ Two kinds of parallelism, both read from the current
   arrays at its edges through :meth:`Axis.copy` and sums its per-edge
   messages into nodes through :meth:`Axis.reduce` over every edge rank
   (:func:`edge_axis`).
+- **Serving shares** (:func:`~repro_torch.train.trainer.make_serve_step`).
+  A serving step gives each rank its share of the queries (:func:`rank_share`;
+  :func:`batch_axis` gathers a decode step's tokens for its one MoE
+  dispatch group), of the candidates (:func:`cand_share`: the part of the
+  share cut over ``"model"``, whose ranks exchange ids and rows with a
+  row-sharded table) and of the LM caches' sequence (:func:`kv_share`:
+  each rank attends over its slice and the partial softmaxes merge through
+  :meth:`Axis.max` and :meth:`Axis.reduce`). :meth:`Axis.gather` and
+  :meth:`Axis.scatter` are not differentiated.
 
 ``copy`` and ``reduce`` are each other's transposes, and each one's
 backward is the other's autograd op, so they can be differentiated twice
@@ -75,11 +84,27 @@ def _wait(t: torch.Tensor) -> torch.Tensor:
     return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
 
 
+def _groups(group: Any) -> tuple:
+    """A group, or a tuple or list of groups (major to minor), as a tuple."""
+    return tuple(group) if isinstance(group, (tuple, list)) else (group,)
+
+
 def _sum(t: torch.Tensor, group: Any) -> torch.Tensor:
     """``t`` summed over ``group``, or over each group of a tuple in turn."""
-    for g in group if isinstance(group, tuple) else (group,):
+    for g in _groups(group):
         t = _wait(funcol.all_reduce(t, "sum", g))
     return t
+
+
+def gather_over(t: torch.Tensor, dim: int, groups: Any) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order (major to
+    minor over ``groups``: the minor axis is gathered first). Booleans
+    travel as bytes. Not differentiated."""
+    flag = t.dtype == torch.bool
+    t = t.detach().to(torch.uint8) if flag else t.detach()
+    for g in reversed(_groups(groups)):
+        t = _wait(_ALL_GATHER(t.contiguous(), dim, g))
+    return t.bool() if flag else t
 
 
 # ---------------------------------------------------------------------------
@@ -106,19 +131,26 @@ def axis_groups(logical: str) -> tuple[list, int, int]:
     return groups, n, r
 
 
-_SHARE: contextvars.ContextVar[tuple[list, int] | None] = contextvars.ContextVar(
+_SHARE: contextvars.ContextVar[tuple[list, int, int] | None] = contextvars.ContextVar(
     "rank_share", default=None)
 
 
 @contextlib.contextmanager
-def rank_share(groups: list, n: int) -> Iterator[None]:
-    """Mark the block as running this rank's share of a batch split over
-    the ``n`` ranks of ``groups`` (no mark for ``n == 1``)."""
-    token = _SHARE.set((groups, n) if n > 1 else None)
+def rank_share(groups: list, n: int, r: int = 0) -> Iterator[None]:
+    """Mark the block as running this rank's share (index ``r``) of a batch
+    split over the ``n`` ranks of ``groups`` (no mark for ``n == 1``)."""
+    token = _SHARE.set((groups, n, r) if n > 1 else None)
     try:
         yield
     finally:
         _SHARE.reset(token)
+
+
+def batch_axis() -> Axis:
+    """The ranks the current batch is split over (:data:`WHOLE` outside a
+    share)."""
+    share = _SHARE.get()
+    return WHOLE if share is None else Axis(tuple(share[0]), share[1], share[2])
 
 
 def split_ranks() -> int:
@@ -144,7 +176,7 @@ def batch_total(x: torch.Tensor) -> tuple[torch.Tensor, int]:
     share = _SHARE.get()
     if share is None:
         return x, 1
-    groups, n = share
+    groups, n, _ = share
     return all_reduce_(x.detach().clone(), groups), n
 
 
@@ -240,6 +272,31 @@ class Axis:
         """``x`` summed over the ranks; the gradient passes unchanged."""
         return x if self.size == 1 else _Reduce.apply(x, self.group)
 
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s elementwise maximum over the ranks (not differentiated)."""
+        x = x.detach()
+        if self.size == 1:
+            return x
+        for g in _groups(self.group):
+            x = _wait(funcol.all_reduce(x.contiguous(), "max", g))
+        return x
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order (not
+        differentiated)."""
+        return x if self.size == 1 else gather_over(x, dim, self.group)
+
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` summed over the ranks, of which each keeps its own
+        ``1/size`` of ``dim`` in rank order (a reduce-scatter; not
+        differentiated)."""
+        x = x.detach()
+        if self.size == 1:
+            return x
+        for g in _groups(self.group):   # major first: its block holds the minor ones'
+            x = _wait(_REDUCE_SCATTER(x.contiguous(), "sum", dim, g))
+        return x
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelAxis(Axis):
@@ -325,12 +382,6 @@ class ModelAxis(Axis):
             return x
         return _Gather.apply(x, dim, self.group, self.rank, grad)
 
-    def max(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``'s elementwise maximum over the group (not differentiated)."""
-        if self.size == 1:
-            return x.detach()
-        return _wait(funcol.all_reduce(x.detach().contiguous(), "max", self.group))
-
 
 #: The axis of plain parameters: one rank, nothing split; every collective
 #: is the identity.
@@ -378,3 +429,47 @@ def edge_axis() -> Axis:
     """The ranks the current step's edges are split over (:data:`WHOLE`
     outside an edge share)."""
     return _EDGES.get()
+
+
+# ---------------------------------------------------------------------------
+# Serving shares: candidates and the caches' sequence.
+# ---------------------------------------------------------------------------
+
+
+_CANDS: contextvars.ContextVar[Axis] = contextvars.ContextVar("cand_share", default=WHOLE)
+_KV: contextvars.ContextVar[Axis] = contextvars.ContextVar("kv_share", default=WHOLE)
+
+
+@contextlib.contextmanager
+def cand_share(axis: Axis) -> Iterator[None]:
+    """Mark the block as scoring this rank's share of the candidates, whose
+    ranks over ``"model"`` (``axis``, the minor part of the share) hold
+    consecutive parts of one block."""
+    token = _CANDS.set(axis)
+    try:
+        yield
+    finally:
+        _CANDS.reset(token)
+
+
+def cand_axis() -> Axis:
+    """The ``"model"`` ranks the current candidates are split over
+    (:data:`WHOLE` outside a share cut over ``"model"``)."""
+    return _CANDS.get()
+
+
+@contextlib.contextmanager
+def kv_share(groups: list, n: int, r: int) -> Iterator[None]:
+    """Mark the block as holding this rank's slice (index ``r``) of the KV
+    caches' sequence, split over the ``n`` ranks of ``groups``."""
+    token = _KV.set(Axis(tuple(groups), n, r) if n > 1 else WHOLE)
+    try:
+        yield
+    finally:
+        _KV.reset(token)
+
+
+def kv_axis() -> Axis:
+    """The ranks the current caches' sequence is split over (:data:`WHOLE`
+    outside a share)."""
+    return _KV.get()

@@ -29,26 +29,36 @@ rules:
   gradient all-reduced over them (counted twice, ring = reduce-scatter +
   all-gather).
 
-A train cell also counts its activation collectives
+Every cell also counts its activation collectives
 (:func:`activation_collectives`): its step runs once more on ``meta``,
 with its state placed on the fake mesh as ``DTensor``\\ s and its inputs
 split as the step splits them, and every ``_c10d_functional`` op over the
-``"model"`` group (NequIP: over every axis ``"edges"`` resolves to) is
-recorded at this device's bytes: the LM's tensor-parallel sums of the
-attention and FFN outputs and their gradients, its vocab-sharded lookup
-and softmax and the MoE's gathers of its experts' outputs; RecSys's
-row-sharded lookups' sums and BERT4Rec's block sums, gathered
-projections and sharded softmax; NequIP's per-layer node-aggregate sums
-over the edge ranks and, in the backward, their transposes (the gathers'
-gradient sums), twice over with forces. A cell whose state or batch does
-not divide over the mesh has no sharded step, and the record says so
-under ``activation_collectives``; ``trace_s`` includes this trace.
+:func:`activation_axes` is recorded at this device's bytes. A train
+step's are over the ``"model"`` group (NequIP: over every axis
+``"edges"`` resolves to): the LM's tensor-parallel sums of the attention
+and FFN outputs and their gradients, its vocab-sharded lookup and softmax
+and the MoE's gathers of its experts' outputs; RecSys's row-sharded
+lookups' sums and BERT4Rec's block sums, gathered projections and
+sharded softmax; NequIP's per-layer node-aggregate sums over the edge
+ranks and, in the backward, their transposes (the gathers' gradient
+sums), twice over with forces. A serving step's are over every axis it
+splits its inputs over as well (:func:`~repro_torch.train.trainer.make_serve_step`):
+besides the "model" sums, a retrieval's id gathers and row
+reduce-scatters, a decode step's merged softmax (maxima and sums over
+"model"), its gathered heads, tokens and vocab-sharded logits, the
+outputs' gathers over the split axes, and the parameters' FSDP gathers
+as the step makes them, so a serving record counts the trace's
+collectives in place of the rules' reckoning. A cell whose state or batch
+does not divide over the mesh has no sharded step, and the record says
+so under ``activation_collectives``; ``trace_s`` includes this trace.
 
-A train cell's inputs are reckoned as its step splits them
-(:func:`~repro_torch.train.trainer.step_input_logical`): the leading
+A cell's inputs are reckoned as its step splits them: a train step's by
+:func:`~repro_torch.train.trainer.step_input_logical` (the leading
 ``"batch"`` or ``"edges"`` axis, nothing else, so NequIP's node arrays
-count whole on every device. XLA's temporary bytes and GSPMD's chosen
-collectives have no counterpart here.
+count whole on every device), a serving step's by
+:func:`~repro_torch.train.trainer.serve_input_logical` (``"batch"``,
+``"cands"`` and the decode caches' ``"kv_seq"``). XLA's temporary bytes and
+GSPMD's chosen collectives have no counterpart here.
 
 Usage::
 
@@ -78,7 +88,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, list_archs
-from repro_torch.configs.base import ForestConfig, TransformerConfig
+from repro_torch.configs.base import TransformerConfig
 from repro_torch.distributed.sharding import (
     Rules,
     mesh_axes,
@@ -91,7 +101,7 @@ from repro_torch.launch import op_analysis
 from repro_torch.launch import roofline as rf
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train.elastic import axis_sizes, logical_leaves, remesh, validate_divisibility
-from repro_torch.train.trainer import step_input_logical
+from repro_torch.train.trainer import SERVE_AXES, serve_input_logical, step_input_logical
 from repro_torch.utils import tree_items
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "../../../artifacts/dryrun")
@@ -169,21 +179,35 @@ class _GroupTrace(op_analysis.OpTrace):
 
 
 def activation_axes(cell, rules: Rules) -> tuple[str, ...]:
-    """The mesh axes a train step's activations cross: ``"model"``, and
-    for a cell whose edges are split (NequIP), every axis ``"edges"``
-    resolves to."""
+    """The mesh axes a step's activations cross: ``"model"``; for a train
+    cell whose edges are split (NequIP), every axis ``"edges"`` resolves
+    to; for a serving cell, every axis ``"batch"``, ``"cands"`` and
+    ``"kv_seq"`` resolve to."""
     axes = ["model"]
-    if any(tuple(lg or (None,))[0] == "edges" for lg in cell.input_logical().values()):
+    if cell.shape.kind != "train":
+        for name in SERVE_AXES:
+            axes += [a for a in mesh_axes(rules.physical(name)) if a not in axes]
+    elif any(tuple(lg or (None,))[0] == "edges" for lg in cell.input_logical().values()):
         axes += [a for a in mesh_axes(rules.physical("edges")) if a not in axes]
     return tuple(axes)
 
 
+def _step_inputs(cell) -> dict:
+    """The cell's ``meta`` input specs; a 0-dim integer input (a decode
+    step's position, which the step reads on the host) is a CPU zero."""
+    return {k: torch.zeros((), dtype=v.dtype)
+            if isinstance(v, torch.Tensor) and v.ndim == 0 and not v.dtype.is_floating_point
+            else v for k, v in cell.input_specs().items()}
+
+
 def activation_collectives(cell, rules: Rules, mesh: DeviceMesh) -> dict[str, float]:
     """This device's bytes, by kind, of the collectives over the
-    :func:`activation_axes` in one step of a train ``cell`` whose state is
-    placed on ``mesh`` by its logical axes (``DTensor``\\ s on ``meta``) and
-    whose inputs are split over ``"batch"`` (and ``"edges"``). Raises
-    ``ValueError`` where the step cannot run sharded."""
+    :func:`activation_axes` in one step of ``cell`` whose state is placed
+    on ``mesh`` by its logical axes (``DTensor``\\ s on ``meta``) and whose
+    inputs are split as its step splits them: a serving cell's inputs
+    placed as ``DTensor``\\ s too (a decode step's caches live on their
+    ranks; a plain cache would be gathered back whole after each step).
+    Raises ``ValueError`` where the step cannot run sharded."""
     out = {k: 0.0 for k in op_analysis.COLLECTIVES}
     names = mesh.mesh_dim_names
     axes = [a for a in activation_axes(cell, rules)
@@ -191,20 +215,22 @@ def activation_collectives(cell, rules: Rules, mesh: DeviceMesh) -> dict[str, fl
     if not axes:
         return out
     state = remesh(cell.abstract_state(), cell.state_logical(), rules, mesh, src_data_rank=None)
+    inputs = _step_inputs(cell)
+    if cell.shape.kind != "train":
+        ilog = serve_input_logical(cell.input_logical())
+        keys = [k for k in inputs if any(any(lg) for _, _, lg in logical_leaves(inputs[k], ilog[k]))]
+        inputs.update(remesh({k: inputs[k] for k in keys}, {k: ilog[k] for k in keys}, rules,
+                             mesh, src_data_rank=None))
     tr = _GroupTrace(groups=frozenset(mesh.get_group(a).group_name for a in axes))
     with sharding_rules(rules, mesh), tr:
-        cell.step(state, cell.input_specs())
+        cell.step(state, inputs)
     return op_analysis.analyze(tr).coll_breakdown
 
 
 def trace_step(cell) -> tuple[op_analysis.OpTrace, Any]:
     """One step of ``cell`` traced at global shape on its ``meta`` state
-    and inputs; a 0-dim integer input (a decode step's position, which the
-    step reads on the host) is a CPU zero."""
-    inputs = {k: torch.zeros((), dtype=v.dtype)
-              if isinstance(v, torch.Tensor) and v.ndim == 0 and not v.dtype.is_floating_point
-              else v for k, v in cell.input_specs().items()}
-    return op_analysis.trace(cell.step, cell.abstract_state(), inputs)
+    and inputs (:func:`_step_inputs`)."""
+    return op_analysis.trace(cell.step, cell.abstract_state(), _step_inputs(cell))
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -228,23 +254,21 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         sizes = axis_sizes(mesh)
         state, slog = cell.abstract_state(), cell.state_logical()
         inputs, ilog = cell.input_specs(), cell.input_logical()
-        if shape.kind == "train":   # what the step splits, not every rule
-            ilog = step_input_logical(ilog)
+        # What the step splits, not every rule.
+        train = shape.kind == "train"
+        ilog = step_input_logical(ilog) if train else serve_input_logical(ilog)
         problems = (validate_divisibility(state, slog, rules, mesh)
                     + validate_divisibility(inputs, ilog, rules, mesh))
         s_total, s_local = placed_bytes(state, slog, rules, mesh)
         i_total, i_local = placed_bytes(inputs, ilog, rules, mesh)
-        act = None
-        if shape.kind == "train" and not isinstance(cfg, ForestConfig):
-            try:
-                act = activation_collectives(cell, rules, mesh)
-            except ValueError as e:
-                act = f"no sharded step: {e}"
+        try:
+            act = activation_collectives(cell, rules, mesh)
+        except ValueError as e:
+            act = f"no sharded step: {e}"
     with sharding_rules(rules):
         tr, out = trace_step(cell)
     t_trace = time.time() - t0
 
-    train = shape.kind == "train"
     params, plog = (state.params, slog.params) if train else (state, slog)
     if train:
         passes = 2 * (shape.global_batch // shape.microbatch if shape.microbatch else 1)
@@ -252,7 +276,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         passes = 1
     coll = rule_collectives(params, plog, rules, sizes, train, passes)
     if isinstance(act, dict):
-        coll = {k: v + act[k] for k, v in coll.items()}
+        # A serving step's trace holds its parameters' gathers as it makes
+        # them, in place of the rules' reckoning.
+        coll = {k: (0.0 if not train else v) + act[k] for k, v in coll.items()}
     model_flops = (
         rf.lm_model_flops(cfg, shape) if isinstance(cfg, TransformerConfig) else 0.0
     )
@@ -265,7 +291,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             "trace_s": round(t_trace, 1),
             "chips": chips,
             "divisibility": problems,
-            **({} if act is None else {"activation_collectives": act}),
+            "activation_collectives": act,
             "memory": {
                 "argument_size_in_bytes": s_total + i_total,
                 "output_size_in_bytes": out_bytes,

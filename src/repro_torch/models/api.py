@@ -21,7 +21,14 @@ Parameters are flat ``dict[str, Tensor]`` keyed by the reference's pytree
 paths. On several ranks an LM train cell computes on its ``DTensor``
 state; a RecSys or NequIP train cell steps a placed state on its local
 shards (:func:`~repro_torch.train.trainer.make_train_step`'s
-``param_logical``). Every family of the registry has its cells: RecSys
+``param_logical``). Every serving cell's step is
+:func:`~repro_torch.train.trainer.make_serve_step`: under the rules on a
+mesh each rank serves its share of the queries (``"batch"``), of the
+candidates (``"cands"``) and of the decode caches' sequence
+(``"kv_seq"``); RecSys and the forest on their parameters' local shards,
+the LM on its ``DTensor`` parameters; the outputs come back whole.
+
+Every family of the registry has its cells: RecSys
 (:mod:`repro_torch.models.recsys`), the LM's ``train``, ``prefill`` and
 ``decode`` (:mod:`repro_torch.models.transformer`; a train cell
 accumulates microbatch gradients in bfloat16 under Adafactor, float32
@@ -61,7 +68,7 @@ from repro_torch.models import nequip as nequip_mod
 from repro_torch.models import recsys as recsys_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.train.optimizer import get_optimizer, is_rowwise_table
-from repro_torch.train.trainer import TrainState, init_state, make_train_step
+from repro_torch.train.trainer import TrainState, init_state, make_serve_step, make_train_step
 from repro_torch.utils import resolve_device
 
 F32 = torch.float32
@@ -199,15 +206,19 @@ def _lm_cell(cfg: TransformerConfig, shape: ShapeSpec) -> Cell:
             init_state=init,
         )
 
+    cache_lg = {name: {kv: (None, "batch", "kv_seq", None, None) for kv in c}
+                for name, c in tfm.make_decode_caches(cfg, B, S, "meta").items()}
+    out_logical = (("batch", None), cache_lg)   # logits, caches
     if shape.kind == "prefill":
-        def step(params, inputs):
+        def prefill(params, inputs):
             return tfm.prefill(cfg, params, inputs["tokens"], cache_len=S)
 
-        return cell(step, lambda: {"tokens": _sds((B, S), I32)},
-                    lambda: {"tokens": ("batch", None)})
+        logical = {"tokens": ("batch", None)}
+        return cell(make_serve_step(prefill, logical, out_logical, plogical, kv_len=S),
+                    lambda: {"tokens": _sds((B, S), I32)}, lambda: logical)
 
     # decode
-    def step(params, inputs):
+    def decode(params, inputs):
         return tfm.decode_step(cfg, params, inputs["token"], inputs["caches"], inputs["pos"])
 
     def inputs():
@@ -215,12 +226,9 @@ def _lm_cell(cfg: TransformerConfig, shape: ShapeSpec) -> Cell:
                 "caches": tfm.make_decode_caches(cfg, B, S, "meta"),
                 "pos": _sds((), I32)}
 
-    def inputs_logical():
-        cache_lg = {name: {kv: (None, "batch", "kv_seq", None, None) for kv in c}
-                    for name, c in tfm.make_decode_caches(cfg, B, S, "meta").items()}
-        return {"token": ("batch", None), "caches": cache_lg, "pos": ()}
-
-    return cell(step, inputs, inputs_logical)
+    logical = {"token": ("batch", None), "caches": cache_lg, "pos": ()}
+    return cell(make_serve_step(decode, logical, out_logical, plogical, kv_len=S), inputs,
+                lambda: logical)
 
 
 # ---------------------------------------------------------------------------
@@ -361,10 +369,10 @@ def _recsys_cell(cfg: RecSysConfig, shape: ShapeSpec) -> Cell:
         fwd = partial(recsys_mod.din_score_candidates, chunk=DIN_CAND_CHUNK)
     else:
         fwd = recsys_mod.SCORE_CANDIDATES[fam]
-
-    @torch.no_grad()
-    def step(params, inputs):
-        return fwd(cfg, params, inputs)
+    # Scores per request, or per candidate.
+    step = make_serve_step(partial(fwd, cfg), logical,
+                           ("cands",) if shape.n_candidates else ("batch",),
+                           param_logical=plogical)
 
     def init(seed, device=None):
         dev = resolve_device(device)
@@ -547,8 +555,11 @@ def _forest_cell(cfg: ForestConfig, shape: ShapeSpec) -> Cell:
 
         return {"ranker": ens_lg(), "classifier": ens_lg(), "threshold": ()}
 
+    # Queries over "batch", trees replicated: each rank's shard of the block
+    # runs the cascade on its own device; scores and continue masks gathered.
+    step = make_serve_step(_forest_step(cfg), logical(), (("batch", None), ("batch", None)))
     return Cell(
-        cfg=cfg, shape=shape, step=_forest_step(cfg),
+        cfg=cfg, shape=shape, step=step,
         abstract_state=lambda: _forest_abstract(cfg),
         state_logical=plogical,
         input_specs=inputs, input_logical=logical,

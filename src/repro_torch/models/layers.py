@@ -167,6 +167,43 @@ def decode_attention(
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
+def decode_attention_partial(
+    q: torch.Tensor,        # [B, 1, H, Dh] current-token queries
+    k_cache: torch.Tensor,  # [B, S_slice, Hkv, Dh]: positions start, start + 1, …
+    v_cache: torch.Tensor,
+    pos: int | torch.Tensor,  # current length (tokens < pos are valid)
+    start: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention` over one slice of the cache, whose first
+    position is ``start``, as partials for :func:`merge_softmax`: the
+    slice's score maximum ``[B, Hkv, G]``, its sum of ``exp(score − max)``
+    ``[B, Hkv, G]`` and those weights' sum of values ``[B, Hkv, G, Dh]``,
+    all float32 (the cache upcast as in :func:`decode_attention`). A slice
+    with no valid position has maximum ``NEG_INF``."""
+    B, _, H, Dh = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    G = H // Hkv
+    scale = 1.0 / np.sqrt(Dh)
+    qf = q.reshape(B, Hkv, G, Dh).float()
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float()) * scale
+    valid = start + torch.arange(S, device=q.device)[None, None, None, :] < pos
+    scores = torch.where(valid, scores, NEG_INF)
+    top = scores.amax(dim=-1)
+    p = torch.exp(scores - top[..., None])
+    return top, p.sum(dim=-1), torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+
+
+def merge_softmax(top: torch.Tensor, total: torch.Tensor, acc: torch.Tensor, axis
+                  ) -> torch.Tensor:
+    """The attention output ``[B, Hkv, G, Dh]`` (float32) from every rank's
+    partials over its slice of the sequence (:func:`decode_attention_partial`):
+    each rank rescales its sums from its own maximum to the ranks' maximum
+    (``axis.max``), then ``axis.reduce`` sums them. A slice with no valid
+    position scales by ``exp(NEG_INF − max)`` = 0."""
+    c = torch.exp(top - axis.max(top))
+    return axis.reduce(acc * c[..., None]) / axis.reduce(total * c)[..., None]
+
+
 class _Silu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):

@@ -44,8 +44,19 @@ projection's columns cut across q, k and v, so the projection is gathered
 and every rank attends with every head), and its tied softmax runs over
 the vocab-sharded ``item_embed`` as the LM's sharded cross-entropy does.
 Its masked loss divides by the whole batch's masked count
-(:func:`~repro_torch.distributed.parallel.batch_total`). Serving keeps
-whole tables.
+(:func:`~repro_torch.distributed.parallel.batch_total`).
+
+Serving runs on the same local shards (the serving cells'
+:func:`~repro_torch.train.trainer.make_serve_step`): ``serve_p99`` and
+``serve_bulk`` split the batch over ``"batch"`` and look up as the train
+step does. ``retrieval_cand`` splits the candidates over ``"cands"``
+(every mesh axis, "model" the minor one) while the tables split by rows
+over "model", so a rank's candidates lie in other ranks' rows
+(:func:`_take_cands`): the ``"model"`` ranks all-gather their id shares,
+each looks up the rows it holds, and a reduce-scatter sums the parts and
+leaves each rank the rows of its own share, which it scores. The user
+side (DLRM's and DeepFM's user fields, DIN's history, BERT4Rec's encoder)
+goes through the row-sharded lookup whole on every rank.
 """
 
 from __future__ import annotations
@@ -59,7 +70,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecSysConfig
-from repro_torch.distributed.parallel import LOCAL, ModelAxis, batch_total
+from repro_torch.distributed.parallel import LOCAL, ModelAxis, batch_total, cand_axis
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import rms_norm
 from repro_torch.utils import resolve_device, tree_items
@@ -107,6 +118,21 @@ def _take(table: torch.Tensor, ids: torch.Tensor, sparse_grad: bool = False,
     if not tp.on("rows"):
         return F.embedding(ids.long(), table, sparse=sparse_grad)
     return tp.reduce(_held(table, ids, sparse_grad, tp))
+
+
+def _take_cands(table: torch.Tensor, cands: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+    """Rows of ``table`` at this rank's share of the candidate ids ``[C]``.
+    Where the share is cut over "model" too (:func:`cand_axis`) and the
+    table's rows are split over it, the "model" ranks gather their id
+    shares (one block of the candidates), each looks up the rows it holds,
+    and a reduce-scatter sums the parts (exact: one term is not zero) and
+    leaves each rank its own share's rows."""
+    share = cand_axis()
+    if share.size == 1 or not tp.on("rows"):
+        return _take(table, cands, tp=tp)
+    if share.size != tp.size:
+        raise ValueError(f"candidates over {share.size} 'model' ranks, rows over {tp.size}")
+    return share.scatter(_held(table, share.gather(cands, 0), False, tp), 0)
 
 
 def embedding_bag(
@@ -225,16 +251,17 @@ def dlrm_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool = F
 
 def dlrm_score_candidates(cfg: RecSysConfig, params: Params, batch) -> torch.Tensor:
     """1 user (dense + 25 fields) × C candidate items (last field)."""
+    tp = ModelAxis.of(params, partial(dlrm_logical, cfg))
     dense = batch["dense"]                                        # [1, 13]
     sparse = batch["sparse"]                                      # [1, 25, hot]
     cands = constrain(batch["cand_ids"], "cands")                 # [C]
     bot = _mlp(dense, params, "bot", torch.relu)                  # [1, D]
     user_embs = [
-        embedding_bag(params[f"tables/t{i}"], sparse[:, i])
+        embedding_bag(params[f"tables/t{i}"], sparse[:, i], tp=tp)
         for i in range(len(cfg.vocab_sizes) - 1)
     ]
     user_vecs = torch.cat([bot, *user_embs], dim=0)               # [26, D]
-    cand_vec = _take(params[f"tables/t{len(cfg.vocab_sizes) - 1}"], cands)  # [C, D]
+    cand_vec = _take_cands(params[f"tables/t{len(cfg.vocab_sizes) - 1}"], cands, tp)  # [C, D]
     # User-user dots are candidate-independent; compute once.
     uu_flat = dot_interact(user_vecs[None])[0]                    # [n_u(n_u-1)/2]
     uc = cand_vec @ user_vecs.T                                   # [C, n_u]
@@ -285,12 +312,13 @@ def deepfm_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool =
 
 def deepfm_score_candidates(cfg: RecSysConfig, params: Params, batch) -> torch.Tensor:
     """User fields fixed, candidate = last field swept over C ids."""
+    tp = ModelAxis.of(params, partial(deepfm_logical, cfg))
     ids = batch["ids"]                                            # [1, 38]
     cands = constrain(batch["cand_ids"], "cands")                 # [C]
-    vu = _take(params["table"], ids[0])                           # [38, D]
-    wu = _take(params["first_order"], ids[0]).sum()
-    vc = _take(params["table"], cands)                            # [C, D]
-    wc = _take(params["first_order"], cands)[..., 0]              # [C]
+    vu = _take(params["table"], ids[0], tp=tp)                    # [38, D]
+    wu = _take(params["first_order"], ids[0], tp=tp).sum()
+    vc = _take_cands(params["table"], cands, tp)                  # [C, D]
+    wc = _take_cands(params["first_order"], cands, tp)[..., 0]    # [C]
     su = vu.sum(dim=0)
     s = su[None] + vc
     fm2 = 0.5 * ((s * s).sum(dim=-1) - ((vu * vu).sum() + (vc * vc).sum(dim=-1)))
@@ -350,22 +378,24 @@ def din_score_candidates(cfg: RecSysConfig, params: Params, batch,
     """One user history × C candidates — candidate-dependent attention.
     ``chunk`` sweeps the candidates that many at a time (each candidate's
     score depends on it alone): the attention input of one sweep is
-    ``[C, S, 4·D]``, 28.8 GB at DIN's full width and 10⁶ candidates."""
+    ``[C, S, 4·D]``, 28.8 GB at DIN's full width and 10⁶ candidates. The
+    candidates' rows are looked up once, before the sweeps."""
+    tp = ModelAxis.of(params, partial(din_logical, cfg))
     hist = batch["hist_ids"][0]                                   # [S]
     cands = constrain(batch["cand_ids"], "cands")                 # [C]
     hist_mask = (hist >= 0)[None]
-    hist_vec = _take(params["item_table"], hist.clamp_min(0))     # [S, D]
+    hist_vec = _take(params["item_table"], hist.clamp_min(0), tp=tp)  # [S, D]
+    cand_vec = _take_cands(params["item_table"], cands, tp)       # [C, D]
 
-    def sweep(c: torch.Tensor) -> torch.Tensor:
-        cand_vec = _take(params["item_table"], c)                 # [c, D]
-        hv = hist_vec[None].expand(c.shape[0], *hist_vec.shape)
-        user = _din_user_vec(params, hv, cand_vec, hist_mask)
-        feats = torch.cat([user, cand_vec, user * cand_vec], dim=-1)
+    def sweep(cv: torch.Tensor) -> torch.Tensor:
+        hv = hist_vec[None].expand(cv.shape[0], *hist_vec.shape)
+        user = _din_user_vec(params, hv, cv, hist_mask)
+        feats = torch.cat([user, cv, user * cv], dim=-1)
         return _mlp(feats, params, "out")[..., 0]
 
-    if chunk is None or chunk >= cands.shape[0]:
-        return sweep(cands)
-    return torch.cat([sweep(c) for c in cands.split(chunk)])
+    if chunk is None or chunk >= cand_vec.shape[0]:
+        return sweep(cand_vec)
+    return torch.cat([sweep(cv) for cv in cand_vec.split(chunk)])
 
 
 # ---------------------------------------------------------------------------
@@ -491,14 +521,16 @@ def bert4rec_masked_loss(cfg: RecSysConfig, params: Params, batch,
 def bert4rec_forward(cfg: RecSysConfig, params: Params, batch, sparse_grad: bool = False
                      ) -> torch.Tensor:
     """Serve: next-item score for a provided target at the last position."""
-    h = bert4rec_encode(cfg, params, batch["ids"], sparse_grad)[:, -1]  # [B, D]
-    tgt = _take(params["item_embed"], batch["target_id"], sparse_grad)
+    tp = ModelAxis.of(params, partial(bert4rec_logical, cfg))
+    h = bert4rec_encode(cfg, params, batch["ids"], sparse_grad, tp)[:, -1]  # [B, D]
+    tgt = _take(params["item_embed"], batch["target_id"], sparse_grad, tp)
     return (h * tgt).sum(dim=-1)
 
 
 def bert4rec_score_candidates(cfg: RecSysConfig, params: Params, batch) -> torch.Tensor:
-    h = bert4rec_encode(cfg, params, batch["ids"])[:, -1]         # [1, D]
-    cand_vec = _take(params["item_embed"], constrain(batch["cand_ids"], "cands"))  # [C, D]
+    tp = ModelAxis.of(params, partial(bert4rec_logical, cfg))
+    h = bert4rec_encode(cfg, params, batch["ids"], tp=tp)[:, -1]  # [1, D]
+    cand_vec = _take_cands(params["item_embed"], constrain(batch["cand_ids"], "cands"), tp)
     return cand_vec @ h[0]
 
 

@@ -40,6 +40,21 @@ directions, bfloat16 bit for bit. The reference's sharding constraints sit
 where its do (:func:`~repro_torch.distributed.constrain`: the identity on a
 plain tensor); ``cfg.seq_parallel`` puts the residual stream's sequence
 axis on ``"seq_sp"``.
+
+Serving on several ranks (the prefill and decode cells'
+:func:`~repro_torch.train.trainer.make_serve_step`): parameters placed as
+``DTensor``\\ s run tensor and expert parallel over ``"model"`` as in
+training, and the caches follow the reference's rule, ``"kv_seq"`` →
+"model": each rank holds its slice of the sequence with every key/value
+head (:func:`~repro_torch.distributed.parallel.kv_share`). Prefill gathers
+the keys and values over the heads' ranks and writes its slice; decode
+writes the token on the rank whose slice holds ``pos``, attends with every
+query head over its slice, and the ranks merge their partial softmaxes
+(:func:`~repro_torch.models.layers.merge_softmax`). A decode step's MoE
+gathers the batch's ranks' tokens into its one dispatch group
+(:func:`~repro_torch.distributed.parallel.batch_axis`), so routing and
+capacity are the one-program step's. The logits of a vocab-sharded
+``lm_head`` are gathered over "model".
 """
 
 from __future__ import annotations
@@ -59,13 +74,15 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import TransformerConfig
-from repro_torch.distributed.parallel import LOCAL, ModelAxis
+from repro_torch.distributed.parallel import LOCAL, WHOLE, Axis, ModelAxis, batch_axis, kv_axis
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import (
     apply_rope,
     blockwise_attention,
     decode_attention,
+    decode_attention_partial,
     glu_mlp,
+    merge_softmax,
     rms_norm,
 )
 from repro_torch.models.moe import moe_ffn
@@ -194,7 +211,7 @@ def abstract_params(cfg: TransformerConfig) -> Params:
 
 def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positions,
                pos: int | None, k_cache: torch.Tensor | None, v_cache: torch.Tensor | None,
-               tp: ModelAxis):
+               tp: ModelAxis, kv: Axis = WHOLE):
     """Prefill (``pos`` None): attention over ``x``'s sequence, whose keys
     and values are written to ``k_cache`` / ``v_cache`` ``[B, S, Hkv, Dh]``;
     training passes no caches and writes none. Decode: the token's keys and
@@ -203,8 +220,13 @@ def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, pos
     rank's columns: where the heads split into whole heads over the ranks,
     each rank attends with its own heads; where they do not (fewer
     key/value heads than ranks), the projections are gathered, every rank
-    attends with every head and keeps its columns of the output. Either way
-    the output projection's partial sums are summed over the axis."""
+    attends with every head and keeps its columns of the output; decode
+    always does so, since the cache holds every head. Either way the output
+    projection's partial sums are summed over the axis. Over ``kv``'s ranks
+    the caches hold this rank's slice of the sequence: prefill writes the
+    slice's keys and values (gathered over the heads where they split);
+    decode writes the token where this slice holds ``pos`` and merges the
+    ranks' partial softmaxes."""
     B, S, D = x.shape
     Dh = cfg.d_head
     heads = tp.on("qkv")
@@ -215,7 +237,8 @@ def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, pos
     v = x @ layer["attn/wv"]
     if cfg.qkv_bias:
         q, k, v = q + layer["attn/bq"], k + layer["attn/bk"], v + layer["attn/bv"]
-    gathered = heads and bool(cfg.n_heads % tp.size or cfg.n_kv_heads % tp.size)
+    gathered = heads and bool(cfg.n_heads % tp.size or cfg.n_kv_heads % tp.size
+                              or pos is not None)
     if gathered:
         q, k, v = (tp.gather(t, 2, grad="sum") for t in (q, k, v))
     H, Hkv = q.shape[-1] // Dh, k.shape[-1] // Dh
@@ -233,14 +256,28 @@ def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, pos
 
     if pos is not None:
         # dynamic_update_slice clamps the start so the update fits.
-        at = min(max(pos, 0), k_cache.shape[1] - 1)
-        k_cache[:, at] = k[:, 0]
-        v_cache[:, at] = v[:, 0]
-        out = decode_attention(q, k_cache, v_cache, pos + 1)
+        n = k_cache.shape[1]
+        at = min(max(pos, 0), n * kv.size - 1) - kv.rank * n
+        if 0 <= at < n:
+            k_cache[:, at] = k[:, 0]
+            v_cache[:, at] = v[:, 0]
+        if kv.size == 1:
+            out = decode_attention(q, k_cache, v_cache, pos + 1)
+        else:
+            part = decode_attention_partial(q, k_cache, v_cache, pos + 1, kv.rank * n)
+            out = merge_softmax(*part, kv).reshape(B, 1, H, Dh).to(q.dtype)
     else:
         if k_cache is not None:
-            k_cache.copy_(constrain(k, "batch", "kv_seq", None, None))
-            v_cache.copy_(constrain(v, "batch", "kv_seq", None, None))
+            kc, vc = (tp.gather(k, 2), tp.gather(v, 2)) if heads and not gathered else (k, v)
+            if kv.size == 1:
+                k_cache.copy_(constrain(kc, "batch", "kv_seq", None, None))
+                v_cache.copy_(constrain(vc, "batch", "kv_seq", None, None))
+            else:
+                n = k_cache.shape[1]
+                lo, hi = kv.rank * n, min((kv.rank + 1) * n, S)
+                if hi > lo:
+                    k_cache[:, :hi - lo] = kc[:, lo:hi]
+                    v_cache[:, :hi - lo] = vc[:, lo:hi]
         out = blockwise_attention(
             q, k, v,
             causal=cfg.causal,
@@ -257,12 +294,12 @@ def _attention(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, pos
 
 
 def _layer(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positions,
-           pos: int | None, k_cache, v_cache, moe: bool, tp: ModelAxis
+           pos: int | None, k_cache, v_cache, moe: bool, tp: ModelAxis, kv: Axis = WHOLE
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer; returns (x, the MoE aux loss, 0 for a dense layer)."""
     seq_axis = "seq_sp" if cfg.seq_parallel else None
     x = x + _attention(cfg, layer, rms_norm(x, layer["ln1"]), positions, pos, k_cache, v_cache,
-                       tp)
+                       tp, kv)
     x = constrain(x, "batch", seq_axis, None)
     h = rms_norm(x, layer["ln2"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -270,14 +307,17 @@ def _layer(cfg: TransformerConfig, layer: Mapping[str, torch.Tensor], x, positio
         h = glu_mlp(h, layer["mlp/w_gate"], layer["mlp/w_up"], layer["mlp/w_down"], tp)
     else:
         B, S, D = h.shape
-        # Decode: one dispatch group of every sequence's token; prefill:
-        # one group per sequence.
-        groups = h.reshape(1, B * S, D) if pos is not None else h
+        # Decode: one dispatch group of every sequence's token (those of
+        # the batch's other ranks gathered); prefill: one group per sequence.
+        share = batch_axis()
+        groups = share.gather(h.reshape(B * S, D), 0)[None] if pos is not None else h
         y, aux = moe_ffn(
             groups, layer["moe/router"], layer["moe/w_gate"], layer["moe/w_up"],
             layer["moe/w_down"], top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
             tp=tp,
         )
+        if pos is not None:
+            y = y[0, share.rank * B * S:(share.rank + 1) * B * S]
         y = y.reshape(B, S, D)
         if cfg.n_shared_experts:
             y = y + glu_mlp(h, layer["shared/w_gate"], layer["shared/w_up"],
@@ -340,6 +380,7 @@ def _forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, posit
     :meth:`ModelAxis.use` where they are used: a layer's inside its
     checkpoint, so its gathered weights are dropped with its activations."""
     tp = ModelAxis.of(params, functools.partial(param_logical, cfg))
+    kv = WHOLE if caches is None else kv_axis()
     use = tp.use
     x = _embed_lookup(cfg, use(params["embed"]), tokens, tp).to(_dtype(cfg))
     x = constrain(x, "batch", None, None)
@@ -359,7 +400,7 @@ def _forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, posit
                 x, aux = body(x, *(stack[k][i] for k in keys))
             else:
                 x, aux = _layer(cfg, {k: use(v[i]) for k, v in stack.items()}, x, positions, pos,
-                                caches[name]["k"][i], caches[name]["v"][i], moe, tp)
+                                caches[name]["k"][i], caches[name]["v"][i], moe, tp, kv)
             aux_total = aux_total + aux
     return rms_norm(x, use(params["final_norm"])), aux_total
 
@@ -438,17 +479,28 @@ def _zeros_caches(cfg: TransformerConfig, batch: int, length: int, device) -> Ca
     return {name: zeros(n) for name, n, _ in _stacks(cfg)}
 
 
+def _last_logits(cfg: TransformerConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    """The last position's logits ``[B, V]`` in float32; a vocab-sharded
+    ``lm_head``'s columns are gathered over "model"."""
+    tp = ModelAxis.of(params, functools.partial(param_logical, cfg))
+    logits = (h[:, -1] @ tp.use(params["lm_head"])).float()
+    return tp.gather(logits, 1) if tp.on("vocab") else logits
+
+
 @torch.no_grad()
 def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor, cache_len: int
             ) -> tuple[torch.Tensor, Caches]:
     """Full-sequence prefill; returns (last-token logits [B, V] float32,
-    KV caches padded or cut to ``cache_len``)."""
+    KV caches padded or cut to ``cache_len``: under a
+    :func:`~repro_torch.distributed.parallel.kv_share`, this rank's slice
+    of them)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
-    caches = _zeros_caches(cfg, B, S, tokens.device)
+    kv = kv_axis()
+    caches = _zeros_caches(cfg, B, S if kv.size == 1 else cache_len // kv.size, tokens.device)
     h, _ = _forward(cfg, params, tokens, positions, caches)
-    logits = (h[:, -1] @ params["lm_head"]).float()
-    return logits, _pad_caches(cfg, caches, cache_len)
+    logits = _last_logits(cfg, params, h)
+    return logits, _pad_caches(cfg, caches, cache_len) if kv.size == 1 else caches
 
 
 def _pad_caches(cfg: TransformerConfig, caches: Caches, cache_len: int) -> Caches:
@@ -478,8 +530,7 @@ def decode_step(cfg: TransformerConfig, params: Params, token: torch.Tensor, cac
     pos = int(pos)
     positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32, device=token.device)
     h, _ = _forward(cfg, params, token, positions, caches, pos=pos)
-    logits = (h[:, -1] @ params["lm_head"]).float()
-    return logits, caches
+    return _last_logits(cfg, params, h), caches
 
 
 # ---------------------------------------------------------------------------

@@ -53,12 +53,36 @@ optimizer, microbatch)`` returns ``step(state, batch, input_logical=None)
 
 Parameters are a flat ``dict[str, Tensor]``; the state is the reference's
 ``TrainState(params, opt_state, step)``.
+
+``make_serve_step(fwd, input_logical, output_logical, ...)`` is the serving
+counterpart: ``step(params, inputs) → outputs``, no gradients. Under
+:func:`~repro_torch.distributed.sharding_rules` with a mesh, each rank
+steps its share of the inputs (:func:`serve_input_logical`: the
+``"batch"``, ``"cands"`` and ``"kv_seq"`` dimensions, each over the ranks
+of the mesh axes it resolves to; a dimension those ranks do not divide
+stays whole on every one of them, which computes the same rows). A plain
+input is cut into a view of this rank's share; a ``DTensor`` input placed
+by those axes gives its local shard. The model reads the shares through
+:func:`~repro_torch.distributed.parallel.rank_share`,
+:func:`~repro_torch.distributed.parallel.cand_share` and
+:func:`~repro_torch.distributed.parallel.kv_share`. Outputs come back at
+global shape, gathered over the axes that split them
+(``output_logical``); an output that is an input written in place (a
+decode step's caches) comes back as that input: a ``DTensor`` with its
+local shard written, or the plain tensor with every rank's writes
+gathered into it. A state of ``DTensor``\\ s replicated over all mesh
+axes but ``"model"`` (RecSys's, the forest's) steps on its local shards,
+as a train step with ``param_logical`` does; one split over another axis
+too (the LM's, FSDP over "data") is used as it is, through
+:meth:`~repro_torch.distributed.parallel.ModelAxis.use`. Without rules,
+or on a one-rank mesh, the step is ``fwd`` itself.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import weakref
 from collections.abc import Callable
 from typing import Any
 
@@ -67,17 +91,23 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.distributed.parallel import (
     MODEL_AXIS,
+    WHOLE,
+    Axis,
     ModelAxis,
     all_reduce_,
     axis_groups,
+    cand_share,
     edge_share,
+    gather_over,
     gather_parts,
+    kv_share,
     local_shards,
     rank_share,
 )
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, current_mesh, current_rules, mesh_axes
 from repro_torch.train.elastic import map_tree
 from repro_torch.train.optimizer import Optimizer
+from repro_torch.utils import tree_items
 
 
 @dataclasses.dataclass
@@ -208,7 +238,7 @@ def make_train_step(
         if n_e > 1:
             batch = {k: _rank_share(v, n_e, r_e, 0) if k in edges else v
                      for k, v in batch.items()}
-        with rank_share(groups, n_dp), edge_share(e_groups, n_e, r_e):
+        with rank_share(groups, n_dp, r_dp), edge_share(e_groups, n_e, r_e):
             tp = (ModelAxis.of(placed.params, lambda: param_logical) if placed is not None
                   else None)
             with local_shards(tp) if tp is not None else contextlib.nullcontext():
@@ -252,17 +282,20 @@ def _model_shard(p: Any) -> bool:
     return isinstance(p.placements[names.index(MODEL_AXIS)], Shard)
 
 
-def _on_local_shards(params: dict) -> bool:
-    """Whether ``params`` are ``DTensor``\\ s replicated over every mesh
-    axis but ``"model"`` (raises where they are ``DTensor``\\ s otherwise
-    placed: such a state needs the ``DTensor`` step)."""
-    leaves = [p for p in params.values() if isinstance(p, DTensor)]
+def _on_local_shards(params: Any, strict: bool = True) -> bool:
+    """Whether ``params`` (a tree) are ``DTensor``\\ s replicated over every
+    mesh axis but ``"model"``. Where they are ``DTensor``\\ s otherwise
+    placed (such a state needs the ``DTensor`` step), raises if
+    ``strict``, else says no."""
+    leaves = [p for _, p in tree_items(params) if isinstance(p, DTensor)]
     if not leaves:
         return False
     for p in leaves:
         names = p.device_mesh.mesh_dim_names
         if any(n != MODEL_AXIS and not isinstance(pl, Replicate)
                for n, pl in zip(names, p.placements)):
+            if not strict:
+                return False
             raise ValueError(f"a local-shard step needs every leaf replicated over all axes "
                              f"but {MODEL_AXIS!r}; got {p.placements}")
     return True
@@ -348,3 +381,163 @@ def optax_global_norm(grads: dict[str, torch.Tensor], sharded: set = frozenset()
     whole = sum((sq(g) for k, g in grads.items() if k not in sharded), zero)
     return torch.sqrt(tp.reduce(split) + whole)
 
+
+# ---------------------------------------------------------------------------
+# The serving step.
+# ---------------------------------------------------------------------------
+
+#: The logical axes a serving step splits its inputs over.
+SERVE_AXES = ("batch", "cands", "kv_seq")
+
+
+def _map_logical(fn: Callable[[tuple], Any], logical: Any) -> Any:
+    if isinstance(logical, dict):
+        return {k: _map_logical(fn, v) for k, v in logical.items()}
+    return fn(tuple(logical or ()))
+
+
+def serve_input_logical(input_logical: dict) -> dict:
+    """The serving inputs' logical axes as the serving step splits them:
+    ``"batch"``, ``"cands"`` and ``"kv_seq"`` where they stand (a decode
+    cache's ``(None, "batch", "kv_seq", None, None)``), no other."""
+    return _map_logical(lambda lg: tuple(a if a in SERVE_AXES else None for a in lg),
+                        input_logical)
+
+
+def _zip_map(fn: Callable[[Any, tuple], Any], tree: Any, logical: Any) -> Any:
+    """``tree`` (dicts, lists and tuples of leaves) with each leaf replaced
+    by ``fn(leaf, its logical axes)``."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, logical[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, lg) for v, lg in zip(tree, logical, strict=True))
+    return fn(tree, tuple(logical or ()))
+
+
+def _serve_shares(inputs: dict, axes: dict, kv_len: int) -> dict[str, tuple[list, int, int]]:
+    """``{axis: (groups, n, r)}`` for each of :data:`SERVE_AXES` that the
+    step splits: the ranks it resolves to divide every input dimension it
+    names (and ``kv_len``, the caches' length, for ``"kv_seq"``)."""
+    sizes: dict[str, set] = {a: set() for a in SERVE_AXES}
+    if kv_len:
+        sizes["kv_seq"].add(kv_len)
+
+    def note(v, lg):
+        for d, a in enumerate(lg):
+            if a is not None and isinstance(v, torch.Tensor):
+                sizes[a].add(v.shape[d])
+
+    _zip_map(note, inputs, axes)
+    shares = {}
+    for a, dims in sizes.items():
+        if dims:
+            groups, n, r = axis_groups(a)
+            if n > 1 and all(d % n == 0 for d in dims):
+                shares[a] = (groups, n, r)
+    return shares
+
+
+def _cand_model_part() -> Axis:
+    """The ``"model"`` part of a candidate share (:data:`WHOLE` where
+    ``"model"`` does not cut it): ``"model"`` must be its minor axis, so
+    that a data block's ``"model"`` ranks hold consecutive parts of it."""
+    mesh, rules = current_mesh(), current_rules()
+    names = mesh.mesh_dim_names
+    axes = [a for a in mesh_axes(rules.physical("cands")) if mesh.size(names.index(a)) > 1]
+    if MODEL_AXIS not in axes:
+        return WHOLE
+    if axes[-1] != MODEL_AXIS:
+        raise ValueError(f"candidates split over {axes}: {MODEL_AXIS!r} must be the minor axis")
+    d = names.index(MODEL_AXIS)
+    return Axis(mesh.get_group(MODEL_AXIS), mesh.size(d), mesh.get_coordinate()[d])
+
+
+def make_serve_step(fwd: Callable, input_logical: dict, output_logical: Any,
+                    param_logical: dict | None = None, kv_len: int = 0):
+    """``step(params, inputs) → fwd(params, inputs)``'s outputs, split as
+    the module docstring says. ``param_logical``: the parameters' logical
+    axes (a flat dict of parameters), read by ``ModelAxis.of`` for a state
+    stepped on its local shards; ``kv_len``: the length of the caches'
+    ``"kv_seq"`` dimension, which an output (prefill's caches) may have
+    alone."""
+    axes = serve_input_logical(input_logical)
+    locals_of: dict[int, tuple[weakref.ref, Any]] = {}   # a placed dataclass → its local view
+
+    def to_local(tree: Any) -> Any:
+        """``tree`` with every ``DTensor`` leaf's local shard; a dataclass
+        (a forest's ensemble) is unwrapped once and its local view kept
+        for as long as it lives, so the view's caches live as long."""
+        if isinstance(tree, DTensor):
+            return tree.to_local()
+        if isinstance(tree, dict):
+            return {k: to_local(v) for k, v in tree.items()}
+        if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+            ref, view = locals_of.get(id(tree), (None, None))
+            if ref is None or ref() is not tree:
+                view = map_tree(lambda t, _: t.to_local() if isinstance(t, DTensor) else t,
+                                tree, tree)
+                key = id(tree)
+                locals_of[key] = (weakref.ref(tree, lambda _: locals_of.pop(key, None)), view)
+            return view
+        return tree
+
+    @torch.no_grad()
+    def step(params, inputs):
+        tp = None
+        if _on_local_shards(params, strict=False):
+            if param_logical is not None:
+                tp = ModelAxis.of(params, lambda: param_logical)
+            params = to_local(params)
+        shares = _serve_shares(inputs, axes, kv_len)
+        views: dict[int, tuple[Any, list, torch.Tensor]] = {}
+
+        def cut(v, lg):
+            if not isinstance(v, torch.Tensor):
+                return v
+            dims = [(d, shares[a]) for d, a in enumerate(lg) if a in shares]
+            if isinstance(v, DTensor):
+                mine = v.to_local()
+                want = list(v.shape)
+                for d, (_, n, _) in dims:
+                    want[d] //= n
+                if list(mine.shape) != want:
+                    raise ValueError(f"a placed input's shard is {list(mine.shape)}, the step's "
+                                     f"share {want}")
+            else:
+                mine = v
+                for d, (_, n, r) in dims:
+                    size = v.shape[d] // n
+                    mine = mine.narrow(d, r * size, size)
+            if mine is not v:
+                views[id(mine)] = (v, dims, mine)
+            return mine
+
+        def join(t, lg):
+            if not isinstance(t, torch.Tensor):
+                return t
+            if id(t) in views and views[id(t)][2] is t:   # an input written in place
+                whole, dims, _ = views[id(t)]
+                if isinstance(whole, DTensor):
+                    return whole
+                for d, (groups, _, _) in dims:
+                    t = gather_over(t, d, groups)
+                return whole.copy_(t)
+            for d, a in enumerate(lg):
+                if a in shares:
+                    t = gather_over(t, d, shares[a][0])
+            return t
+
+        mine = _zip_map(cut, inputs, axes)
+        with contextlib.ExitStack() as ctx:
+            if "batch" in shares:
+                ctx.enter_context(rank_share(*shares["batch"]))
+            if "kv_seq" in shares:
+                ctx.enter_context(kv_share(*shares["kv_seq"]))
+            if "cands" in shares:
+                ctx.enter_context(cand_share(_cand_model_part()))
+            if tp is not None:
+                ctx.enter_context(local_shards(tp))
+            out = fwd(params, mine)
+        return _zip_map(join, out, output_logical)
+
+    return step

@@ -14,6 +14,9 @@
 - the DeepSeek-MoE-16B smoke step on a fake ``(4, 2)`` group (the
   reference's 8-device rule table) issues collectives over ``"model"``,
   and the dry run adds them to the collective term;
+- a serving record carries the activation collectives of its sharded
+  step: a retrieval's id gathers and row reduce-scatters, a decode step's
+  merged softmax over the caches' sequence, the forest's gathered scores;
 - a fake 16 × 16 dry run of smoke cells (in a subprocess: the fake process
   group is process-wide) writes records with the reference's keys
   (``lower_s`` and ``compile_s`` become ``trace_s``; XLA's temporary and
@@ -112,6 +115,8 @@ def test_forward_matmul_flops_match_the_reference_dot_flops(arch):
     ("qwen3-4b", ShapeSpec(name="t", kind="train", seq_len=32, global_batch=4)),
     ("deepseek-moe-16b", ShapeSpec(name="d", kind="decode", seq_len=64, global_batch=2)),
     ("dlrm-rm2", None),
+    ("dlrm-rm2", next(s for s in port_configs.get_config("dlrm-rm2").shapes
+                      if s.name == "retrieval_cand")),
     ("nequip", None),
 ])
 def test_per_device_bytes_on_a_local_mesh_equal_the_reference_arguments(arch, shape):
@@ -337,3 +342,74 @@ def test_a_batch_that_does_not_split_says_so(recsys_nequip_records):
     rec = recsys_nequip_records["dlrm-rm2 uneven"]
     assert rec["activation_collectives"].startswith("no sharded step"), rec
     assert rec["divisibility"], rec
+
+
+_SERVE_PROG = r"""
+import dataclasses, json
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch import dryrun
+
+out = {}
+for arch, name in (("dlrm-rm2", "retrieval_cand"), ("qwen3-4b", "decode_32k"),
+                   ("lear-msn1", "rank_online")):
+    shape = next(s for s in get_config(arch).shapes if s.name == name)
+    cfg = dataclasses.replace(get_smoke_config(arch), shapes=(shape,))
+    record, _ = dryrun.run_cell(arch, name, multi_pod=False, override_cfg=cfg)
+    out[f"{arch} {name}"] = record
+print("RECORDS", json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def serve_records():
+    """The fake 16 x 16 dry run of three serving cells (registry shapes,
+    smoke widths)."""
+    res = subprocess.run(
+        [sys.executable, "-c", _SERVE_PROG], capture_output=True, text=True,
+        timeout=300, cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+    )
+    line = [x for x in res.stdout.splitlines() if x.startswith("RECORDS ")]
+    assert line, res.stdout + res.stderr[-4000:]
+    return json.loads(line[0][len("RECORDS "):])
+
+
+def test_retrieval_record_counts_the_candidates_exchange(serve_records):
+    """Candidates over all 256 ranks, tables by rows over "model": each
+    rank's ids gathered over its 16 "model" ranks, the held rows
+    reduce-scattered back to their owners ([C / 16, D] float32 a device),
+    the scores gathered over every rank; the serving record counts the
+    trace's collectives as its collective term."""
+    rec = serve_records["dlrm-rm2 retrieval_cand"]
+    cfg = port_configs.get_smoke_config("dlrm-rm2")
+    C = -(-1_000_000 // 512) * 512
+    act = rec["activation_collectives"]
+    assert act["reduce-scatter"] >= C // 16 * cfg.embed_dim * 4, act
+    assert act["all-gather"] >= C * 4, act   # the scores, whole on every rank
+    coll = rec["roofline"]["coll_breakdown"]
+    assert coll["reduce-scatter"] == act["reduce-scatter"], coll   # both a device's bytes
+    # Each device holds 1 / 256 of the candidate ids.
+    assert rec["divisibility"] == [], rec["divisibility"]
+
+
+def test_decode_record_counts_the_merged_softmax(serve_records):
+    """The decode caches' sequence over 16 "model" ranks: per layer the
+    ranks' maxima and their rescaled sums are reduced over "model"; the
+    per-device bytes hold 1 / 256 of the caches, and the trace gathers
+    less than that (the caches stay placed)."""
+    rec = serve_records["qwen3-4b decode_32k"]
+    act = rec["activation_collectives"]
+    assert act["all-reduce"] > 0 and act["all-gather"] > 0, act
+    cfg = port_configs.get_smoke_config("qwen3-4b")
+    shape = next(s for s in port_configs.get_config("qwen3-4b").shapes if s.name == "decode_32k")
+    caches = (2 * cfg.n_layers * shape.global_batch * shape.seq_len * cfg.n_kv_heads
+              * cfg.d_head * 2)
+    assert rec["memory"]["per_device_argument_bytes"] < caches / 200, rec["memory"]
+    # The caches are placed on their ranks: nothing gathers them back whole.
+    assert act["all-gather"] < caches / 256, act
+
+
+def test_forest_record_gathers_its_scores(serve_records):
+    """Queries over the 16 "data" ranks: the scores and continue masks
+    are gathered over them; the trees are replicated."""
+    act = serve_records["lear-msn1 rank_online"]["activation_collectives"]
+    assert act["all-gather"] > 0 and act["all-reduce"] == 0, act

@@ -1,7 +1,7 @@
-"""The train step on a (data, model) mesh of four cards, one process a
-card, against the same step in one process.
+"""The train and serving steps on a (data, model) mesh of four cards, one
+process a card, against the same steps in one process.
 
-    PYTHONPATH=src python3 tools/torch_parallel_train.py
+    PYTHONPATH=src python3 tools/torch_parallel_train.py [--cases train|serve|all]
 
 The launcher starts one rank per position of the (2, 2) mesh
 (``join_ranks`` on 127.0.0.1 at a free port; rank ``r`` on ``cuda:r``,
@@ -47,6 +47,31 @@ at smoke size run on the CPU in ``gloo`` processes in
   loss and grad norm and step 2's loss (after the first update) are held
   within :data:`FULL_LIMITS` of one card's, relative limits set between
   the gaps of sound runs and of planted faults (``PERF.md`` §6).
+
+The serving cases (``--cases serve``; each state placed by ``remesh``, the
+cells' steps under ``single_pod_rules``, outputs gathered whole on every
+rank, which must agree bit for bit):
+
+- Smoke (float32): the four RecSys families' ``serve_p99`` (16 requests)
+  and ``retrieval_cand`` (2,000 candidates) with tables by rows over
+  "model"; Qwen3-4B and DeepSeek-MoE-16B prefill of 4 x 10 tokens and three
+  decode steps (positions 10-12 of a 24-token cache, its sequence over
+  "model"); lear-msn1 ``rank_online`` (Q 4 over "data"). Each rank also
+  serves alone: RecSys and the forest within :data:`SERVE_SMOKE_LIMITS`,
+  the LM within ``tests/lm_parity.py``'s float32 2e-4.
+- DLRM-RM2 ``retrieval_cand`` at full width (1,000,448 candidates over the
+  four cards, tables by rows over "model": 22.78 GB a card): scores within
+  :data:`RETRIEVAL_LIMIT` of rank 0's one-card step; step time and each
+  card's peak beside one card's.
+- Qwen3-4B ``decode_32k`` at full size, B = 8 (4 a card over "data")
+  against a 32,768-token cache drawn on the cards (its sequence over
+  "model": 9.66 GB a card of the 38.65 GB), one warm step and three timed
+  at position 32,767: the logits within :data:`DECODE_LIMIT` (absolute,
+  bfloat16) of rank 0's one-card step, beside a planted fault's gap (the
+  partial softmaxes summed without their rescale) and a profile of one
+  step on rank 0; step time and each card's peak beside one card's. Then
+  the same in float32 against a 16,384-token cache, within
+  :data:`DECODE_F32_LIMIT` of the logits' max.
 """
 
 from __future__ import annotations
@@ -85,6 +110,26 @@ FULL_ARCH, FULL_LAYERS, FULL_BATCH, FULL_STEPS = "qwen3-4b", 12, (4, 2), 3
 # ranks' mean left a sum: grad norm 1.0). A fault in a replicated weight's
 # gradient can hide inside them; the ranks then disagree (PERF.md §6).
 FULL_LIMITS = {"step 1 loss": 2e-5, "step 1 grad norm": 5e-4, "step 2 loss": 1.5e-3}
+SERVE_STEPS = 3               # timed after one warm step (host clock, synchronised)
+# Smoke serving: the gathered output's largest gap to one card, of its max
+# (RecSys: a bag's rows sum in another order, ROADMAP C17; the LM's merged
+# softmax adds in another order: tests/lm_parity.py's F32_TOL).
+SERVE_SMOKE_LIMITS = {"recsys": 1e-6, "lm": 2e-4, "forest": 1e-6}
+# DLRM-RM2 retrieval at full width: the scores' gap to one card, of their
+# max (a share of the rows takes its own GEMM from cuBLAS).
+RETRIEVAL_LIMIT = 1e-5
+# Qwen3-4B decode in bfloat16, absolute: set between a sound run's gap
+# (0.246, logits' max 4.94) and a planted missing rescale's (2.87) on four
+# NVIDIA H100 80GB HBM3 at 700 W. The tensor-parallel partial sums round in
+# bfloat16 at each of 36 layers, so tests/lm_parity.py's BF16_LOGIT_TOL
+# (0.125, two layers against the CPU) is too tight here (PERF.md §6). The
+# float32 case below holds exactness.
+DECODE_LIMIT = 0.5
+DECODE_BATCH, DECODE_CACHE = 8, 32768
+# The same decode in float32 against a 16,384-token cache (one card holds
+# its 17.6 GB of weights and 38.7 GB of cache), held to tests/lm_parity.py's
+# F32_TOL of the logits' max.
+DECODE_CACHE_F32, DECODE_F32_LIMIT = 16384, 2e-4
 
 
 def _free_port() -> int:
@@ -102,14 +147,14 @@ def _gaps(r: dict) -> dict[str, float]:
     return {k: abs(a - b) / abs(b) for k, (a, b) in gaps.items()}
 
 
-def _launch() -> int:
+def _launch(cases: str) -> int:
     world = math.prod(MESH)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
-    cmd = [sys.executable, os.path.abspath(__file__), "--port", str(port)]
+    cmd = [sys.executable, os.path.abspath(__file__), "--port", str(port), "--cases", cases]
     procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
@@ -135,16 +180,19 @@ def _launch() -> int:
     for case in dict.fromkeys(x["case"] for x in reports):
         ranks = [x for x in reports if x["case"] == case]
         r0 = ranks[0]
-        same = all(x["losses"] == r0["losses"] and x.get("digest") == r0.get("digest")
+        same = all(x.get("losses") == r0.get("losses") and x.get("digest") == r0.get("digest")
                    for x in ranks)
-        gaps = _gaps(r0)
+        serving = "gaps" in r0   # a serving case reports its gaps to one card itself
+        gaps = r0["gaps"] if serving else _gaps(r0)
         limits = r0.get("limits") or (FULL_LIMITS if r0.get("ms") else
                                       dict.fromkeys(gaps, SMOKE_LIMIT))
         checks = {k: all(x["checks"][k] for x in ranks) for k in r0.get("checks", {})}
         held = same and all(gaps[k] <= limits[k] for k in gaps) and all(checks.values())
         ok &= held
-        print(f"{case}: {len(ranks)} ranks identical {same}; (loss, grad norm) by step "
-              f"{r0['losses']} vs one card {r0['one_losses']}; relative gaps "
+        print(f"{case}: {len(ranks)} ranks identical {same}; "
+              + ("" if serving else f"(loss, grad norm) by step {r0['losses']} vs one card "
+                                    f"{r0['one_losses']}; ")
+              + "gaps "
               + ", ".join(f"{k} {v:.3g} (limit {limits[k]:g})" for k, v in gaps.items())
               + "".join(f"; {k} {v}" for k, v in checks.items())
               + "".join(f"; {k} {v}" for k, v in r0.get("notes", {}).items())
@@ -177,6 +225,11 @@ def _rank(args) -> None:
     join_ranks("127.0.0.1", args.port, args.rank, math.prod(MESH))
     mesh = init_device_mesh("cuda", MESH, mesh_dim_names=("data", "model"))
     rules = single_pod_rules()
+    if args.cases in ("serve", "all"):
+        _serve_cases(args, dev, mesh, rules)
+    if args.cases == "serve":
+        dist.destroy_process_group()
+        return
 
     def steps(cell, state, batch, n, ruled, keep=False):
         times, losses = [], []
@@ -444,13 +497,313 @@ def _nequip_full(args, dev, mesh, rules, steps, report) -> None:
                   else "rank 0 reads"})
 
 
+# ---------------------------------------------------------------------------
+# The serving cases.
+# ---------------------------------------------------------------------------
+
+
+def _rel(a, b) -> float:
+    """``a``'s largest gap to ``b``, of ``b``'s max."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _serve_timed(cell, state, inputs, ruled, mesh, rules, n=SERVE_STEPS):
+    """One warm step and ``n`` timed (host clock around synchronised
+    steps); returns the times and the last output."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.distributed import sharding_rules
+
+    ctx = sharding_rules(rules, mesh) if ruled else contextlib.nullcontext()
+    times, out = [], None
+    with ctx:
+        for _ in range(n + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cell.step(state, inputs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times[1:], out
+
+
+def _tensor_digest(tensors) -> str:
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _serve_smoke(args, dev, mesh, rules, report) -> None:
+    """The smoke serving cases of every family, each rank against its own
+    one-card step."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train import remesh
+
+    for arch in ("dlrm-rm2", "deepfm", "din", "bert4rec"):
+        for name, shape in (("serve_p99", dict(kind="serve", batch=16)),
+                            ("retrieval_cand", dict(kind="serve", batch=1, n_candidates=2000))):
+            cell = make_cell(get_smoke_config(arch), ShapeSpec(name="s", **shape))
+            params = cell.init_state(0, dev)
+            inputs = as_tensors(synthesize_inputs(cell, seed=5), dev)
+            placed = remesh(params, cell.state_logical(), rules, mesh, src_data_rank=None)
+            _, got = _serve_timed(cell, placed, inputs, True, mesh, rules, n=0)
+            _, want = _serve_timed(cell, params, inputs, False, mesh, rules, n=0)
+            report(case=f"{arch} {name} smoke f32", gaps={"scores": _rel(got, want)},
+                   limits={"scores": SERVE_SMOKE_LIMITS["recsys"]}, digest=_tensor_digest([got]))
+
+    B, P, T, steps = 4, 10, 24, 3
+    for arch in ("qwen3-4b", "deepseek-moe-16b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        pre = make_cell(cfg, ShapeSpec(name="p", kind="prefill", seq_len=P, global_batch=B))
+        dec = make_cell(cfg, ShapeSpec(name="d", kind="decode", seq_len=T, global_batch=B))
+        params = pre.init_state(0, dev)
+        rng = np.random.default_rng(5)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32),
+                                 device=dev)
+        nxt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, B, 1)).astype(np.int32),
+                              device=dev)
+
+        def serve(state, ruled):
+            _, (logits, caches) = _serve_timed(pre, state, {"tokens": prompt}, ruled, mesh,
+                                               rules, n=0)
+            caches = {n: {kv: F.pad(t, (0, 0, 0, 0, 0, T - P)) for kv, t in c.items()}
+                      for n, c in caches.items()}
+            out = [logits]
+            for i in range(steps):
+                _, (logits, caches) = _serve_timed(
+                    dec, state, {"token": nxt[i], "caches": caches,
+                                 "pos": torch.tensor(P + i)}, ruled, mesh, rules, n=0)
+                out.append(logits)
+            return out
+
+        got = serve(remesh(params, pre.state_logical(), rules, mesh), True)
+        want = serve(params, False)
+        report(case=f"{arch} prefill + decode smoke f32",
+               gaps={"logits": max(_rel(a, b) for a, b in zip(got, want))},
+               limits={"logits": SERVE_SMOKE_LIMITS["lm"]}, digest=_tensor_digest(got))
+
+    cell = make_cell(get_smoke_config("lear-msn1"), ShapeSpec(name="q", kind="serve", batch=4))
+    params = cell.init_state(7, dev)
+    inputs = as_tensors(synthesize_inputs(cell, seed=5), dev)
+    placed = remesh(params, cell.state_logical(), rules, mesh, src_data_rank=None)
+    _, (scores, cont) = _serve_timed(cell, placed, inputs, True, mesh, rules, n=0)
+    _, (w_scores, w_cont) = _serve_timed(cell, params, inputs, False, mesh, rules, n=0)
+    report(case="lear-msn1 rank_online Q=4 smoke", gaps={"scores": _rel(scores, w_scores)},
+           limits={"scores": SERVE_SMOKE_LIMITS["forest"]},
+           checks={"continue masks equal": bool(torch.equal(cont, w_cont))},
+           digest=_tensor_digest([scores, cont]))
+
+
+def _dlrm_retrieval(args, dev, mesh, rules, report) -> None:
+    """DLRM-RM2 ``retrieval_cand`` at full width on the mesh, then rank 0
+    alone on its card."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import make_cell
+    from repro_torch.models.synth import as_tensors, synthesize_inputs
+    from repro_torch.train import remesh
+
+    cfg = get_config("dlrm-rm2")
+    shape = next(s for s in cfg.shapes if s.name == "retrieval_cand")
+    cell = make_cell(cfg, shape)
+    inputs = as_tensors(synthesize_inputs(cell, seed=0), dev)
+
+    def init():
+        return cell.init_state(torch.Generator(device=dev).manual_seed(0), dev)
+
+    # Every rank draws the same init and keeps a copy of its shards only.
+    placed = [remesh(init(), cell.state_logical(), rules, mesh, src_data_rank=None)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    tables = sum(t.to_local().numel() * 4 for k, t in placed[0].items() if k.startswith("tables/"))
+    torch.cuda.reset_peak_memory_stats()
+    times, scores = _serve_timed(cell, placed.pop(), inputs, True, mesh, rules)
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    one_ms = one_peak = None
+    gaps = {}
+    if args.rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        one_times, want = _serve_timed(cell, init(), inputs, False, mesh, rules)
+        one_ms = statistics.median(one_times)
+        one_peak = f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+        gaps = {"scores": _rel(scores, want)}
+        del want
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    C = inputs["cand_ids"].shape[0]
+    report(case=f"dlrm-rm2 retrieval_cand C={C:,} rows over model, candidates over every card",
+           gaps=gaps, limits={"scores": RETRIEVAL_LIMIT}, digest=_tensor_digest([scores]),
+           ms=statistics.median(times), step_ms=times, one_ms=one_ms, peak=peak,
+           one_peak=one_peak, notes={"tables a card": f"{tables / 1e9:.2f} GB"})
+
+
+def _profile_step(fn, n_top: int = 6) -> dict:
+    """torch.profiler over one call of ``fn`` (a collective step: every
+    rank calls it, this one records): the window's wall ms, the card's busy
+    ms (device events' own time), and the top device and host-self events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev_events = [e for e in events
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return {
+        "window ms": round(wall, 3),
+        "device busy ms": round(sum(e.self_device_time_total for e in dev_events) / 1e3, 3),
+        "top device": [f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                       for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:n_top]],
+        "top host self": [f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}"
+                          for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:n_top]],
+    }
+
+
+def _qwen_decode(args, dev, mesh, rules, report, dtype: str, T: int, limit: float,
+                 profile: bool) -> None:
+    """Qwen3-4B ``decode_32k`` at full width and depth in ``dtype``, B =
+    DECODE_BATCH, against a ``T``-token cache whose sequence splits over
+    "model", then rank 0 alone on its card with the same weights and cache.
+    bfloat16 is held absolute (``limit``) beside a planted fault's gap and
+    profiled (``profile``); float32 relative to the logits' max."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.api import make_cell
+    from repro_torch.train import remesh
+    from repro_torch.train.trainer import serve_input_logical
+
+    cfg = dataclasses.replace(get_config("qwen3-4b"), dtype=dtype)
+    shape = next(s for s in cfg.shapes if s.name == "decode_32k")
+    B = DECODE_BATCH
+    cell = make_cell(cfg, dataclasses.replace(shape, global_batch=B, seq_len=T))
+    token = torch.as_tensor(np.random.default_rng(64).integers(
+        0, cfg.vocab_size, (B, 1)).astype(np.int32), device=dev)
+
+    def inputs(caches):
+        return {"token": token, "caches": caches, "pos": torch.tensor(T - 1)}
+
+    def weights():
+        return tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+    def caches():
+        g = torch.Generator(device=dev).manual_seed(1)
+        c = tfm.make_decode_caches(cfg, B, T, dev)
+        for t in (t for x in c.values() for t in x.values()):
+            t.normal_(generator=g)
+        return c
+
+    lg = serve_input_logical(cell.input_logical())["caches"]
+    # Each rank draws the whole weights and cache and keeps its shards.
+    placed = remesh(weights(), cell.state_logical(), rules, mesh, src_data_rank=None)
+    gc.collect()
+    mine = remesh(caches(), lg, rules, mesh, src_data_rank=None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache_bytes = sum(t.to_local().numel() * t.element_size()
+                      for x in mine.values() for t in x.values())
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, (logits, _) = _serve_timed(cell, placed, inputs(mine), True, mesh, rules)
+    peak = torch.cuda.max_memory_allocated()
+    notes = {}
+    if profile:
+        prof = _profile_step(lambda: _serve_timed(cell, placed, inputs(mine), True, mesh, rules,
+                                                  n=0))
+        if args.rank == 0:
+            notes["profile of one step on rank 0"] = prof
+    planted = None
+    if dtype == "bfloat16":
+        # A planted fault beside the limit: the partial softmaxes summed
+        # without the rescale to the ranks' maximum.
+        merge = tfm.merge_softmax
+        tfm.merge_softmax = (
+            lambda top, total, acc, axis: axis.reduce(acc) / axis.reduce(total)[..., None])
+        try:
+            _, (planted, _) = _serve_timed(cell, placed, inputs(mine), True, mesh, rules, n=0)
+        finally:
+            tfm.merge_softmax = merge
+    del placed, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    one_ms = one_peak = None
+    gaps = {}
+    key = "logits (absolute)" if dtype == "bfloat16" else "logits (of their max)"
+    if args.rank == 0:
+        params, whole = weights(), caches()
+        torch.cuda.reset_peak_memory_stats()
+        one_times, (want, _) = _serve_timed(cell, params, inputs(whole), False, mesh, rules)
+        one_ms = statistics.median(one_times)
+        one_peak = f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+        gap = float((logits - want).abs().max())
+        gaps = {key: gap if dtype == "bfloat16" else gap / float(want.abs().max())}
+        if planted is not None:
+            notes["planted fault's gap (no rescale)"] = float((planted - want).abs().max())
+        del params, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    report(case=f"qwen3-4b decode {dtype} B={B} against a {T:,}-token cache, its sequence "
+                f"over model", gaps=gaps, limits={key: limit},
+           digest=_tensor_digest([logits]), ms=statistics.median(times), step_ms=times,
+           one_ms=one_ms, peak=peak, one_peak=one_peak,
+           notes={"cache a card": f"{cache_bytes / 1e9:.2f} GB",
+                  "allocated a card before the steps": f"{held / 1e9:.2f} GB",
+                  "logits' max": f"{float(logits.abs().max()):.4g}", **notes})
+
+
+def _serve_cases(args, dev, mesh, rules) -> None:
+    def report(**kw):
+        print(json.dumps({"rank": args.rank, **kw}), flush=True)
+
+    _serve_smoke(args, dev, mesh, rules, report)
+    _dlrm_retrieval(args, dev, mesh, rules, report)
+    _qwen_decode(args, dev, mesh, rules, report, "bfloat16", DECODE_CACHE, DECODE_LIMIT, True)
+    _qwen_decode(args, dev, mesh, rules, report, "float32", DECODE_CACHE_F32, DECODE_F32_LIMIT,
+                 False)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rank", type=int, default=None)
     p.add_argument("--port", type=int, default=None)
+    p.add_argument("--cases", choices=("train", "serve", "all"), default="all")
     args = p.parse_args()
     if args.rank is None:
-        return _launch()
+        return _launch(args.cases)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     _rank(args)
     return 0
@@ -458,3 +811,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+
