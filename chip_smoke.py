@@ -230,7 +230,8 @@ Phases, each of which must pass:
   with forces, and Qwen3-4B (12 layers) and DeepSeek-MoE-16B (3 layers)
   ``train_4k`` at ``lm_train``'s cuts, their states placed as DTensors by
   ``remesh`` (RecSys and NequIP step on their local shards: on one rank
-  the row-sharded lookups and the edge split must be the identity):
+  the row-sharded lookups and the edge and node splits must be the
+  identity):
   three steps under the rules and three without, from the
   same init; losses, norms and every leaf of the final state (digests of
   its bits) must be equal; both timed with CUDA events (median of steps
@@ -276,9 +277,10 @@ Phases, each of which must pass:
   nequip ``ogb_products``), dlrm-rm2 ``train_batch`` and the serving cells
   dlrm-rm2 ``retrieval_cand`` and qwen3-4b ``decode_32k`` on a fake 16 × 16
   process group, printing each cell's roofline terms, per-device memory,
-  ``trace_s`` and its activation collectives (the row lookups' and node
-  aggregates' sums, the candidates' exchange, the decode's merged
-  softmax); then every
+  ``trace_s`` and its activation collectives, by kind and by mesh axis
+  (the row lookups' sums, the node gathers and the node aggregates'
+  reduce-scatters over "data" and sums over "model", the candidates'
+  exchange, the decode's merged softmax); then every
   step that ``cells``, ``lm`` and ``lm_train`` timed, traced on ``meta``
   at its own config and shape, with its ``chips=1`` H100 roofline beside
   the measured time and the phase's own bound. No measured time may be
@@ -4532,7 +4534,9 @@ def phase_dryrun(card: str, proc: subprocess.Popen, out_dir: str) -> dict:
             f"useful ratio {r['useful_ratio']:.3f}; divisibility problems "
             f"{len(rec['divisibility'])}"
             + (f"; activation collectives {rec['activation_collectives']}"
-               if "activation_collectives" in rec else ""))
+               if "activation_collectives" in rec else "")
+            + (f"; by mesh axis {rec['activation_collectives_by_axis']}"
+               if rec.get("activation_collectives_by_axis") else ""))
         if not all(math.isfinite(r[k]) and r[k] >= 0 for k in ("compute_s", "memory_s",
                                                                "collective_s")):
             raise AssertionError(f"[dryrun] {rec['arch']} {rec['shape']}: terms {r}")

@@ -33,12 +33,18 @@ Two kinds of parallelism, both read from the current
   :meth:`ModelAxis.of` then returns the axis those shards were cut on, so
   a row-sharded table (``"rows"`` → "model") is looked up as the LM's
   vocab-sharded embedding is.
-- **Edges over their ranks** (NequIP). The train step gives each rank of
-  the mesh axes that ``"edges"`` resolves to its contiguous share of the
-  edges and runs the loss under :func:`edge_share`; the model gathers node
-  arrays at its edges through :meth:`Axis.copy` and sums its per-edge
-  messages into nodes through :meth:`Axis.reduce` over every edge rank
-  (:func:`edge_axis`).
+- **Edges and nodes over their ranks** (NequIP). The train step gives
+  each rank of the mesh axes that ``"edges"`` resolves to its contiguous
+  share of the edges and runs the loss under :func:`edge_share`; where
+  the ranks that ``"nodes"`` resolves to (N, a subset of the edge ranks)
+  divide the node arrays, each takes its contiguous share of those too,
+  under :func:`node_share`. The other edge ranks (M) hold the same node
+  share. The model gathers its node arrays at its edges through
+  :meth:`NodeAxis.gather_nodes` (all-gather over N) and sums its per-edge
+  messages into its node share through :meth:`NodeAxis.scatter_nodes`
+  (reduce-scatter over N, then all-reduce over M); with the nodes whole
+  (N of one rank) these are :meth:`Axis.copy` and :meth:`Axis.reduce`
+  over every edge rank (:func:`edge_axis`, :func:`node_axis`).
 - **Serving shares** (:func:`~repro_torch.train.trainer.make_serve_step`).
   A serving step gives each rank its share of the queries (:func:`rank_share`;
   :func:`batch_axis` gathers a decode step's tokens for its one MoE
@@ -51,7 +57,8 @@ Two kinds of parallelism, both read from the current
 
 ``copy`` and ``reduce`` are each other's transposes, and each one's
 backward is the other's autograd op, so they can be differentiated twice
-(NequIP's forces loss differentiates a gradient). The collectives are
+(NequIP's forces loss differentiates a gradient); so are
+``gather_nodes`` and ``scatter_nodes``. The collectives are
 ``torch.distributed._functional_collectives`` ops, so a step traced on
 ``meta`` tensors over a fake group records them
 (:mod:`repro_torch.launch.dryrun`); an axis of one rank runs none.
@@ -105,6 +112,16 @@ def gather_over(t: torch.Tensor, dim: int, groups: Any) -> torch.Tensor:
     for g in reversed(_groups(groups)):
         t = _wait(_ALL_GATHER(t.contiguous(), dim, g))
     return t.bool() if flag else t
+
+
+def scatter_over(t: torch.Tensor, dim: int, groups: Any) -> torch.Tensor:
+    """``t`` summed over the ranks of ``groups``, of which each keeps its
+    own block of ``dim`` in rank order (a reduce-scatter over each group,
+    major first: its block holds the minor ones'). Not differentiated."""
+    t = t.detach()
+    for g in _groups(groups):
+        t = _wait(_REDUCE_SCATTER(t.contiguous(), "sum", dim, g))
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -290,12 +307,7 @@ class Axis:
         """``x`` summed over the ranks, of which each keeps its own
         ``1/size`` of ``dim`` in rank order (a reduce-scatter; not
         differentiated)."""
-        x = x.detach()
-        if self.size == 1:
-            return x
-        for g in _groups(self.group):   # major first: its block holds the minor ones'
-            x = _wait(_REDUCE_SCATTER(x.contiguous(), "sum", dim, g))
-        return x
+        return x.detach() if self.size == 1 else scatter_over(x, dim, self.group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -429,6 +441,89 @@ def edge_axis() -> Axis:
     """The ranks the current step's edges are split over (:data:`WHOLE`
     outside an edge share)."""
     return _EDGES.get()
+
+
+# ---------------------------------------------------------------------------
+# Nodes over their ranks.
+# ---------------------------------------------------------------------------
+
+
+class _NodeGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, nodes, rest):
+        ctx.nodes, ctx.rest = nodes, rest
+        return gather_over(x, 0, nodes) if nodes else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _NodeScatter.apply(g, ctx.nodes, ctx.rest), None, None
+
+
+class _NodeScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, nodes, rest):
+        ctx.nodes, ctx.rest = nodes, rest
+        return _sum(scatter_over(x, 0, nodes).contiguous(), rest)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _NodeGather.apply(g, ctx.nodes, ctx.rest), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeAxis(Axis):
+    """The ranks a step's node arrays are split over (N: ``group``, a tuple
+    of groups, ``size`` and ``rank`` as :class:`Axis`, whose ``copy`` and
+    ``reduce`` act over N), and ``rest``: the groups of the other ranks its
+    edges are split over (M), which hold the same node share."""
+
+    rest: tuple = ()
+
+    def gather_nodes(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole node array from this rank's share ``x``: all-gathered
+        over N. Its gradient, a partial sum on every edge rank, comes back
+        summed over them all, this rank's share kept
+        (:meth:`scatter_nodes`)."""
+        if self.size == 1 and not self.rest:
+            return x
+        return _NodeGather.apply(x, self.group, self.rest)
+
+    def scatter_nodes(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's node share of ``x`` (whole nodes; a partial sum on
+        each edge rank) summed over every edge rank: reduce-scattered over
+        N, then summed over M. Its gradient is all-gathered over N
+        (:meth:`gather_nodes`)."""
+        if self.size == 1 and not self.rest:
+            return x
+        return _NodeScatter.apply(x, self.group, self.rest)
+
+
+_NODES: contextvars.ContextVar[Axis] = contextvars.ContextVar("node_share", default=WHOLE)
+
+
+@contextlib.contextmanager
+def node_share(groups: list, n: int, r: int) -> Iterator[None]:
+    """Mark the block as running this rank's share (index ``r``) of node
+    arrays split over the ``n`` ranks of ``groups``, each of which must
+    split the edges too (:func:`node_axis`)."""
+    token = _NODES.set(Axis(tuple(groups), n, r) if n > 1 else WHOLE)
+    try:
+        yield
+    finally:
+        _NODES.reset(token)
+
+
+def node_axis() -> NodeAxis:
+    """The ranks the current step's nodes are split over and the other
+    ranks of its edge share (every edge rank, with the nodes whole).
+    Raises ``ValueError`` where a node rank's group does not split the
+    edges."""
+    nodes, edges = _NODES.get(), _EDGES.get()
+    if any(g not in edges.group for g in nodes.group):
+        raise ValueError("the nodes are split over mesh axes that do not split the edges: "
+                         "\"nodes\" must resolve to a subset of the axes \"edges\" resolves to")
+    return NodeAxis(nodes.group, nodes.size, nodes.rank,
+                    tuple(g for g in edges.group if g not in nodes.group))
 
 
 # ---------------------------------------------------------------------------

@@ -39,23 +39,28 @@ step's are over the ``"model"`` group (NequIP: over every axis
 and FFN outputs and their gradients, its vocab-sharded lookup and softmax
 and the MoE's gathers of its experts' outputs; RecSys's row-sharded
 lookups' sums and BERT4Rec's block sums, gathered projections and
-sharded softmax; NequIP's per-layer node-aggregate sums over the edge
-ranks and, in the backward, their transposes (the gathers' gradient
-sums), twice over with forces. A serving step's are over every axis it
+sharded softmax; NequIP's node gathers over the ranks ``"nodes"``
+resolves to (``"data"``: positions and each layer's features) and its
+per-layer node aggregates reduce-scattered over them and summed over the
+other edge ranks (``"model"``: 1/16 of the aggregates on the 16 x 16
+mesh), and, in the backward, their transposes (the aggregates' gradients
+gathered, the features' reduce-scattered and summed), twice over with
+forces. A serving step's are over every axis it
 splits its inputs over as well (:func:`~repro_torch.train.trainer.make_serve_step`):
 besides the "model" sums, a retrieval's id gathers and row
 reduce-scatters, a decode step's merged softmax (maxima and sums over
 "model"), its gathered heads, tokens and vocab-sharded logits, the
 outputs' gathers over the split axes, and the parameters' FSDP gathers
 as the step makes them, so a serving record counts the trace's
-collectives in place of the rules' reckoning. A cell whose state or batch
+collectives in place of the rules' reckoning. The record gives the same
+bytes by mesh axis (``activation_collectives_by_axis``). A cell whose state or batch
 does not divide over the mesh has no sharded step, and the record says
 so under ``activation_collectives``; ``trace_s`` includes this trace.
 
 A cell's inputs are reckoned as its step splits them: a train step's by
 :func:`~repro_torch.train.trainer.step_input_logical` (the leading
-``"batch"`` or ``"edges"`` axis, nothing else, so NequIP's node arrays
-count whole on every device), a serving step's by
+``"batch"``, ``"edges"`` or ``"nodes"`` axis, nothing else: NequIP's
+node arrays count ``1/|"data"|`` on each device), a serving step's by
 :func:`~repro_torch.train.trainer.serve_input_logical` (``"batch"``,
 ``"cands"`` and the decode caches' ``"kv_seq"``). XLA's temporary bytes and
 GSPMD's chosen collectives have no counterpart here.
@@ -166,23 +171,28 @@ def rule_collectives(params: Any, logical: Any, rules: Rules, sizes: dict[str, i
 class _GroupTrace(op_analysis.OpTrace):
     """An :class:`~repro_torch.launch.op_analysis.OpTrace` that records
     only the ``_c10d_functional`` collectives over the groups named in
-    ``groups``."""
+    ``axes`` (group name → mesh axis), and each axis's in ``by_axis``."""
 
-    groups: frozenset = frozenset()
+    axes: dict = dataclasses.field(default_factory=dict)
+    by_axis: dict = dataclasses.field(default_factory=dict)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func.namespace == "_c10d_functional" and self.groups & {
-                a for a in (*args, *kwargs.values()) if isinstance(a, str)}:
-            return super().__torch_dispatch__(func, types, args, kwargs)
-        return op_analysis.run_op(func, args, kwargs)
+        out = op_analysis.run_op(func, args, kwargs)
+        if func.namespace == "_c10d_functional":
+            names = [a for a in (*args, *kwargs.values()) if isinstance(a, str) and a in self.axes]
+            if names:
+                self.record(func, args, kwargs, out)
+                axis = self.by_axis.setdefault(self.axes[names[0]], op_analysis.OpTrace())
+                axis.record(func, args, kwargs, out)
+        return out
 
 
 def activation_axes(cell, rules: Rules) -> tuple[str, ...]:
     """The mesh axes a step's activations cross: ``"model"``; for a train
     cell whose edges are split (NequIP), every axis ``"edges"`` resolves
-    to; for a serving cell, every axis ``"batch"``, ``"cands"`` and
-    ``"kv_seq"`` resolve to."""
+    to (the axes of ``"nodes"`` among them); for a serving cell, every
+    axis ``"batch"``, ``"cands"`` and ``"kv_seq"`` resolve to."""
     axes = ["model"]
     if cell.shape.kind != "train":
         for name in SERVE_AXES:
@@ -200,14 +210,16 @@ def _step_inputs(cell) -> dict:
             else v for k, v in cell.input_specs().items()}
 
 
-def activation_collectives(cell, rules: Rules, mesh: DeviceMesh) -> dict[str, float]:
+def activation_collectives(cell, rules: Rules, mesh: DeviceMesh,
+                           by_axis: dict | None = None) -> dict[str, float]:
     """This device's bytes, by kind, of the collectives over the
     :func:`activation_axes` in one step of ``cell`` whose state is placed
     on ``mesh`` by its logical axes (``DTensor``\\ s on ``meta``) and whose
     inputs are split as its step splits them: a serving cell's inputs
     placed as ``DTensor``\\ s too (a decode step's caches live on their
     ranks; a plain cache would be gathered back whole after each step).
-    Raises ``ValueError`` where the step cannot run sharded."""
+    ``by_axis``, where given, receives the same bytes by mesh axis and
+    kind. Raises ``ValueError`` where the step cannot run sharded."""
     out = {k: 0.0 for k in op_analysis.COLLECTIVES}
     names = mesh.mesh_dim_names
     axes = [a for a in activation_axes(cell, rules)
@@ -221,9 +233,12 @@ def activation_collectives(cell, rules: Rules, mesh: DeviceMesh) -> dict[str, fl
         keys = [k for k in inputs if any(any(lg) for _, _, lg in logical_leaves(inputs[k], ilog[k]))]
         inputs.update(remesh({k: inputs[k] for k in keys}, {k: ilog[k] for k in keys}, rules,
                              mesh, src_data_rank=None))
-    tr = _GroupTrace(groups=frozenset(mesh.get_group(a).group_name for a in axes))
+    tr = _GroupTrace(axes={mesh.get_group(a).group_name: a for a in axes})
     with sharding_rules(rules, mesh), tr:
         cell.step(state, inputs)
+    if by_axis is not None:
+        by_axis.update({a: {k: v for k, v in op_analysis.analyze(t).coll_breakdown.items() if v}
+                        for a, t in tr.by_axis.items()})
     return op_analysis.analyze(tr).coll_breakdown
 
 
@@ -261,8 +276,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                     + validate_divisibility(inputs, ilog, rules, mesh))
         s_total, s_local = placed_bytes(state, slog, rules, mesh)
         i_total, i_local = placed_bytes(inputs, ilog, rules, mesh)
+        act_axes: dict = {}
         try:
-            act = activation_collectives(cell, rules, mesh)
+            act = activation_collectives(cell, rules, mesh, act_axes)
         except ValueError as e:
             act = f"no sharded step: {e}"
     with sharding_rules(rules):
@@ -292,6 +308,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             "chips": chips,
             "divisibility": problems,
             "activation_collectives": act,
+            "activation_collectives_by_axis": act_axes,
             "memory": {
                 "argument_size_in_bytes": s_total + i_total,
                 "output_size_in_bytes": out_bytes,

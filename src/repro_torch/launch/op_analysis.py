@@ -122,6 +122,12 @@ class OpTrace(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = run_op(func, args, kwargs)
+        self.record(func, args, kwargs, out)
+        return out
+
+    def record(self, func, args: tuple, kwargs: dict, out: Any) -> None:
+        """Count one call of ``func`` on ``args`` and ``kwargs`` that gave
+        ``out``."""
         flops = 0
         formula = flop_registry.get(func.overloadpacket)
         if formula is not None:
@@ -130,7 +136,6 @@ class OpTrace(TorchDispatchMode):
                tuple(_spec(t) for t in _tensors(out)))
         rec = self.records.setdefault(key, [0, flops])
         rec[0] += 1
-        return out
 
 
 def trace(fn: Callable[..., Any], *args: Any, **kwargs: Any) -> tuple[OpTrace, Any]:

@@ -52,24 +52,40 @@ On several ranks the train step splits the edges (``edge_src``,
 ``edge_dst``) over the ranks that ``"edges"`` resolves to (``("data",
 "model")``: every rank of a pod), each rank taking a contiguous share
 (:func:`~repro_torch.distributed.parallel.edge_axis`), as the reference's
-``"edges"`` constraints do. Node arrays stay whole on every rank (the
-reference's ``"nodes"`` → "data" placement is not run) and so do the
-parameters. In the Megatron pattern over the edge ranks
-(:class:`~repro_torch.distributed.parallel.Axis`):
+``"edges"`` constraints do. It splits the node arrays (``positions``,
+``species``, ``graph_id``, ``forces``, ``node_feat``) over the ranks that
+``"nodes"`` resolves to (N: ``("data",)``, ``("pod", "data")`` on several
+pods), each rank taking a contiguous share
+(:func:`~repro_torch.distributed.parallel.node_axis`), as the reference's
+``"nodes"`` constraints place them and every per-layer aggregate; a node
+count that N does not divide stays whole. The other edge ranks (M,
+``"model"``) hold the same node share. The parameters stay whole. Over
+the ranks (:class:`~repro_torch.distributed.parallel.NodeAxis`):
 
 - a node array gathered at the edges (positions, each layer's features)
-  and an edge-side parameter (the radial MLP; the message mix under
-  ``premix_messages``) enter through ``copy``: the identity forward, their
-  gradient summed over the ranks;
-- a segment sum of messages into nodes goes through ``reduce``: summed
-  over the ranks forward, the identity backward.
+  goes through ``gather_nodes``: all-gathered over N forward; backward,
+  its per-edge gradient summed over every edge rank and cut to this
+  rank's share (reduce-scatter over N, all-reduce over M);
+- a segment sum of messages into nodes goes through ``scatter_nodes``,
+  that backward's op: each rank keeps its node rows of every aggregate,
+  and the self-interaction, the gate and the readout run on those rows;
+- the per-graph energies sum the share's atoms and are summed over N
+  (``reduce``; the M ranks hold the same rows), and the forces term is the
+  mean over the whole ``[N, 3]``: the share's sum, summed over N, over the
+  whole count;
+- a node-side parameter (the embeddings, the self-interaction, the gates,
+  the readout; the message mix without ``premix_messages``) enters
+  through ``copy`` over N, an edge-side one (the radial MLP; the message
+  mix under ``premix_messages``) through ``copy`` over every edge rank:
+  the identity forward, their gradient summed over those ranks.
 
-So every node-side quantity, the energies, the forces (``−∂E/∂positions``
-through ``copy``'s sum) and every gradient come out whole and alike on
-each rank, and the step reduces nothing. ``copy`` and ``reduce`` are
+So the energies, the loss and every gradient come out whole and alike on
+each rank, the forces as this rank's share, and the step reduces nothing.
+``gather_nodes`` and ``scatter_nodes`` (as ``copy`` and ``reduce``) are
 each other's backward, so the forces loss's double backward crosses the
-ranks too. Cutting a graph batch by whole graphs would not be exact: the
-synthetic batches draw edges across graphs.
+ranks too. With the nodes whole (N of one rank) they are ``copy`` and
+``reduce`` over every edge rank. Cutting a graph batch by whole graphs
+would not be exact: the synthetic batches draw edges across graphs.
 """
 
 from __future__ import annotations
@@ -81,7 +97,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import NequIPConfig
-from repro_torch.distributed.parallel import WHOLE, Axis, edge_axis
+from repro_torch.distributed.parallel import NodeAxis, edge_axis, node_axis
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import so3
 from repro_torch.utils import resolve_device, tree_items
@@ -202,20 +218,21 @@ def param_logical(cfg: NequIPConfig, d_feat: int = 0) -> dict[str, tuple]:
 
 
 def _edge_side(cfg: NequIPConfig) -> tuple[str, ...]:
-    """The layer parameters applied per edge (their gradients are partial
-    sums on each edge rank)."""
-    keys = ("radial_w0", "radial_w1", "radial_w2")
-    return keys + tuple(f"w_msg/{l}" for l in LS) if cfg.premix_messages else keys
+    """The parameters applied per edge (their gradients are partial sums
+    on each edge rank); the others are applied per node."""
+    keys = ("layers/radial_w0", "layers/radial_w1", "layers/radial_w2")
+    return keys + tuple(f"layers/w_msg/{l}" for l in LS) if cfg.premix_messages else keys
 
 
 def _interaction(cfg: NequIPConfig, layer: Mapping[str, torch.Tensor], h, edge_src,
-                 edge_dst, rbf, Y, n_nodes: int, ex: Axis = WHOLE) -> dict[int, torch.Tensor]:
-    """One NequIP interaction layer. h: {l: [N, mul, 2l+1]}; the edges are
-    this rank's share over ``ex``."""
+                 edge_dst, rbf, Y, n_nodes: int, nx: NodeAxis) -> dict[int, torch.Tensor]:
+    """One NequIP interaction layer. h: {l: [N, mul, 2l+1]}, this rank's
+    node share over ``nx`` of the ``n_nodes``; the edges are this rank's
+    share."""
     paths = so3.allowed_paths(cfg.l_max)
     mul = cfg.d_hidden
     dt = getattr(torch, cfg.dtype)
-    h_edges = {l: ex.copy(h[l]) for l in LS}                           # gathered at the edges
+    h_edges = {l: nx.gather_nodes(h[l]) for l in LS}                   # gathered at the edges
 
     # Radial weights per (path, channel).
     r = silu(rbf @ layer["radial_w0"])
@@ -241,11 +258,11 @@ def _interaction(cfg: NequIPConfig, layer: Mapping[str, torch.Tensor], h, edge_s
                 blk = w_msg[p_i * mul:(p_i + 1) * mul]                 # [mul, mul]
                 term = torch.einsum("eud,um->emd", m, blk)
                 pre = term if pre is None else pre + term
-            mixed = constrain(ex.reduce(segment_sum(pre, edge_dst, n_nodes)),
+            mixed = constrain(nx.scatter_nodes(segment_sum(pre, edge_dst, n_nodes)),
                               "nodes", None, None) * inv_deg
         else:
             stacked = torch.cat(msgs[l], dim=1)                        # [E, P_l*mul, d]
-            agg = constrain(ex.reduce(segment_sum(stacked, edge_dst, n_nodes)),
+            agg = constrain(nx.scatter_nodes(segment_sum(stacked, edge_dst, n_nodes)),
                             "nodes", None, None) * inv_deg
             mixed = torch.einsum("nkd,km->nmd", agg, w_msg)
         out[l] = torch.einsum("ncd,cm->nmd", h[l], layer[f"w_self/{l}"].to(dt)) + mixed
@@ -279,13 +296,15 @@ def forward_energy(cfg: NequIPConfig, params: Params, positions, species, edge_s
                    edge_dst, graph_id=None, n_graphs: int = 1, node_feat=None
                    ) -> torch.Tensor:
     """Per-graph energies [n_graphs] (one graph without ``graph_id``).
-    positions [N, 3]; edges index into nodes (inside a train step, this
-    rank's share of them: :func:`~repro_torch.distributed.parallel.edge_axis`)."""
-    ex = edge_axis()
-    n_nodes = positions.shape[0]
+    positions [N, 3]; edges index into nodes. Inside a train step the edges
+    are this rank's share of them and the node arrays its node share
+    (:func:`~repro_torch.distributed.parallel.edge_axis`,
+    :func:`~repro_torch.distributed.parallel.node_axis`)."""
+    ex, nx = edge_axis(), node_axis()
+    n_nodes = positions.shape[0] * nx.size
     edge_src = constrain(edge_src.long(), "edges")
     edge_dst = constrain(edge_dst.long(), "edges")
-    pos = ex.copy(positions)
+    pos = nx.gather_nodes(positions)
     rel = _gather(pos, edge_src) - _gather(pos, edge_dst)              # [E, 3]
     # Smooth norm: grad of ‖·‖ at 0 is NaN, and degenerate (self-)edges must
     # not poison the force computation.
@@ -294,17 +313,17 @@ def forward_energy(cfg: NequIPConfig, params: Params, positions, species, edge_s
     rbf = constrain(bessel_basis(dist, cfg.n_rbf, cfg.cutoff), "edges", None)
     Y = {l: _sph(unit, l) for l in LS}
 
+    edge_side = _edge_side(cfg)
+    params = {k: ex.copy(v) if k in edge_side else nx.copy(v) for k, v in params.items()}
     h = _embed_nodes(cfg, params, species.long(), node_feat)
     stack = {k[len("layers/"):]: v for k, v in params.items() if k.startswith("layers/")}
-    edge_side = _edge_side(cfg)
-    stack = {k: ex.copy(v) if k in edge_side else v for k, v in stack.items()}
     for i in range(cfg.n_layers):
         h = _interaction(cfg, {k: v[i] for k, v in stack.items()}, h, edge_src, edge_dst,
-                         rbf, Y, n_nodes, ex)
+                         rbf, Y, n_nodes, nx)
     atom_e = (silu(h[0][..., 0]) @ params["readout_w"])[..., 0]        # [N]
     if graph_id is None:
-        return atom_e.sum()[None]
-    return segment_sum(atom_e, graph_id.long(), n_graphs)
+        return nx.reduce(atom_e.sum()[None])
+    return nx.reduce(segment_sum(atom_e, graph_id.long(), n_graphs))
 
 
 def _sph(v: torch.Tensor, l: int) -> torch.Tensor:
@@ -336,9 +355,10 @@ def _energy_of(cfg: NequIPConfig, params: Params, batch, positions) -> torch.Ten
 
 def forces(cfg: NequIPConfig, params: Params, batch, create_graph: bool = False
            ) -> torch.Tensor:
-    """``−∂(Σ energies)/∂positions`` [N, 3]; ``create_graph`` keeps the
-    graph, so a loss of the forces can be differentiated (the reference's
-    ``-jax.grad(energy)`` inside its loss)."""
+    """``−∂(Σ energies)/∂positions`` [N, 3] (inside a train step, this
+    rank's node share); ``create_graph`` keeps the graph, so a loss of the
+    forces can be differentiated (the reference's ``-jax.grad(energy)``
+    inside its loss)."""
     pos = batch["positions"]
     if not pos.requires_grad:
         pos = pos.detach().requires_grad_()
@@ -357,8 +377,17 @@ def loss_fn(cfg: NequIPConfig, params: Params, batch, with_forces: bool = False
     loss = torch.mean((e - batch["energy"]) ** 2)
     if with_forces and "forces" in batch:
         f = forces(cfg, params, batch, create_graph=torch.is_grad_enabled())
-        loss = loss + torch.mean((f - batch["forces"]) ** 2)
+        loss = loss + _node_mean((f - batch["forces"]) ** 2)
     return loss
+
+
+def _node_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of a node array over all its nodes: ``torch.mean`` of the
+    whole array, or of this rank's share summed over the node ranks."""
+    nx = node_axis()
+    if nx.size == 1:
+        return torch.mean(x)
+    return nx.reduce(x.sum()) / (x.numel() * nx.size)
 
 
 # ---------------------------------------------------------------------------

@@ -34,10 +34,15 @@ optimizer, microbatch)`` returns ``step(state, batch, input_logical=None)
 - The inputs whose leading logical axis is ``"edges"`` (NequIP's
   ``edge_src`` and ``edge_dst``) are split the same way over the ranks of
   the axes ``"edges"`` resolves to, and the loss runs under
-  :func:`~repro_torch.distributed.parallel.edge_share`: the model's
-  node sums cross those ranks, so the loss and every gradient come out
-  whole on each of them and the step reduces nothing for them. Other
-  inputs (node arrays, per-graph targets) go whole to every rank.
+  :func:`~repro_torch.distributed.parallel.edge_share`. Those whose
+  leading axis is ``"nodes"`` (NequIP's node arrays) are split over the
+  ranks ``"nodes"`` resolves to, under
+  :func:`~repro_torch.distributed.parallel.node_share`, where those ranks
+  divide every one of them and the edges are split; else they go whole
+  to every rank. The model's node gathers and sums cross those ranks, so
+  the loss and every gradient come out whole on each of them and the
+  step reduces nothing for them. Other inputs (per-graph targets) go
+  whole to every rank.
 - ``param_logical`` (the parameters' logical axes; the RecSys and NequIP
   cells bind it): a state of ``DTensor``\\ s whose every leaf is
   replicated over all mesh axes but ``"model"`` is stepped on its local
@@ -102,6 +107,7 @@ from repro_torch.distributed.parallel import (
     gather_parts,
     kv_share,
     local_shards,
+    node_share,
     rank_share,
 )
 from repro_torch.distributed.sharding import constrain, current_mesh, current_rules, mesh_axes
@@ -154,13 +160,16 @@ def _split_keys(batch: dict, input_logical: dict | None, axis: str = "batch") ->
     return {k for k in batch if tuple(input_logical.get(k) or (None,))[0] == axis}
 
 
+#: The logical axes a train step splits its inputs' leading dimension over.
+STEP_AXES = ("batch", "edges", "nodes")
+
+
 def step_input_logical(input_logical: dict) -> dict:
     """The inputs' logical axes as the step splits them: each input's
-    leading axis where it is ``"batch"`` or ``"edges"``, no other."""
+    leading axis where it is one of :data:`STEP_AXES`, no other."""
     def cut(lg):
         lg = tuple(lg or ())
-        return tuple(a if i == 0 and a in ("batch", "edges") else None
-                     for i, a in enumerate(lg))
+        return tuple(a if i == 0 and a in STEP_AXES else None for i, a in enumerate(lg))
 
     return {k: cut(v) for k, v in input_logical.items()}
 
@@ -228,8 +237,10 @@ def make_train_step(
         params = state.params
         split = _split_keys(batch, input_logical)
         edges = _split_keys(batch, input_logical, "edges")
+        nodes = _split_keys(batch, input_logical, "nodes")
         groups, n_dp, r_dp = axis_groups("batch") if split else ([], 1, 0)
         e_groups, n_e, r_e = axis_groups("edges") if edges else ([], 1, 0)
+        n_groups, n_n, r_n = _node_groups(batch, nodes, n_e)
         mbatch = microbatch
         if n_dp > 1:
             batch = {k: _rank_share(v, n_dp, r_dp, microbatch) if k in split else v
@@ -238,7 +249,11 @@ def make_train_step(
         if n_e > 1:
             batch = {k: _rank_share(v, n_e, r_e, 0) if k in edges else v
                      for k, v in batch.items()}
-        with rank_share(groups, n_dp, r_dp), edge_share(e_groups, n_e, r_e):
+        if n_n > 1:
+            batch = {k: _rank_share(v, n_n, r_n, 0) if k in nodes else v
+                     for k, v in batch.items()}
+        with (rank_share(groups, n_dp, r_dp), edge_share(e_groups, n_e, r_e),
+              node_share(n_groups, n_n, r_n)):
             tp = (ModelAxis.of(placed.params, lambda: param_logical) if placed is not None
                   else None)
             with local_shards(tp) if tp is not None else contextlib.nullcontext():
@@ -272,6 +287,18 @@ def make_train_step(
         return new_state, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+def _node_groups(batch: dict, nodes: set, n_edges: int) -> tuple[list, int, int]:
+    """``(groups, n, r)`` of the ranks ``"nodes"`` resolves to, where they
+    divide every node input's leading dimension and the edges are split
+    (``n_edges`` ranks); ``([], 1, 0)`` otherwise: the nodes stay whole."""
+    if not nodes or n_edges == 1:
+        return [], 1, 0
+    groups, n, r = axis_groups("nodes")
+    if n == 1 or any(batch[k].shape[0] % n for k in nodes):
+        return [], 1, 0
+    return groups, n, r
 
 
 def _model_shard(p: Any) -> bool:

@@ -24,10 +24,10 @@ and the reference's.
   uneven one (C14: each microbatch's first half of rows fully masked, the
   second one position each, so the ranks' counts differ). NequIP runs a
   graph batch (``molecule``-like molecules, forces) and a single graph
-  (``full_graph_sm``): its node arrays go whole to every rank and its
-  edges are split over the four ranks (``"edges"`` → the data ranks of
-  this mesh), each rank taking a contiguous quarter of the padded edges;
-  the node sums cross the ranks. Both run in float64: the float32 forces
+  (``full_graph_sm``): its node arrays and its edges are split over the
+  four ranks (``"nodes"`` and ``"edges"`` → the data ranks of this mesh),
+  each rank taking a contiguous quarter of the padded nodes and of the
+  padded edges; the node gathers and sums cross the ranks. Both run in float64: the float32 forces
   of these molecules are some 1e-5 of their max from the float64 step, so
   a change of summation order moves them by as much (ROADMAP C18; the
   float32 step is held at NequIP's tolerance in
@@ -210,8 +210,9 @@ def test_uneven_mask_loss_is_the_whole_batch_quotient(dp_steps):
 
 
 def test_graph_batch_runs_whole_on_every_rank(dp_steps):
-    """A graph batch's nodes run whole on every rank and its edges split:
-    each of the four ranks holds E/4 of the padded edges (a step that cut
+    """A graph batch is not cut by whole graphs: its nodes and its edges
+    are split by their own logical axes, each of the four ranks holding
+    N/4 of the padded nodes and E/4 of the padded edges (a step that cut
     every input by the first one's rows raised ``IndexError``, C15), and
     the step is within 1e-6 of one process
     (``test_data_parallel_step_of_every_trainable_arch``)."""
@@ -219,7 +220,8 @@ def test_graph_batch_runs_whole_on_every_rank(dp_steps):
                                  ("nequip-graph", (512, 1024))):
         _, ranks = dp_steps[name]
         for r in ranks:
-            assert r["graphs"] == [[nodes, edges // WORLD]], (name, r["rank"], r["graphs"])
+            assert r["graphs"] == [[nodes // WORLD, edges // WORLD]], (
+                name, r["rank"], r["graphs"])
         r0 = ranks[0]
         assert abs(r0["dp_loss"] - r0["one_loss"]) <= 1e-6 * abs(r0["one_loss"]), r0
         assert r0["grad_rel"] <= 1e-6, r0

@@ -324,18 +324,28 @@ def test_dlrm_train_records_row_lookup_sums_over_model(recsys_nequip_records):
 
 
 def test_nequip_ogb_products_records_per_layer_node_sums(recsys_nequip_records):
-    """Edges over all 256 ranks: every layer sums its node aggregates
-    (``[N, paths · mul, 2l + 1]`` for l = 0, 1, 2) over the edge ranks; the
-    node arrays count whole on each device."""
+    """Edges over all 256 ranks, nodes over the 16 "data" ranks: every
+    layer reduce-scatters its node aggregates (``[N, paths · mul, 2l + 1]``
+    for l = 0, 1, 2) over "data" and sums the 1/16 share over "model"; the
+    backward gathers their gradients over "data". No collective of the
+    step crosses "data" as an all-reduce of whole nodes, and the node
+    inputs count 1/16 on each device."""
     rec = recsys_nequip_records["nequip ogb_products"]
     cfg = port_configs.get_smoke_config("nequip")
     shape = next(s for s in port_configs.get_config("nequip").shapes if s.name == "ogb_products")
     n = -(-shape.n_nodes // 512) * 512
-    act = rec["activation_collectives"]
-    assert act["all-reduce"] >= cfg.n_layers * n * cfg.d_hidden * (1 + 3 + 5) * 4, act
-    positions = n * 3 * 4
-    node_feat = n * shape.d_feat * 4
-    assert rec["memory"]["per_device_argument_bytes"] >= positions + node_feat, rec["memory"]
+    aggregates = cfg.n_layers * n * cfg.d_hidden * (1 + 3 + 5) * 4
+    act, axes = rec["activation_collectives"], rec["activation_collectives_by_axis"]
+    assert axes["data"]["reduce-scatter"] >= aggregates, axes
+    assert axes["data"]["all-gather"] >= aggregates, axes
+    assert axes["data"].get("all-reduce", 0) < aggregates / 100, axes
+    assert 2 * aggregates / 16 <= axes["model"]["all-reduce"] <= act["reduce-scatter"] / 4, axes
+    assert set(axes["model"]) == {"all-reduce"}, axes
+    assert act == {k: sum(a.get(k, 0) for a in axes.values()) for k in act}, (act, axes)
+    node_inputs = n * (3 + 1 + shape.d_feat) * 4     # positions, species, node_feat
+    edges = 2 * (-(-shape.n_edges // 512) * 512) * 4
+    assert rec["memory"]["per_device_argument_bytes"] >= (node_inputs + edges / 16) / 16
+    assert rec["memory"]["per_device_argument_bytes"] < node_inputs / 8, rec["memory"]
 
 
 def test_a_batch_that_does_not_split_says_so(recsys_nequip_records):

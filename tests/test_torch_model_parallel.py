@@ -18,10 +18,16 @@ tables split by rows over ``"model"``, NequIP's edges over every rank.
   their local shards: each rank holds half of every table's rows and of
   its row-wise state, and a table's sparse gradient holds exactly the
   one-program step's touched rows in the rank's range. A NequIP graph
-  batch with forces splits its edges over the four ranks (in float64 at
-  1e-6, also on a ``(2, 1)`` mesh; in float32 at NequIP's tolerance):
-  each rank runs its quarter (half) of the padded edges, and the forces
-  loss's double backward crosses the ranks.
+  batch with forces splits its edges over the four ranks and its nodes
+  over "data" (in float64 at 1e-6, also on ``(2, 1)`` and ``(1, 2)``
+  meshes and on a ``(2, 2, 1)`` ``multi_pod`` mesh, nodes over "pod" and
+  "data"; in float32 at NequIP's tolerance): each rank runs its share of
+  the padded edges and of the nodes, and the forces loss's double
+  backward crosses the ranks. 511 nodes, which two ranks do not divide,
+  stay whole (the step with nodes unmapped, bit for bit); a planted
+  node-side sum over "model" misses the bound; nodes over an axis that
+  does not split the edges raise; the node gather and scatter alone are
+  differentiated twice against one process.
 - Mesh ``(4, 2)`` in eight ranks: the reference's own case
   (``tests/test_distributed.py::test_8device_spmd_train_step``), its rule
   table (no FSDP), DeepSeek-MoE-16B smoke, B 8, sequence 32, microbatch 4.
@@ -74,7 +80,8 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Shard
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ShapeSpec, TransformerConfig
-from repro_torch.distributed import sharding_rules, single_pod_rules
+from repro_torch.distributed import multi_pod_rules, sharding_rules, single_pod_rules
+from repro_torch.distributed import parallel
 from repro_torch.distributed.sharding import Rules
 from repro_torch.launch.mesh import join_ranks
 from repro_torch.models import nequip
@@ -89,7 +96,7 @@ port, rank, world, path, shape = sys.argv[1:]
 rank, world = int(rank), int(world)
 join_ranks("127.0.0.1", int(port), rank, world)
 dims = tuple(int(n) for n in shape.split("x"))
-mesh = init_device_mesh("cpu", dims, mesh_dim_names=("data", "model"))
+mesh = init_device_mesh("cpu", dims, mesh_dim_names=("pod", "data", "model")[-len(dims):])
 # The reference's 8-device test's table (tests/test_distributed.py).
 REF_TABLE = Rules(table={
     "batch": ("data",), "groups": ("data",), "edges": ("data",),
@@ -104,6 +111,9 @@ TABLES = {
     "reference": REF_TABLE,
     "ff_qkv_off": Rules(table=dict(SINGLE.table, ff=None, qkv=None)),
     "batch_on_model": Rules(table=dict(SINGLE.table, batch=("data", "model"))),
+    "nodes_off": Rules(table=dict(SINGLE.table, nodes=None)),
+    "nodes_not_edges": Rules(table=dict(SINGLE.table, edges=("data",), nodes=("model",))),
+    "multi_pod": multi_pod_rules(),
 }
 seen = []
 norm = trainer.optax_global_norm
@@ -112,9 +122,31 @@ trainer.optax_global_norm = lambda g, *a: seen.append(g) or norm(g, *a)
 # is placed and stepped too.
 optimizer.ROWWISE_MIN_ROWS = 512
 edges_seen = []   # the edges each NequIP energy of a step ran on
+nodes_seen = []   # the node rows of its inputs and of its aggregates
 energy = nequip.forward_energy
-nequip.forward_energy = lambda cfg, p, pos, sp, src, *a, **k: (
-    edges_seen.append(int(src.shape[0])) or energy(cfg, p, pos, sp, src, *a, **k))
+
+
+def spy_energy(cfg, p, pos, sp, src, dst, graph_id=None, *a, **k):
+    edges_seen.append(int(src.shape[0]))
+    nodes_seen.append(("inputs", int(pos.shape[0]), int(sp.shape[0]), int(graph_id.shape[0])))
+    return energy(cfg, p, pos, sp, src, dst, graph_id, *a, **k)
+
+
+nequip.forward_energy = spy_energy
+scatter = parallel.NodeAxis.scatter_nodes
+
+
+def spy_scatter(self, x):
+    out = scatter(self, x)
+    nodes_seen.append(("aggregate", int(out.shape[0])))
+    return out
+
+
+parallel.NodeAxis.scatter_nodes = spy_scatter
+node_copy = parallel.NodeAxis.copy
+# The planted fault: node-side parameters' gradients summed over every
+# edge rank ("model" too), not over the node ranks alone.
+FAULTS = {"model_sum": lambda self, x: parallel.edge_axis().copy(x)}
 LR, EPS = 1e-3, 1e-8
 
 
@@ -160,10 +192,11 @@ def report(name, **out):
 
 
 sizes = axis_sizes(mesh)
-for name, (arch, cell_shape, placed_by, step_by, dtype, config) in json.load(
+for name, (arch, cell_shape, placed_by, step_by, dtype, config, fault) in json.load(
         open(f"{path}/{shape}/manifest.json")).items():
     if step_by is None:   # a case of another mesh
         continue
+    parallel.NodeAxis.copy = FAULTS[fault] if fault else node_copy
     rules, step_rules = TABLES[placed_by], TABLES[step_by]
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype, **config)
     lm = isinstance(cfg, TransformerConfig)
@@ -180,13 +213,16 @@ for name, (arch, cell_shape, placed_by, step_by, dtype, config) in json.load(
     state = remesh(init(), cell.state_logical(), rules, mesh)
     seen.clear()
     edges_seen.clear()
+    nodes_seen.clear()
     try:
         with sharding_rules(step_rules, mesh):
             new, m = cell.step(state, batch)
         n_edges = sorted(set(edges_seen))
+        n_nodes = sorted(set(nodes_seen))
     except ValueError as e:
         report(name, error=str(e))
         continue
+    parallel.NodeAxis.copy = node_copy
     one, one_m = cell.step(init(), batch)
     logical_axes = cell.state_logical().params
     g_mp, g_one = seen
@@ -221,11 +257,55 @@ for name, (arch, cell_shape, placed_by, step_by, dtype, config) in json.load(
            local_tables={k: [list(v.to_local().shape), list(v.shape)]
                          for k, v in new.params.items()
                          if (logical_axes[k] or (None,))[0] == "rows"},
-           edges=n_edges,
+           edges=n_edges, nodes=n_nodes,
            dtensor=all(isinstance(v, DTensor) for v in new.params.values()),
            local_bytes=local, want_bytes=want_bytes, total_bytes=total,
            shards={f"{k}@{shard_key(t)}": digest([t]) for k, t in tree_items(new)},
            step=int(full(new.step)))
+
+
+# The node gather and scatter differentiated twice across the ranks, under
+# each table of this mesh's NequIP cases, against the same function in one
+# process: E = sum of squares of the node sums of messages m_e = (y_s . y_d) y_s
+# over the edges, then L = |dE/dx|^2 and dL/dx.
+def node_fn(x, src, dst):
+    nx = parallel.node_axis()
+    y = nx.gather_nodes(x)
+    msg = (y[src] * y[dst]).sum(-1, keepdim=True) * y[src]
+    agg = nx.scatter_nodes(torch.zeros_like(y).index_add(0, dst, msg))
+    e = nx.reduce((agg * agg).sum()[None])[0]
+    (g,) = torch.autograd.grad(e, x, create_graph=True)
+    loss = nx.reduce((g * g).sum()[None])[0]
+    (gg,) = torch.autograd.grad(loss, x)
+    return e, g, loss, gg
+
+
+gen = torch.Generator().manual_seed(7)
+N, E = 16, 32
+xw = torch.randn(N, 3, generator=gen, dtype=torch.float64)
+src, dst = torch.randint(0, N, (2, E), generator=gen)
+one = node_fn(xw.clone().requires_grad_(), src, dst)
+steps = {step_by for _, _, _, step_by, *_ in json.load(
+    open(f"{path}/{shape}/manifest.json")).values() if step_by is not None}
+coll = {}
+for table in sorted(steps & {"single_pod", "multi_pod"}):
+    rules = TABLES[table]
+    with sharding_rules(rules, mesh):
+        eg, n_e, r_e = parallel.axis_groups("edges")
+        ng, n_n, r_n = parallel.axis_groups("nodes")
+    lo, hi = r_n * N // n_n, (r_n + 1) * N // n_n
+    elo, ehi = r_e * E // n_e, (r_e + 1) * E // n_e
+    x = xw[lo:hi].clone().requires_grad_()
+    with parallel.edge_share(eg, n_e, r_e), parallel.node_share(ng, n_n, r_n):
+        got = node_fn(x, src[elo:ehi], dst[elo:ehi])
+    coll[table] = {"rows": int(got[1].shape[0]), "e": rel(got[0], one[0]),
+                   "g": rel(got[1], one[1][lo:hi]), "loss": rel(got[2], one[2]),
+                   "gg": rel(got[3], one[3][lo:hi])}
+if coll:
+    import os
+    os.makedirs(f"{path}/collectives", exist_ok=True)
+    with open(f"{path}/collectives/{shape}.{rank}.json", "w") as f:
+        json.dump(coll, f)
 dist.destroy_process_group()
 """
 
@@ -248,6 +328,12 @@ CASES = {
     "nequip": ("nequip", GRAPHS, "2x2", "single_pod", "single_pod"),
     "nequip f32": ("nequip", GRAPHS, "2x2", "single_pod", "single_pod"),
     "nequip 2x1": ("nequip", GRAPHS, "2x1", "single_pod", "single_pod"),
+    "nequip 1x2": ("nequip", GRAPHS, "1x2", "single_pod", "single_pod"),
+    "nequip multi_pod": ("nequip", GRAPHS, "2x2x1", "multi_pod", "multi_pod"),
+    "nequip odd": ("nequip", GRAPHS, "2x2", "single_pod", "single_pod"),
+    "nequip odd nodes_off": ("nequip", GRAPHS, "2x2", "single_pod", "nodes_off"),
+    "nequip model_sum": ("nequip", GRAPHS, "2x2", "single_pod", "single_pod"),
+    "nequip nodes_not_edges": ("nequip", GRAPHS, "2x2", "single_pod", "nodes_not_edges"),
     "qwen3-4b ff_qkv_off": ("qwen3-4b", LM, "2x2", "single_pod", "ff_qkv_off"),
     "qwen3-4b batch_on_model": ("qwen3-4b", LM, "2x2", "single_pod", "batch_on_model"),
     "deepseek-moe-16b 4x2": ("deepseek-moe-16b", LM, "4x2", "reference", "reference"),
@@ -256,7 +342,16 @@ CASES = {
 # step on these molecules, so a change of summation order moves them by as
 # much (ROADMAP C18): these cases run the float64 step, "nequip f32" is
 # held at NequIP's stated tolerance (TOL of tests/test_torch_nequip.py).
-FLOAT64 = ("nequip", "nequip 2x1")
+FLOAT64 = ("nequip", "nequip 2x1", "nequip 1x2", "nequip multi_pod", "nequip odd",
+           "nequip odd nodes_off", "nequip model_sum", "nequip nodes_not_edges")
+# NequIP's node count where a case pads its graph batch to another than
+# the cell's 512: 511 rows do not split over two "data" ranks.
+PAD_NODES = {"nequip odd": 511, "nequip odd nodes_off": 511}
+# A case's planted fault (the rank program's FAULTS).
+FAULT = {"nequip model_sum": "model_sum"}
+# The mesh of each NequIP float64 case with its node ranks (|N|).
+NEQUIP_MESHES = {"2x2": ("nequip", 2), "2x1": ("nequip 2x1", 2), "1x2": ("nequip 1x2", 1),
+                 "2x2x1": ("nequip multi_pod", 4)}
 # Config fields a case changes (on both sides): bags of three ids, whose
 # rows lie on both "model" ranks (ROADMAP C17).
 CONFIG = {"dlrm-rm2 bags": {"multi_hot": 3}}
@@ -275,28 +370,38 @@ def mesh_runs(tmp_path_factory):
     """Per case: the reference's loss and the ranks' reports. Both meshes'
     ranks run while the reference's steps compile."""
     path = tmp_path_factory.mktemp("mp")
-    built = {}   # one case for each arch and shape
+    built = {}   # one case for each arch, shape and batch
+
+    def key(name, arch, shape):
+        return json.dumps([arch, shape, CONFIG.get(name), PAD_NODES.get(name, 0)])
+
     for name, (arch, shape, *_) in CASES.items():
-        key = json.dumps([arch, shape, CONFIG.get(name)])
-        if key not in built:
-            built[key] = case(arch, shape, config=CONFIG.get(name))
-        built[key].save(path / name)
+        k = key(name, arch, shape)
+        if k not in built:
+            built[k] = case(arch, shape, config=CONFIG.get(name),
+                            pad_nodes=PAD_NODES.get(name, 0))
+        built[k].save(path / name)
     procs = {}
-    for shape in ("2x2", "4x2", "2x1"):
+    for shape in sorted({mesh for _, _, mesh, _, _ in CASES.values()}):
         (path / shape).mkdir()
         with open(path / shape / "manifest.json", "w") as f:
             json.dump({name: (arch, cell_shape, placed, step if mesh == shape else None,
-                              "float64" if name in FLOAT64 else "float32", CONFIG.get(name, {}))
+                              "float64" if name in FLOAT64 else "float32", CONFIG.get(name, {}),
+                              FAULT.get(name))
                        for name, (arch, cell_shape, mesh, placed, step) in CASES.items()}, f)
         procs[shape] = gloo_ranks.start(_RANK_PROG, _world(shape), str(path), shape)
     try:
-        ref_loss = {key: c.reference_loss() for key, c in built.items()}
+        ref_loss = {k: c.reference_loss() for k, c in built.items()}
     finally:
         for p in procs.values():
             gloo_ranks.join(p)
-    return {name: (ref_loss[json.dumps([arch, shape, CONFIG.get(name)])],
+    runs = {name: (ref_loss[key(name, arch, shape)],
                    [json.load(open(path / name / f"{mesh}.{r}.json")) for r in range(_world(mesh))])
             for name, (arch, shape, mesh, _, _) in CASES.items()}
+    for mesh in NEQUIP_MESHES:
+        runs[f"collectives {mesh}"] = [json.load(open(path / "collectives" / f"{mesh}.{r}.json"))
+                                       for r in range(_world(mesh))]
+    return runs
 
 
 def _hold(ref_loss: float, ranks: list, lm: bool, tol: float = 1e-6) -> None:
@@ -340,20 +445,81 @@ def test_recsys_tables_are_split_by_rows_over_model(arch, mesh_runs):
         assert ranks[0]["sparse"] == sorted(ranks[0]["local_tables"]), ranks[0]
 
 
-@pytest.mark.parametrize("mesh", ["2x1", "2x2"])
+@pytest.mark.parametrize("mesh", list(NEQUIP_MESHES))
 def test_nequip_forces_step_with_edges_over_every_rank(mesh, mesh_runs):
-    """NequIP's forces loss (a double backward through the node sums over
-    the edge ranks) on 2 and 4 ranks, in float64: each rank runs its
-    contiguous share of the padded edges, and the step is within 1e-6 of
-    one process, its parameter gradients included. A collective whose
-    backward could not be differentiated would leave the other ranks'
-    share out of them."""
-    ref_loss, ranks = mesh_runs["nequip" if mesh == "2x2" else f"nequip {mesh}"]
+    """NequIP's forces loss (a double backward through the node gathers
+    and sums over the edge ranks) on 2 and 4 ranks, in float64: each rank
+    runs its contiguous share of the padded edges and of the nodes
+    (``single_pod``: nodes over "data", edges over both axes; ``2x2x1``
+    under ``multi_pod``: nodes and edges over "pod" and "data"), and the
+    step is within 1e-6 of one process, its parameter gradients included.
+    A collective whose backward could not be differentiated would leave
+    the other ranks' share out of them."""
+    ref_loss, ranks = mesh_runs[NEQUIP_MESHES[mesh][0]]
     _hold(ref_loss, ranks, lm=False)
     n = len(ranks)
     edges = 512   # the GRAPHS batch's 160 edges padded to 512
     for r in ranks:
         assert r["edges"] == [edges // n], r
+
+
+@pytest.mark.parametrize("mesh", list(NEQUIP_MESHES))
+def test_nequip_node_arrays_and_aggregates_are_split_over_their_ranks(mesh, mesh_runs):
+    """Each rank holds ``N/|N|`` rows of ``positions``, ``species`` and
+    ``graph_id`` and of every per-layer aggregate (the GRAPHS batch's 80
+    atoms padded to 512 nodes): |N| is the "data" ranks under
+    ``single_pod`` (one on the 1 x 2 mesh, where the nodes stay whole),
+    "pod" x "data" under ``multi_pod``."""
+    name, n = NEQUIP_MESHES[mesh]
+    rows = 512 // n
+    for r in mesh_runs[name][1]:
+        assert r["nodes"] == [["aggregate", rows], ["inputs", rows, rows, rows]], r["nodes"]
+
+
+@pytest.mark.parametrize("mesh", list(NEQUIP_MESHES))
+def test_node_gather_and_scatter_differentiate_twice_across_ranks(mesh, mesh_runs):
+    """A node gather, per-edge messages on the rank's edges, a node
+    scatter, a sum over the node ranks; its gradient by the node share
+    (the gather's backward, a scatter) and that gradient's own gradient
+    (the scatter's backward, a gather) on each rank equal one process's
+    rows of them in float64."""
+    n = NEQUIP_MESHES[mesh][1]
+    for r in mesh_runs[f"collectives {mesh}"]:
+        (got,) = r.values()
+        assert got["rows"] == 16 // n, got
+        for k in ("e", "g", "loss", "gg"):
+            assert got[k] <= 1e-12, (k, got)
+
+
+def test_nequip_node_count_the_ranks_do_not_divide_stays_whole(mesh_runs):
+    """511 nodes over two "data" ranks: the nodes stay whole on every rank
+    and the step is the one with nodes unmapped (the edges alone split),
+    bit for bit, and within 1e-6 of one process."""
+    ref_loss, ranks = mesh_runs["nequip odd"]
+    _hold(ref_loss, ranks, lm=False)
+    _, off = mesh_runs["nequip odd nodes_off"]
+    for r, o in zip(ranks, off, strict=True):
+        assert r["nodes"] == [["aggregate", 511], ["inputs", 511, 511, 511]], r["nodes"]
+        assert r["edges"] == [128], r
+        assert (r["loss"], r["norm"], r["shards"]) == (o["loss"], o["norm"], o["shards"])
+
+
+def test_node_side_gradients_summed_over_model_fail_the_case(mesh_runs):
+    """The planted fault: the node-side parameters enter through a copy
+    over every edge rank, so their gradients are summed over "model" too
+    (twice over on the 2 x 2 mesh), and the case misses its bound."""
+    ref_loss, ranks = mesh_runs["nequip model_sum"]
+    assert ranks[0]["grad_rel"] > 0.5, ranks[0]
+    with pytest.raises(AssertionError):
+        _hold(ref_loss, ranks, lm=False)
+
+
+def test_nodes_over_an_axis_that_does_not_split_the_edges_raise(mesh_runs):
+    """A table that splits the nodes over "model" and the edges over
+    "data" alone: a rank's edges would reach node shares that no gather
+    brings, so every rank refuses the step."""
+    for r in mesh_runs["nequip nodes_not_edges"][1]:
+        assert "must resolve to a subset" in r["error"], r
 
 
 def test_nequip_float32_step_with_edges_over_every_rank(mesh_runs):

@@ -72,11 +72,12 @@ class Case:
 
 
 def case(arch: str, shape: dict, mask: str | None = None, seed: int = 3,
-         config: dict | None = None) -> Case:
+         config: dict | None = None, pad_nodes: int = 0) -> Case:
     """A float32 smoke case of ``arch`` at ``shape`` (``ShapeSpec``'s
     fields); ``mask`` sets BERT4Rec's masked positions. A NequIP graph
     batch is ``graph_batch`` molecules of ``n_nodes`` atoms and ``n_edges``
-    edges (:func:`nequip_parity.molecule_batch`), padded as the cell's.
+    edges (:func:`nequip_parity.molecule_batch`), padded as the cell's
+    (its nodes to ``pad_nodes``, where given).
     ``config``: fields of both packages' configs to change."""
     pcfg = dataclasses.replace(port_configs.get_smoke_config(arch), dtype="float32",
                                **(config or {}))
@@ -90,7 +91,7 @@ def case(arch: str, shape: dict, mask: str | None = None, seed: int = 3,
         # float32 forces are sums of large opposite terms (nequip_parity).
         atoms = shape["n_nodes"]
         raw = molecule_batch(shape["graph_batch"], atoms, shape["n_edges"],
-                             raw["positions"].shape[0], raw["edge_src"].shape[0],
+                             pad_nodes or raw["positions"].shape[0], raw["edge_src"].shape[0],
                              pcfg.n_species, seed)
     if mask:
         B, S = raw["mask_pos"].shape

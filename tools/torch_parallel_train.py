@@ -1,7 +1,7 @@
 """The train and serving steps on a (data, model) mesh of four cards, one
 process a card, against the same steps in one process.
 
-    PYTHONPATH=src python3 tools/torch_parallel_train.py [--cases train|serve|all]
+    PYTHONPATH=src python3 tools/torch_parallel_train.py [--cases train|serve|nequip|all]
 
 The launcher starts one rank per position of the (2, 2) mesh
 (``join_ranks`` on 127.0.0.1 at a free port; rank ``r`` on ``cuda:r``,
@@ -20,8 +20,8 @@ at smoke size run on the CPU in ``gloo`` processes in
   DeepFM, DIN and BERT4Rec (float32, batch 16; tables split by rows over
   "model", the batch over "data") and NequIP's graph batch with forces
   (float64: its float32 forces on these inputs are some 1e-5 of their
-  max from exact, ROADMAP C18; edges over all four ranks), held as the LM
-  smoke cases.
+  max from exact, ROADMAP C18; edges over all four ranks, nodes over
+  "data"), held as the LM smoke cases.
 - DLRM-RM2 at full width, ``train_batch`` (65,536), three steps: each
   card holds half of every table's rows (22.78 GB of the 45.56 GB) and of
   its row-wise state, the batch split over "data". Step 1's loss within
@@ -33,10 +33,12 @@ at smoke size run on the CPU in ``gloo`` processes in
   rows are, plus 1e-6 of the table's max. Step time and each card's peak
   beside one card's.
 - NequIP ``minibatch_lg`` with forces (full config, float32), edges over
-  all four ranks, three steps: the loss, grad norm and every step-1
-  gradient within NequIP's tolerance (1e-4 of each tensor's max) of rank
-  0's one-card step, the ranks' final states identical; step time and
-  peak beside one card's.
+  all four ranks and nodes over "data" (each card holds half of the node
+  arrays and of every layer's aggregates), three steps: the loss, grad
+  norm and every step-1 gradient within NequIP's tolerance (1e-4 of each
+  tensor's max) of rank 0's one-card step, the ranks' final states
+  identical; step time and peak beside one card's. ``--cases nequip``
+  runs the NequIP cases alone (the smoke one and this).
 - Qwen3-4B at ``chip_smoke.py``'s ``[lm_train]`` cut (12
   layers at full width, bfloat16, ``train_4k``, batch 4 × 4,096,
   microbatch 2), three steps on the mesh, timed on the host clock around
@@ -250,6 +252,8 @@ def _rank(args) -> None:
         print(json.dumps({"rank": args.rank, **kw}), flush=True)
 
     for arch, (shape, dtype) in SMOKE_LOCAL.items():
+        if args.cases == "nequip" and arch != "nequip":
+            continue
         cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
         cell = make_cell(cfg, ShapeSpec(name="t", **shape))
         batch = {k: v.to(getattr(torch, dtype)) if v.is_floating_point() else v
@@ -267,8 +271,12 @@ def _rank(args) -> None:
         _, one_losses, _ = steps(cell, init(), batch, 1, False)
         report(case=f"{arch} smoke {dtype}", losses=losses, one_losses=one_losses, digest=digest)
 
-    _dlrm_full(args, dev, mesh, rules, steps, report)
+    if args.cases != "nequip":
+        _dlrm_full(args, dev, mesh, rules, steps, report)
     _nequip_full(args, dev, mesh, rules, steps, report)
+    if args.cases == "nequip":
+        dist.destroy_process_group()
+        return
 
     for arch in SMOKE:
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
@@ -436,8 +444,8 @@ def _dlrm_full(args, dev, mesh, rules, steps, report) -> None:
 
 
 def _nequip_full(args, dev, mesh, rules, steps, report) -> None:
-    """NequIP ``minibatch_lg`` with forces, edges over every rank, held to
-    rank 0's one-card step at NEQUIP_TOL."""
+    """NequIP ``minibatch_lg`` with forces, edges over every rank and
+    nodes over "data", held to rank 0's one-card step at NEQUIP_TOL."""
     import gc
 
     import torch
@@ -486,7 +494,8 @@ def _nequip_full(args, dev, mesh, rules, steps, report) -> None:
     torch.cuda.empty_cache()
     dist.barrier()
     E = batch["edge_src"].shape[0]
-    report(case=f"nequip minibatch_lg (forces) E={E} over {dist.get_world_size()} ranks",
+    report(case=f"nequip minibatch_lg (forces) E={E} over {dist.get_world_size()} ranks, "
+                f"N={batch['positions'].shape[0]} over \"data\"",
            losses=losses, one_losses=one_losses, ms=statistics.median(times[1:]),
            step_ms=times, one_ms=one_ms, peak=peak, one_peak=one_peak, digest=digest,
            limits={"step 1 loss": NEQUIP_TOL, "step 1 grad norm": NEQUIP_TOL,
@@ -800,7 +809,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rank", type=int, default=None)
     p.add_argument("--port", type=int, default=None)
-    p.add_argument("--cases", choices=("train", "serve", "all"), default="all")
+    p.add_argument("--cases", choices=("train", "serve", "nequip", "all"), default="all")
     args = p.parse_args()
     if args.rank is None:
         return _launch(args.cases)
