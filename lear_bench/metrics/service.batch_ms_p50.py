@@ -1,0 +1,9 @@
+"""The median of every request's time in the measured window, from the call
+to ``rank_batch`` to its return (an open loop's from the request's
+arrival), in ms (host clock; numpy's linear interpolation)."""
+
+import numpy as np
+
+
+def read(ctx: dict) -> float:
+    return float(np.percentile(np.asarray(ctx["latencies_s"]) * 1e3, 50))
