@@ -75,6 +75,9 @@ Module map (port ↔ reference):
 ``repro_torch.launch.hillclimb``        ``repro.launch.hillclimb``
 ``repro_torch.utils``                   (none: device resolution, the path
                                         walk of nested states)
+``repro_torch.tracing``                 (none: the port's own; spans of the
+                                        ranking path for a reader to put
+                                        beside the profiler's trace)
 ======================================  =====================================
 
 What is not ported yet is listed in ``ROADMAP.md``.

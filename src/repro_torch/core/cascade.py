@@ -82,6 +82,7 @@ from repro_torch.kernels.ops import (
     padded_forest,
 )
 from repro_torch.metrics.speedup import speedup_progressive, speedup_vs_full
+from repro_torch.tracing import span
 
 _DEPRECATED_KWARGS_MSG = (
     "repro_torch.core.cascade.rank_progressive: keyword configuration "
@@ -270,7 +271,7 @@ class CascadeRanker:
         if has_tail:
             scores, overflow = _final_tail(
                 pf, S, flat, scores, alive, overflow, caps[-1], slots, limits[-1],
-                gated=qe is not None,
+                stage=config.n_stages - 1, gated=qe is not None,
             )
         return CascadeResult(
             scores=scores,
@@ -341,22 +342,24 @@ class _Slots:
     counts: list = dataclasses.field(default_factory=list)
 
     def take(
-        self, cont: torch.Tensor, cap: int, limit: int
+        self, cont: torch.Tensor, cap: int, limit: int, stage: int
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Compact ``cont`` into ``cap`` slots: ``(sel, n_valid, within,
         overflow)``, where slots below ``n_valid`` hold survivors (for a
         whole batch ``n_valid`` is the survivor count, which may pass
-        ``cap``) and ``limit`` is the whole batch's capacity."""
+        ``cap``) and ``limit`` is the whole batch's capacity. ``stage``:
+        the stage whose survivors these are (its entry in the capacities)."""
         i = len(self.counts)
-        if self.before is None:
-            sel, n_cont, within = compact_indices_cumsum_masked(cont, cap)
+        with span("engine.compact", stage=stage, rows=cap):
+            if self.before is None:
+                sel, n_cont, within = compact_indices_cumsum_masked(cont, cap)
+                self.counts.append(n_cont)
+                return sel, n_cont, within, torch.clamp_min(n_cont - cap, 0)
+            left = torch.clamp_min(limit - self.before[i], 0)
+            sel, n_cont, within = compact_indices_cumsum_masked(cont, cap, left)
             self.counts.append(n_cont)
-            return sel, n_cont, within, torch.clamp_min(n_cont - cap, 0)
-        left = torch.clamp_min(limit - self.before[i], 0)
-        sel, n_cont, within = compact_indices_cumsum_masked(cont, cap, left)
-        self.counts.append(n_cont)
-        n_valid = torch.minimum(n_cont, left)
-        return sel, n_valid, within, n_cont - n_valid
+            n_valid = torch.minimum(n_cont, left)
+            return sel, n_valid, within, n_cont - n_valid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -387,7 +390,7 @@ def _dense_gate(
     alive = mask & dense.policy(scores, mask)
     exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
     alive, exited = _apply_query_exit(qe, 0, scores, alive, exited)
-    sel, n_cont, within, overflow = slots.take(alive.reshape(Q * D), cap, limit)
+    sel, n_cont, within, overflow = slots.take(alive.reshape(Q * D), cap, limit, stage=0)
     return _Gate(
         scores=scores,
         alive=alive & within.reshape(Q, D),
@@ -428,15 +431,16 @@ def _head_prefixes(pf: PaddedForest, rows: torch.Tensor, S: int) -> list[torch.T
     """Prefix scores of ``rows`` at each of the first ``S`` sentinels from
     one head launch (a plain one for ``S == 1``): ``seg0 + base``, then
     ``+ seg_k`` left to right."""
-    if S == 1:
-        return [forest_score_range(pf, rows, 0, 1)]
-    seg = forest_score_segments(pf, rows, n_segments=S)
-    acc = seg[:, 0] + pf.base_score
-    prefixes = [acc]
-    for k in range(1, S):
-        acc = acc + seg[:, k]
-        prefixes.append(acc)
-    return prefixes
+    with span("engine.head", rows=rows.shape[0], trees=pf.boundaries[S - 1]):
+        if S == 1:
+            return [forest_score_range(pf, rows, 0, 1)]
+        seg = forest_score_segments(pf, rows, n_segments=S)
+        acc = seg[:, 0] + pf.base_score
+        prefixes = [acc]
+        for k in range(1, S):
+            acc = acc + seg[:, k]
+            prefixes.append(acc)
+        return prefixes
 
 
 # What a stage body returns: scores, the last stage's alive mask, the
@@ -494,24 +498,30 @@ def _staged(
         alive = mask
         exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
         overflow = torch.zeros((), dtype=torch.long, device=flat.device)
-        prefix = forest_score_range(pf, flat, 0, 1).reshape(Q, D)
+        with span("engine.head", rows=flat.shape[0], trees=pf.boundaries[0]):
+            prefix = forest_score_range(pf, flat, 0, 1).reshape(Q, D)
         prefixes, stage_masks, k0 = [prefix], [], 0
     else:
         alive, exited, overflow = gate.alive, gate.exited, gate.overflow
-        seg0 = forest_score_range(pf, flat[gate.sel], 0, 1)
+        with span("engine.head", rows=gate.sel.shape[0], trees=pf.boundaries[0]):
+            seg0 = forest_score_range(pf, flat[gate.sel], 0, 1)
         prefix = _scatter_grid(seg0, gate, alive, gate.scores)
         prefixes, stage_masks, k0 = [gate.scores, prefix], [alive], 1
     for k in range(S):
         alive = alive & strategies[k](prefix, alive, **skw)
         alive, exited = _apply_query_exit(qe, k + k0, prefix, alive, exited)
         if k + 1 < S:
-            sel, n_cont, within, over = slots.take(alive.reshape(Q * D), caps[k], limits[k])
+            sel, n_cont, within, over = slots.take(
+                alive.reshape(Q * D), caps[k], limits[k], stage=k + k0
+            )
             overflow = overflow + over
             alive = alive & within.reshape(Q, D)
-            seg_sel = forest_score_range(pf, flat[sel], k + 1, k + 2)
-            prefix = torch.where(
-                alive, _scatter_tail(prefix, sel, seg_sel, n_cont), prefix
-            )
+            with span("engine.middle", stage=k + 1 + k0, rows=caps[k],
+                      trees=pf.boundaries[k + 1] - pf.boundaries[k]):
+                seg_sel = forest_score_range(pf, flat[sel], k + 1, k + 2)
+                prefix = torch.where(
+                    alive, _scatter_tail(prefix, sel, seg_sel, n_cont), prefix
+                )
             prefixes.append(prefix)
         stage_masks.append(alive)
     return prefix, alive, stage_masks, torch.stack(prefixes, dim=-1), overflow, exited
@@ -520,20 +530,22 @@ def _staged(
 def _final_tail(
     pf: PaddedForest, S: int, flat: torch.Tensor, scores: torch.Tensor,
     alive: torch.Tensor, overflow: torch.Tensor, cap: int, slots: _Slots, limit: int,
-    gated: bool = False,
+    stage: int, gated: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One tail launch on the compacted survivors of the last stage;
-    ``gated``: the kernel reads the survivor count and skips the tree work
-    past it (all of it when every query exited)."""
-    sel, n_cont, _, over = slots.take(alive.reshape(-1), cap, limit)
-    if gated:
-        tail_sel = forest_score_range(
-            pf, flat[sel], seg_lo=S, count_as="gated", n_valid=n_cont.to(torch.int32)
-        )
-    else:
-        tail_sel = forest_score_range(pf, flat[sel], seg_lo=S)
-    scores = _scatter_tail(scores, sel, tail_sel, n_cont)
-    return scores, overflow + over
+    """One tail launch on the compacted survivors of the last stage (its
+    entry in the capacities: ``stage``); ``gated``: the kernel reads the
+    survivor count and skips the tree work past it (all of it when every
+    query exited)."""
+    with span("engine.tail", rows=cap, trees=pf.boundaries[-1] - pf.boundaries[S - 1]):
+        sel, n_cont, _, over = slots.take(alive.reshape(-1), cap, limit, stage=stage)
+        if gated:
+            tail_sel = forest_score_range(
+                pf, flat[sel], seg_lo=S, count_as="gated", n_valid=n_cont.to(torch.int32)
+            )
+        else:
+            tail_sel = forest_score_range(pf, flat[sel], seg_lo=S)
+        scores = _scatter_tail(scores, sel, tail_sel, n_cont)
+        return scores, overflow + over
 
 
 def _compacted_tail(

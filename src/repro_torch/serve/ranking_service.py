@@ -82,6 +82,7 @@ from repro_torch.metrics.speedup import (
 )
 from repro_torch.serve.calibration import calibrate_launch_overhead_trees
 from repro_torch.serve.placement import ServePlacement, single_device
+from repro_torch.tracing import span
 from repro_torch.utils import device_get, resolve_device
 
 if typing.TYPE_CHECKING:  # annotation-only: avoids a serve-package cycle
@@ -357,9 +358,12 @@ class RankingService:
         # passes its own threshold and gets its own closure.
         def strategy(partial, mask, features=None):
             clf = self._replica(partial.device).classifiers[k]
-            aug = augment_features(features, partial, mask)
+            stage = k + (self.dense_stage is not None)   # its entry in the capacities
+            with span("engine.features", stage=stage):
+                aug = augment_features(features, partial, mask)
             th = self.threshold if threshold is None else threshold
-            return clf.continue_mask(aug, mask, th, use_kernel=self.use_kernel_classifier)
+            with span("engine.classifier", stage=stage):
+                return clf.continue_mask(aug, mask, th, use_kernel=self.use_kernel_classifier)
 
         return strategy
 
@@ -509,13 +513,23 @@ class RankingService:
         ``placement`` puts the operands on the devices, in shards along Q;
         ``None`` is :func:`~repro_torch.serve.placement.single_device`.
         """
-        shards = (placement or single_device()).put_shards(X, mask, self.device)
+        with span("service.rank_batch", Q=int(X.shape[0]), D=int(X.shape[1])):
+            return self._rank_batch(X, mask, placement)
+
+    def _rank_batch(
+        self, X: torch.Tensor | np.ndarray, mask: torch.Tensor | np.ndarray,
+        placement: ServePlacement | None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        with span("service.put"):
+            shards = (placement or single_device()).put_shards(X, mask, self.device)
         Q = sum(m.shape[0] for _, m in shards)
         D = shards[0][1].shape[1]
         self._active_key = (Q, D)
         n_docs = Q * D
-        capacities = self._pick_capacities(n_docs)
-        mode = self._pick_mode(n_docs, capacities)
+        with span("service.pick") as sp:
+            capacities = self._pick_capacities(n_docs)
+            mode = self._pick_mode(n_docs, capacities)
+            sp.set(capacities=tuple(capacities), mode=mode)
         k = min(self.top_k, D)
         parts, before = [], None
         for i, (Xs, ms) in enumerate(shards):
@@ -540,10 +554,20 @@ class RankingService:
 
         # ONE device read: response and stats packed into one f64 tensor
         # (every value is exact in f64: indices, counts, f32 scores).
+        with span("service.read") as sp:
+            packed = device_get(torch.cat(
+                [top_idx.reshape(-1).double(), scores.reshape(-1).double(), stats]
+            ))
+            sp.set(bytes=packed.nbytes)
+        with span("service.unpack"):
+            return self._unpack(packed, Q, D, k, mode, capacities)
+
+    def _unpack(
+        self, packed: np.ndarray, Q: int, D: int, k: int, mode: str, capacities: list[int],
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """The packed read as (top-k, scores), with the bucket's adaptive
+        state and the service's stats moved by what it counted."""
         T = self.ensemble.n_trees
-        packed = device_get(torch.cat(
-            [top_idx.reshape(-1).double(), scores.reshape(-1).double(), stats]
-        ))
         top_idx = packed[: Q * k].astype(np.int64).reshape(Q, k)
         scores = packed[Q * k: Q * k + Q * D].astype(np.float32).reshape(Q, D)
         S = self.n_stages
@@ -589,32 +613,32 @@ class RankingService:
         """The cascade on one shard, on its device: (top-k ``[Qs, k]``,
         scores ``[Qs, D]``, the stats vector, the compaction counts)."""
         dev = X.device
-        result = self._replica(dev).cascade.rank_progressive(
-            X, mask,
-            EngineConfig(
-                stages=self._engine_stages(dev),
-                mode=mode,
-                capacities=tuple(capacities),
-                query_exit=self.query_exit,
-            ),
-            features=X,
-            survivors_before=before,
+        config = EngineConfig(
+            stages=self._engine_stages(dev),
+            mode=mode,
+            capacities=tuple(capacities),
+            query_exit=self.query_exit,
         )
+        with span("engine.rank_progressive", mode=mode, stages=config.n_stages):
+            result = self._replica(dev).cascade.rank_progressive(
+                X, mask, config, features=X, survivors_before=before,
+            )
         # Top-k (clamped to D) with the reference's lax.top_k tie-break:
         # the lower index first, which a stable descending sort gives.
-        masked = torch.where(mask, result.scores, torch.full_like(result.scores, -torch.inf))
-        top_idx = torch.sort(masked, dim=-1, descending=True, stable=True).indices[:, :k]
-        exited = result.query_exited
-        stats = torch.stack([t.double() for t in (
-            *(m.sum() for m in result.stage_masks),
-            trees_traversed_progressive(
-                mask, result.stage_masks, self._acct_sentinels, self.ensemble.n_trees,
-                list(self._acct_classifier_trees),
-            ),
-            result.overflow,
-            mask.sum(),
-            exited.sum() if exited is not None else torch.zeros((), device=dev),
-        )])
+        with span("service.topk"):
+            masked = torch.where(mask, result.scores, torch.full_like(result.scores, -torch.inf))
+            top_idx = torch.sort(masked, dim=-1, descending=True, stable=True).indices[:, :k]
+            exited = result.query_exited
+            stats = torch.stack([t.double() for t in (
+                *(m.sum() for m in result.stage_masks),
+                trees_traversed_progressive(
+                    mask, result.stage_masks, self._acct_sentinels, self.ensemble.n_trees,
+                    list(self._acct_classifier_trees),
+                ),
+                result.overflow,
+                mask.sum(),
+                exited.sum() if exited is not None else torch.zeros((), device=dev),
+            )])
         return top_idx, result.scores, stats, result.survivors
 
 
