@@ -39,14 +39,20 @@ same ranking semantics:
   alive mask (exit flags accumulate; a converged query's documents skip
   every later stage and the tail). The reference moves its tail launch
   under a ``lax.cond`` on the survivor count; here the tail kernel reads
-  that count on the device (``n_valid``) and does no tree work past it,
-  so a batch whose queries all converged launches a kernel that only
-  writes zeros, and the host never waits. The launch counts ``gated``.
+  that count on the device, as every launch on a compacted block does
+  (below), so a batch whose queries all converged launches a kernel that
+  only writes zeros, and the host never waits. The launch counts ``gated``.
 
 Capacities are sizes known on the host, so the compacted blocks have fixed
 shapes and nothing on this path waits for the device: survivors beyond a
 capacity keep their stage prefix and are counted in ``overflow``, a 0-dim
-device tensor read later with the batch's stats.
+device tensor read later with the batch's stats. Every range launch on a
+compacted block (the tail, a staged middle segment, the head on the dense
+gate's block) passes its compaction's count as ``n_valid``: the kernel
+reads it on the device, writes 0 for the padding rows at or past it and
+does no tree work for a document tile wholly past it. Those rows are
+discarded by the scatter, so the result is the ungated launch's. The
+segmented head cannot be gated; it scores every row of its block.
 
 A batch split along its queries into shards (data-parallel serving) keeps
 the one-program batch's overflow: ``survivors_before`` gives a shard, per
@@ -427,13 +433,17 @@ def _apply_query_exit(
     return alive & ~exited[:, None], exited
 
 
-def _head_prefixes(pf: PaddedForest, rows: torch.Tensor, S: int) -> list[torch.Tensor]:
+def _head_prefixes(
+    pf: PaddedForest, rows: torch.Tensor, S: int, n_valid: torch.Tensor | None = None,
+) -> list[torch.Tensor]:
     """Prefix scores of ``rows`` at each of the first ``S`` sentinels from
     one head launch (a plain one for ``S == 1``): ``seg0 + base``, then
-    ``+ seg_k`` left to right."""
+    ``+ seg_k`` left to right. ``n_valid``: the count of a compacted
+    ``rows`` block, which gates the plain launch (the segmented one cannot
+    be gated)."""
     with span("engine.head", rows=rows.shape[0], trees=pf.boundaries[S - 1]):
         if S == 1:
-            return [forest_score_range(pf, rows, 0, 1)]
+            return [forest_score_range(pf, rows, 0, 1, n_valid=_as_count(n_valid))]
         seg = forest_score_segments(pf, rows, n_segments=S)
         acc = seg[:, 0] + pf.base_score
         prefixes = [acc]
@@ -467,7 +477,7 @@ def _fused(
         overflow = torch.zeros((), dtype=torch.long, device=flat.device)
         scores, grids, stage_masks, k0 = None, [], [], 0
     else:
-        vecs = _head_prefixes(pf, flat[gate.sel], S)
+        vecs = _head_prefixes(pf, flat[gate.sel], S, gate.n_cont)
         alive, exited, overflow = gate.alive, gate.exited, gate.overflow
         scores, grids, stage_masks, k0 = gate.scores, [gate.scores], [gate.alive], 1
     for k in range(S):
@@ -504,7 +514,7 @@ def _staged(
     else:
         alive, exited, overflow = gate.alive, gate.exited, gate.overflow
         with span("engine.head", rows=gate.sel.shape[0], trees=pf.boundaries[0]):
-            seg0 = forest_score_range(pf, flat[gate.sel], 0, 1)
+            seg0 = forest_score_range(pf, flat[gate.sel], 0, 1, n_valid=_as_count(gate.n_cont))
         prefix = _scatter_grid(seg0, gate, alive, gate.scores)
         prefixes, stage_masks, k0 = [gate.scores, prefix], [alive], 1
     for k in range(S):
@@ -518,7 +528,9 @@ def _staged(
             alive = alive & within.reshape(Q, D)
             with span("engine.middle", stage=k + 1 + k0, rows=caps[k],
                       trees=pf.boundaries[k + 1] - pf.boundaries[k]):
-                seg_sel = forest_score_range(pf, flat[sel], k + 1, k + 2)
+                seg_sel = forest_score_range(
+                    pf, flat[sel], k + 1, k + 2, n_valid=_as_count(n_cont)
+                )
                 prefix = torch.where(
                     alive, _scatter_tail(prefix, sel, seg_sel, n_cont), prefix
                 )
@@ -533,19 +545,22 @@ def _final_tail(
     stage: int, gated: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One tail launch on the compacted survivors of the last stage (its
-    entry in the capacities: ``stage``); ``gated``: the kernel reads the
-    survivor count and skips the tree work past it (all of it when every
-    query exited)."""
+    entry in the capacities: ``stage``), gated on their count like every
+    compacted launch. ``gated`` (query exit on) counts the launch as the
+    reference's gated tail, which may find no survivor at all."""
     with span("engine.tail", rows=cap, trees=pf.boundaries[-1] - pf.boundaries[S - 1]):
         sel, n_cont, _, over = slots.take(alive.reshape(-1), cap, limit, stage=stage)
-        if gated:
-            tail_sel = forest_score_range(
-                pf, flat[sel], seg_lo=S, count_as="gated", n_valid=n_cont.to(torch.int32)
-            )
-        else:
-            tail_sel = forest_score_range(pf, flat[sel], seg_lo=S)
+        tail_sel = forest_score_range(
+            pf, flat[sel], seg_lo=S, count_as="gated" if gated else "plain",
+            n_valid=_as_count(n_cont),
+        )
         scores = _scatter_tail(scores, sel, tail_sel, n_cont)
         return scores, overflow + over
+
+
+def _as_count(n: torch.Tensor | None) -> torch.Tensor | None:
+    """A compaction's count as the one-element int32 the kernel reads."""
+    return None if n is None else n.to(torch.int32)
 
 
 def _compacted_tail(

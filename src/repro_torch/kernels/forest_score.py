@@ -6,8 +6,8 @@ with a launch counter and a plain PyTorch version beside it:
 - :func:`forest_score_kernel` (replaces ``forest_score_pallas``): scores
   ``x [B, F]`` through one contiguous range of tree blocks → ``[B]``. With
   ``n_valid`` (a one-element int32 tensor on the device, the survivor count
-  of the query-exit gated tail) rows at or past the count are 0 and cost no
-  tree work; the kernel reads the count itself, so the host never waits.
+  of a compacted block) rows at or past the count are 0 and cost no tree
+  work; the kernel reads the count itself, so the host never waits.
 - :func:`forest_score_segments_kernel` (replaces
   ``forest_score_segments_pallas``): scores tree blocks ``[0, n)`` and adds
   each block's partial into the column of its segment → ``[B, S]``.

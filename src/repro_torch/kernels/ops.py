@@ -255,9 +255,9 @@ def forest_score_range(
     explicit ``0.0`` otherwise, as the reference does. ``n_valid`` (a
     one-element int32 tensor on ``X``'s device) gates the launch on the
     device: the kernel writes 0 for rows at or past it and does no tree
-    work for them — the
-    query-exit tail passes its compaction's survivor count and counts the
-    launch ``gated``.
+    work for them. The engine passes it on every compacted block, the
+    count of its compaction; ``count_as`` only says how the launch is
+    counted (``gated``: the query-exit tail, as in the reference).
     """
     seg_hi = pf.n_segments if seg_hi is None else seg_hi
     if not 0 <= seg_lo < seg_hi <= pf.n_segments:

@@ -181,6 +181,15 @@ class ServiceStats:
     # survivors are compacted into capacities[k] rows; the last is the
     # tail's; a hybrid service's first is the dense gate's).
     capacities: dict[tuple[int, ...], int] = dataclasses.field(default_factory=dict)
+    # Rows given to the forest range launches on compacted blocks (each
+    # launch's capacity: the tail, a staged middle segment, a hybrid's
+    # plain head on the dense gate's block), and those of them at or past
+    # their launch's survivor count: the kernel writes them 0 and does no
+    # tree work for a document tile wholly past the count. A launch whose
+    # count reaches its capacity (overflow) adds none to ``rows_gated``. A
+    # batch served in shards counts as the one batch it is.
+    rows_compacted: int = 0
+    rows_gated: int = 0
 
     @property
     def speedup(self) -> float:
@@ -193,6 +202,10 @@ class ServiceStats:
     @property
     def query_exit_rate(self) -> float:
         return self.queries_exited / max(self.queries, 1)
+
+    @property
+    def gated_share(self) -> float:
+        return self.rows_gated / max(self.rows_compacted, 1)
 
 
 class RankingService:
@@ -604,7 +617,23 @@ class RankingService:
         s.queries_exited += int(q_exited)
         s.trees_traversed += float(traversed)
         s.trees_full_equiv += int(batch_docs) * T
+        for j in self._compacted_launches(mode):
+            s.rows_compacted += capacities[j]
+            s.rows_gated += max(0, capacities[j] - int(survivors[j]))
         return top_idx, scores
+
+    def _compacted_launches(self, mode: str) -> list[int]:
+        """The entries of the capacities (and of the per-stage survivor
+        counts) whose compacted block a range launch scores, gated on that
+        stage's count: a hybrid's head on the dense gate's block where it is
+        a plain launch, the staged middle segments, the tail."""
+        S, dense = len(self.sentinels), int(self.dense_stage is not None)
+        entries = [0] if dense and (mode == "staged" or S == 1) else []
+        if mode == "staged":
+            entries += [dense + k for k in range(S - 1)]
+        if self.sentinels[-1] < self.ensemble.n_trees:
+            entries.append(self.n_stages - 1)
+        return entries
 
     def _rank_shard(
         self, X: torch.Tensor, mask: torch.Tensor, mode: str, capacities: Sequence[int],

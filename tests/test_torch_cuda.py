@@ -384,6 +384,24 @@ def test_plans_count_new_shapes_only(dev):
     assert fs.first_touches()["plans"] == before + 1
 
 
+def test_gated_tail_at_the_bulk_shape(dev):
+    """The bulk cells' tail: 997 trees of depth 6 over 136 features on the
+    capacity floor's 524,288 rows, 147,700 of them survivors. Below the
+    count the gated launch equals the ungated one bit for bit; past it, 0."""
+    ens = random_ensemble(28, 1047, 6, 136, device=dev)
+    pf = ops.padded_forest(ens, boundaries=(50, 1047))
+    B, count = 524_288, 147_700
+    x = _x(np.random.default_rng(28), B, 136, dev)
+    ungated = ops.forest_score_range(pf, x, seg_lo=1)
+    gated = ops.forest_score_range(
+        pf, x, seg_lo=1, n_valid=torch.tensor(count, dtype=torch.int32, device=dev)
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(gated[:count], ungated[:count])
+    assert not gated[count:].any()
+    assert ungated[count:].any()
+
+
 def test_engine_with_query_exit_equals_the_cpu(dev):
     """The engine's gated tail on the card against the same engine on the
     CPU (plain versions): scores, masks and exited queries equal."""
