@@ -14,6 +14,8 @@ launch and the classifier launch without a host round trip.
   it into ``[RANK_BLOCK_D, RANK_BLOCK_D]`` chunks so the working set stops
   growing with D². Both count the same pairs, so they are bit-exact;
   ``"auto"`` picks blocked above ``RANK_BLOCKED_MIN_D`` candidates.
+  :func:`rank_plan` gives the pick with the pairs and tiles it evaluates;
+  the blocked compare runs in an ``engine.ranks`` span.
 - :func:`query_minmax` / :func:`normalized_partial`: masked per-query
   min/max and a clipped normalization.
 """
@@ -23,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.ops import env_int
+from repro_torch.tracing import span
 
 N_AUG = 4    # sentinel-time features appended to the q-d vector
 NEG = -1e30  # masked-document fill; ranks padding after every real doc
@@ -33,16 +36,32 @@ RANK_BLOCK_D = 128  # tile edge of the blocked pairwise-count compare
 RANK_BLOCKED_MIN_D = env_int("REPRO_RANK_BLOCKED_MIN_D", 256)
 
 
+def rank_plan(D: int, method: str = "auto") -> tuple[str, int, int]:
+    """What :func:`query_ranks` does for a query of ``D`` slots: ``(method,
+    pairs, tiles)``, the method ``"auto"`` resolves to, the pairs its
+    compare evaluates (``D²``, or the tile-padded ``D`` squared when
+    blocked) and the tile pairs it runs (1 when direct)."""
+    if method == "auto":
+        method = "blocked" if D > RANK_BLOCKED_MIN_D else "direct"
+    if method == "direct":
+        return method, D * D, 1
+    if method != "blocked":
+        raise ValueError(f"query_ranks method {method!r}")
+    n_blocks = -(-D // RANK_BLOCK_D)
+    return method, (n_blocks * RANK_BLOCK_D) ** 2, n_blocks * n_blocks
+
+
 def query_ranks(
     partial: torch.Tensor, mask: torch.Tensor, *, method: str = "auto"
 ) -> torch.Tensor:
     """Sort-free per-query rank (0 = best) of each document → ``[Q, D]``."""
-    if method == "auto":
-        method = "blocked" if partial.shape[-1] > RANK_BLOCKED_MIN_D else "direct"
+    D = partial.shape[-1]
+    method, _, tiles = rank_plan(D, method)
     if method == "blocked":
-        return query_ranks_blocked(partial, mask)
-    if method != "direct":
-        raise ValueError(f"query_ranks method {method!r}")
+        # The direct compare, a few ops on the whole grid, stays in its
+        # caller's span.
+        with span("engine.ranks", method=method, D=D, tiles=tiles):
+            return query_ranks_blocked(partial, mask)
     return query_ranks_direct(partial, mask)
 
 

@@ -49,6 +49,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build
 from repro_torch.typecheck import Tensor
 
@@ -484,6 +485,18 @@ def launch_plan(
     return dict(zip(keys, out))
 
 
+def _annotate_plan(
+    B: int, F: int, N: int, L: int, block_t: int, n_blocks: int, segmented: bool,
+) -> None:
+    """While recording, set the launch's plan on the innermost open span
+    (``tile_rows``: documents a CTA's tile; ``tree_warps``; ``ctas_per_sm``):
+    the library's cached plan of the launch just made, read on the host."""
+    sp = tracing.active()
+    if sp is not None:
+        p = launch_plan(B, F, N, L, block_t, n_blocks, segmented)
+        sp.set(tile_rows=p["tile"], tree_warps=p["warps_t"], ctas_per_sm=p["ctas_per_sm"])
+
+
 def forest_score_kernel(
     x: Tensor["b f", torch.float32],
     feature: Tensor["t n", torch.int32],     # T % block_t == 0, N power of two
@@ -542,6 +555,7 @@ def forest_score_kernel(
             arrivals.data_ptr(), out.data_ptr(),
             None if n_valid is None else n_valid.data_ptr(), *GRID_PLAN, stream,
         )
+        _annotate_plan(B, F, N, L, block_t, n_tree_blocks, segmented=False)
     KERNEL_LAUNCHES["forest_score"] += 1
     return out
 
@@ -600,5 +614,6 @@ def forest_score_segments_kernel(
             partials.data_ptr(), arrivals.data_ptr(), out.data_ptr(), *GRID_PLAN,
             stream,
         )
+        _annotate_plan(B, F, N, L, block_t, n_tree_blocks, segmented=True)
     KERNEL_LAUNCHES["forest_score_segments"] += 1
     return out

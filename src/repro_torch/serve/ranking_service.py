@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cascade import CascadeRanker, bucket_capacity
+from repro_torch.core.features import rank_plan
 from repro_torch.core.lear import LearClassifier, augment_features
 from repro_torch.core.stage import DenseStage, EngineConfig, TreeStage
 from repro_torch.core.strategies import QueryExitConfig, dense_keep_fraction
@@ -190,6 +191,11 @@ class ServiceStats:
     # batch served in shards counts as the one batch it is.
     rows_compacted: int = 0
     rows_gated: int = 0
+    # Pairs the sentinel features' rank compare evaluated: each stage's
+    # classifier ranks its [Q, D] grid, D² pairs a query, or the padded D²
+    # of the blocked compare (core.features.rank_plan). Host arithmetic on
+    # shapes, counted where the stage runs.
+    rank_pairs: int = 0
 
     @property
     def speedup(self) -> float:
@@ -374,6 +380,8 @@ class RankingService:
             stage = k + (self.dense_stage is not None)   # its entry in the capacities
             with span("engine.features", stage=stage):
                 aug = augment_features(features, partial, mask)
+            Q, D = partial.shape
+            self.stats.rank_pairs += Q * rank_plan(D)[1]
             th = self.threshold if threshold is None else threshold
             with span("engine.classifier", stage=stage):
                 return clf.continue_mask(aug, mask, th, use_kernel=self.use_kernel_classifier)

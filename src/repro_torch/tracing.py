@@ -24,6 +24,8 @@ recording starts and at each :func:`drain`::
 
 The buffer holds ``capacity`` spans; past it, a span is counted in
 ``Trace.dropped`` and not recorded, until a drain empties the buffer.
+:func:`active` hands a callee the innermost open span, so it can set
+attributes that only it knows.
 """
 
 from __future__ import annotations
@@ -172,6 +174,16 @@ def span(name: str, **attrs: Attr) -> _Span | _Off:
     if not _ON:
         return _OFF
     return _Span(_RECORDER, name, attrs)
+
+
+def active() -> _Span | None:
+    """The innermost span open on this thread while recording, else None:
+    a callee sets attributes only it knows (a kernel's launch plan) on the
+    span its caller opened."""
+    if not _ON:
+        return None
+    stack = getattr(_RECORDER.local, "stack", None)
+    return stack[-1] if stack else None
 
 
 @contextlib.contextmanager

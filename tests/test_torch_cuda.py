@@ -305,6 +305,45 @@ def test_lear_msn1_shapes_fit_the_widest_tile(dev, monkeypatch):
         assert (plan["warps_d"], plan["warps_t"]) == (4, 2) and plan["ctas_per_sm"] >= 1
 
 
+@pytest.mark.parametrize("F,depth,n_trees,bounds", [
+    (220, 6, 300, (50, 150, 300)),    # lear-istella's ranker
+    (224, 5, 10, (10,)),              # its classifier: F + 4 features
+], ids=["ranker", "classifier"])
+def test_istella_widths_equal_plain(dev, F, depth, n_trees, bounds):
+    """At lear-istella's widths the 256-row document tile does not fit
+    beside the ring of 16-tree blocks (220 x 257 x 4 B of documents alone),
+    so the plans take a narrower tile; on 4,096 rows the range, gated and
+    segmented kernels equal their plain versions bit for bit."""
+    B = 4096
+    ens = random_ensemble(F, n_trees, depth, F, device=dev)
+    pf = ops.padded_forest(ens, boundaries=bounds)
+    x = _x(np.random.default_rng(F), B, F, dev)
+    N, L = pf.feature.shape[1], pf.leaf_value.shape[1]
+    for lo in range(pf.n_segments):
+        got, want = _both(pf, x, lo, pf.n_segments)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), lo
+    kw = dict(block_t=pf.block_t, tree_block_offset=pf.seg_block_starts[-1],
+              n_tree_blocks=pf.seg_blocks[-1])
+    for count in (0, 1, 1000, B - 1, B):
+        n = torch.tensor(count, dtype=torch.int32, device=dev)
+        got = fs.forest_score_kernel(x, *_tables(pf), packed=pf.packed, n_valid=n, **kw)
+        want = fs.forest_score_plain(x, *_tables(pf), n_valid=n, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), count
+    S = pf.n_segments
+    n_blocks = pf.seg_block_starts[S - 1] + pf.seg_blocks[S - 1]
+    seg_kw = dict(seg_block_starts=pf.seg_block_starts[:S], n_tree_blocks=n_blocks,
+                  block_t=pf.block_t)
+    got = fs.forest_score_segments_kernel(x, *_tables(pf), packed=pf.packed, **seg_kw)
+    want = fs.forest_score_segments_plain(x, *_tables(pf), **seg_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for segmented in (False, True):
+        plan = fs.launch_plan(B, F, N, L, pf.block_t, n_blocks, segmented)
+        assert plan["tile"] < 256 and plan["ctas_per_sm"] >= 1, plan
+
+
 # ---------------------------------------------------------------------------
 # The gated tail: the kernel reads the survivor count (n_valid) on the
 # device; rows at or past it are 0, rows below it equal the ungated launch.

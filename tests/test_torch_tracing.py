@@ -235,3 +235,42 @@ def test_recording_changes_no_output_launch_or_read(sentinels, mode):
     assert launches_on == launches_off and stats_on == stats_off
     assert len({r.request for r in tracing.drain().records}) == len(batches)
 
+
+
+def test_active_is_the_innermost_open_span_while_recording():
+    assert tracing.active() is None                     # off
+    with tracing.recording():
+        assert tracing.active() is None                 # no span open
+        with tracing.span("outer"):
+            with tracing.span("inner") as inner:
+                assert tracing.active() is inner
+                tracing.active().set(tile_rows=64)
+            assert tracing.active().name == "outer"
+    by = {r.name: r for r in tracing.drain().records}
+    assert by["inner"].attrs == {"tile_rows": 64} and by["outer"].attrs == {}
+
+
+@pytest.mark.parametrize("D,D_pad,tiles", [(32, 32, 0), (300, 384, 9), (512, 512, 16)],
+                         ids=["direct", "blocked-padded", "blocked"])
+@pytest.mark.parametrize("sentinels,mode", [((8,), "fused"), ((8, 28), "staged")])
+def test_rank_compare_span_and_pair_counter(sentinels, mode, D, D_pad, tiles):
+    """Each stage's rank compare: ``engine.ranks`` inside ``engine.features``
+    where it is blocked (tile pairs, D), none where it is direct; the pairs
+    counted are stages x Q x D_pad² either way; the answers are the same
+    bit for bit with recording on and off."""
+    Q, S = 3, len(sentinels)
+    X, mask = _batch(Q=Q, D=D, seed=D)
+    outs, counts = [], []
+    for on in (False, True):
+        svc = _service(sentinels, mode)
+        with tracing.recording() if on else contextlib.nullcontext():
+            outs.append(svc.rank_batch(X, mask))
+        counts.append(svc.stats.rank_pairs)
+    (top0, s0), (top1, s1) = outs
+    np.testing.assert_array_equal(top0, top1)
+    assert s0.tobytes() == s1.tobytes()
+    assert counts == [S * Q * D_pad**2] * 2
+    trace = tracing.drain()
+    ranks = [r for r in trace.records if r.name == "engine.ranks"]
+    assert [trace.records[r.parent].name for r in ranks] == ["engine.features"] * (S if tiles else 0)
+    assert [r.attrs for r in ranks] == [{"method": "blocked", "D": D, "tiles": tiles}] * len(ranks)
