@@ -12,9 +12,9 @@ or on ``PATH``)::
 
 Phases, each of which must pass:
 
-- ``build``: compile ``src/repro_torch/csrc/forest_score.cu`` with nvcc for
-  sm_90a into ``build/repro_torch/`` and print the compiler's register and
-  shared-memory report.
+- ``build``: compile ``src/repro_torch/csrc/forest_score.cu`` and
+  ``sentinel_features.cu`` with nvcc for sm_90a into ``build/repro_torch/``
+  and print the compiler's register and shared-memory report.
 - ``serve``: a :class:`repro_torch.RankingService` over a random (seeded)
   ``lear-msn1`` ranker and classifiers, threshold 0.5, serving batches of
   8 × 256 with ragged masks: single sentinel 50, then sentinels (50, 150)
@@ -54,7 +54,10 @@ Phases, each of which must pass:
   batches), the plain version's, the least time the card could take and
   the launch grid. The gated tail (the range kernel given a survivor
   count) is held to its plain version at B = 1024 and 2048 with counts 0,
-  1, 33, B/2 and B, and timed at counts 0 and B.
+  1, 33, B/2 and B, and timed at counts 0 and B. The sentinel-features
+  kernel is held bit for bit to its plain version at the bulk cells'
+  shapes (4,096 queries × 256 slots, F = 136; × 512, F = 220) and timed
+  beside it (50 launches; the plain version 3) and its bytes bound.
 
 - ``hybrid``: the hybrid cascade (a dense stage-0 gate, keep fraction 0.35
   as the reference bench chose, ``BENCH_kernels.json`` → ``hybrid``).
@@ -390,18 +393,21 @@ def card_line() -> str:
 
 
 def phase_build() -> float:
-    from repro_torch.kernels import build
-
-    t0 = time.perf_counter()
-    path, report = build.build("forest_score")
-    seconds = time.perf_counter() - t0
     import torch
 
-    log(f"[build] {path.name}: {seconds:.2f} s (nvcc {' '.join(build.NVCC_FLAGS)}; "
-        f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda})")
-    for line in report.splitlines():
-        if "ptxas info" in line:
-            log(f"[build]   {line.strip()}")
+    from repro_torch.kernels import build
+
+    seconds = 0.0
+    for name in ("forest_score", "sentinel_features"):
+        t0 = time.perf_counter()
+        path, report = build.build(name)
+        seconds += time.perf_counter() - t0
+        log(f"[build] {path.name}: {time.perf_counter() - t0:.2f} s (nvcc "
+            f"{' '.join(build.NVCC_FLAGS)}; python {sys.version.split()[0]}, torch "
+            f"{torch.__version__}, CUDA {torch.version.cuda})")
+        for line in report.splitlines():
+            if "ptxas info" in line:
+                log(f"[build]   {line.strip()}")
     return seconds
 
 
@@ -585,6 +591,28 @@ def phase_kernels(tail_cases, hybrid_cases=(), train_cases=(), cell_cases=(),
     return results
 
 
+# Launch counts of the hand-written kernels on the main path: the forest
+# kernels' and the sentinel-features kernel's. Each phase zeroes them before
+# the work it counts and reads them after; the timing loops of [kernels] are
+# left out.
+NO_LAUNCHES = {"forest_score": 0, "forest_score_segments": 0, "sentinel_features": 0}
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import sentinel_features as sf
+
+    fs.reset_kernel_launches()
+    sf.reset_kernel_launches()
+
+
+def kernel_launches() -> dict[str, int]:
+    from repro_torch.kernels import forest_score as fs
+    from repro_torch.kernels import sentinel_features as sf
+
+    return {**fs.kernel_launches(), **sf.kernel_launches()}
+
+
 def _batches(n_features: int):
     import numpy as np
 
@@ -623,13 +651,13 @@ def serve_run(label: str, sentinels, mode: str) -> dict:
     )
     batches = _batches(cfg.n_features)
     ops.reset_launch_counts()
-    fs.reset_kernel_launches()
+    reset_launches()
     outs, lat = [], []
     for X, mask in batches:
         t0 = time.perf_counter()
         outs.append(svc.rank_batch(X, mask))  # ends in the one host read
         lat.append((time.perf_counter() - t0) * 1e3)
-    launches = fs.kernel_launches()
+    launches = kernel_launches()
     dispatches = ops.launch_counts()
 
     # The same service on the CPU (plain PyTorch path), same inputs.
@@ -739,12 +767,13 @@ def profiled(label: str, fn, what: str, n_top: int = 6) -> None:
 
 def phase_serve() -> tuple[dict[str, int], set, float]:
     runs = (
-        ("single-sentinel", (50,), "auto", ("forest_score",)),
-        ("fused-2", SENTINELS_2, "fused", ("forest_score", "forest_score_segments")),
-        ("staged-2", SENTINELS_2, "staged", ("forest_score",)),
-        ("auto-2", SENTINELS_2, "auto", ("forest_score",)),
+        ("single-sentinel", (50,), "auto", ("forest_score", "sentinel_features")),
+        ("fused-2", SENTINELS_2, "fused",
+         ("forest_score", "forest_score_segments", "sentinel_features")),
+        ("staged-2", SENTINELS_2, "staged", ("forest_score", "sentinel_features")),
+        ("auto-2", SENTINELS_2, "auto", ("forest_score", "sentinel_features")),
     )
-    total = {"forest_score": 0, "forest_score_segments": 0}
+    total = dict(NO_LAUNCHES)
     tail_cases = set()
     for label, sentinels, mode, needed in runs:
         r = serve_run(label, sentinels, mode)
@@ -853,7 +882,7 @@ def _drive_tier(label: str, svc, n_features: int, rungs, n_queries: int, seed: i
 
     touches = fs.first_touches()
     ops.reset_launch_counts()
-    fs.reset_kernel_launches()
+    reset_launches()
     threads = [threading.Thread(target=submit, args=(range(k, n_queries, 2),)) for k in (0, 1)]
     t0 = time.perf_counter()
     for t in threads:
@@ -866,7 +895,7 @@ def _drive_tier(label: str, svc, n_features: int, rungs, n_queries: int, seed: i
     results = [f.result(timeout=600) for f in futs]
     wall = time.perf_counter() - t0
     tier.stop()
-    launches, dispatches = fs.kernel_launches(), ops.launch_counts()
+    launches, dispatches = kernel_launches(), ops.launch_counts()
     new_touches = {k: v - touches[k] for k, v in fs.first_touches().items() if v != touches[k]}
     health, stats = tier.health(), tier.stats()
     if not all(f.done() for f in futs):
@@ -949,7 +978,7 @@ def phase_tier(card: str) -> dict:
     for level in (1, 2):
         svc.set_rung(level)
         svc_cpu.set_rung(level)
-        fs.reset_kernel_launches()
+        reset_launches()
         err, n_gated, parts = 0.0, 0, []
         sets = [("random", _batches(cfg.n_features)[:2])]
         if level == 2:
@@ -986,7 +1015,7 @@ def phase_tier(card: str) -> dict:
         log(
             f"[tier] rung {level} ({svc.rung_names[level]}): {n_batches} batches of {Q}x{D}, "
             + "; ".join(parts)
-            + f"; gated dispatches={n_gated} kernel_launches={fs.kernel_launches()} "
+            + f"; gated dispatches={n_gated} kernel_launches={kernel_launches()} "
             f"max|score-cpu|={err:.3g}"
         )
     svc.set_rung(0)
@@ -1151,13 +1180,13 @@ def hybrid_serve_run(label: str, sentinels, mode: str, params: dict) -> dict:
     cfg, svc = _hybrid_service(DEVICE, params, sentinels, mode, THRESHOLD)
     batches = _batches(cfg.n_features)
     ops.reset_launch_counts()
-    fs.reset_kernel_launches()
+    reset_launches()
     outs, lat = [], []
     for X, mask in batches:
         t0 = time.perf_counter()
         outs.append(svc.rank_batch(X, mask))
         lat.append((time.perf_counter() - t0) * 1e3)
-    launches, dispatches = fs.kernel_launches(), ops.launch_counts()
+    launches, dispatches = kernel_launches(), ops.launch_counts()
 
     _, ranker, clfs = _models(DEVICE, sentinels)
     base = RankingService(
@@ -1246,7 +1275,7 @@ def phase_hybrid(card: str, params: dict) -> dict:
         ("fused-2", SENTINELS_2, "fused", ("forest_score", "forest_score_segments")),
         ("staged-2", SENTINELS_2, "staged", ("forest_score",)),
     )
-    launches = {"forest_score": 0, "forest_score_segments": 0}
+    launches = dict(NO_LAUNCHES)
     cases, lines, boundary = set(), [], 0
     for label, sentinels, mode, needed in runs:
         r = hybrid_serve_run(label, sentinels, mode, params)
@@ -1297,7 +1326,7 @@ def phase_hybrid(card: str, params: dict) -> dict:
     for level, (X, mask) in enumerate(_batches(cfg.n_features)[:3]):
         svc.set_rung(level)
         svc_cpu.set_rung(level)
-        fs.reset_kernel_launches()
+        reset_launches()
         ops.reset_launch_counts()
         out = svc.rank_batch(X, mask)
         gated += ops.launch_counts()["gated"]  # the card's, not the CPU's
@@ -1308,7 +1337,7 @@ def phase_hybrid(card: str, params: dict) -> dict:
         boundary += nb
         rung_parts.append(
             f"rung {level} ({svc.rung_names[level]}, keep {keeps[level]}): "
-            f"max|score-cpu|={e:.3g} boundary={nb} kernel_launches={fs.kernel_launches()}"
+            f"max|score-cpu|={e:.3g} boundary={nb} kernel_launches={kernel_launches()}"
         )
     svc.set_rung(0)
     log(f"[hybrid] tier rungs, one {Q}x{D} batch each: " + "; ".join(rung_parts))
@@ -1482,13 +1511,13 @@ def _train_classifier(cl, ranker, dev):
     from repro_torch.kernels import ops
 
     ops.reset_launch_counts()
-    fs.reset_kernel_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     clf = train_lear(cl.X, cl.labels, cl.mask, ranker, sentinel=TRAIN_SENTINEL, k=LEAR_K)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, dispatches = fs.kernel_launches(), ops.launch_counts()
+    launches, dispatches = kernel_launches(), ops.launch_counts()
     if launches["forest_score_segments"] == 0:
         raise AssertionError("train: train_lear never launched the segments kernel")
 
@@ -1544,18 +1573,18 @@ def _serve_trained(ranker, clf, te, full_ndcg):
 
     batches = _query_batches(te.X, te.mask)
     labels, mask = torch.as_tensor(te.labels), torch.as_tensor(te.mask)
-    out, launches = {}, {"forest_score": 0, "forest_score_segments": 0}
+    out, launches = {}, dict(NO_LAUNCHES)
     ranker_cpu = ranker.to("cpu")
     for th in TRAIN_THRESHOLDS:
         svc = RankingService(ranker, clf, ServiceConfig(threshold=th), device=DEVICE)
         ops.reset_launch_counts()
-        fs.reset_kernel_launches()
+        reset_launches()
         outs, lat = [], []
         for X, m, _ in batches:
             t0 = time.perf_counter()
             outs.append(svc.rank_batch(X, m))
             lat.append((time.perf_counter() - t0) * 1e3)
-        for k, v in fs.kernel_launches().items():
+        for k, v in kernel_launches().items():
             launches[k] += v
         svc_cpu = RankingService(
             ranker_cpu, clf, ServiceConfig(
@@ -1840,6 +1869,57 @@ def phase_gated() -> dict:
     return out
 
 
+# The bulk cells' sentinel stage: (queries, slots, features, mean real a
+# query) of lear_bench's msn1 and istella traffic.
+SENTINEL_SHAPES = ((4096, 256, 136, 120), (4096, 512, 220, 317))
+
+
+def phase_sentinel() -> dict:
+    """The sentinel-features kernel against its plain version at the bulk
+    cells' shapes (bit for bit), timed beside it and its bytes bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import features
+    from repro_torch.kernels import sentinel_features as sf
+    from repro_torch.utils import device_ms
+
+    dev = torch.device(DEVICE)
+    out = {"cases": []}
+    for Q, D, F, real in SENTINEL_SHAPES:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + D)
+        X = torch.randn(Q, D, F, generator=gen, device=dev)
+        partial = torch.round(torch.randn(Q, D, generator=gen, device=dev) * 64) / 64
+        n_real = torch.as_tensor(
+            np.clip(np.random.default_rng(SEED + D).poisson(real, size=(Q, 1)), 8, D), device=dev
+        )
+        mask = torch.arange(D, device=dev)[None, :] < n_real
+        kernel = lambda X=X, partial=partial, mask=mask: sf.sentinel_features_kernel(
+            X, partial, mask)
+        plain = lambda X=X, partial=partial, mask=mask: features.augment_features_plain(
+            X, partial, mask)
+        before = sf.kernel_launches()["sentinel_features"]
+        got = kernel()
+        launches = sf.kernel_launches()["sentinel_features"] - before
+        want = plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"sentinel_features {Q}x{D} F={F}: differs from plain")
+        del got, want
+        k_ms = device_ms(kernel, reps=50)
+        p_ms = device_ms(plain, reps=3, warmup=1)
+        nbytes = Q * D * (2 * F + 4) * 4 + Q * D * 5    # X, X_aug; partial, mask
+        b_ms = nbytes / _rf().HBM_BW * 1e3
+        label = f"Q={Q} D={D} F={F} (Poisson({real}) real)"
+        log(f"[kernels] sentinel_features {label}: bit-equal to plain; kernel={k_ms:.4f} ms "
+            f"plain={p_ms:.3f} ms bound={b_ms:.4f} ms (bytes {nbytes}) x{k_ms / b_ms:.2f} "
+            f"bound; {launches} launch a call")
+        out["cases"].append({"case": label, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                             "bound_by": "bytes"})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # [guards]: one host read per batch, under the card's sync debug mode.
 # ---------------------------------------------------------------------------
@@ -1913,17 +1993,17 @@ def _guard_run(label: str, sentinels, mode: str, keep, query_exit) -> dict:
         plain.rank_batch(X, mask)
         guarded.rank_batch(X, mask)
     torch.cuda.synchronize()
-    fs.reset_kernel_launches()
+    reset_launches()
     want = [plain.rank_batch(X, mask) for X, mask in batches[GUARD_WARM:]]
     torch.cuda.synchronize()
-    unguarded_launches = fs.kernel_launches()
-    fs.reset_kernel_launches()
+    unguarded_launches = kernel_launches()
+    reset_launches()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with count_host_transfers() as counts:
         got = [guarded.rank_batch(X, mask) for X, mask in batches[GUARD_WARM:]]
     ms = (time.perf_counter() - t0) * 1e3 / GUARD_BATCHES
-    launches = fs.kernel_launches()
+    launches = kernel_launches()
     gated = ops.launch_counts()["gated"]
     equal = all(
         np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(got, want)
@@ -1972,7 +2052,7 @@ def _guard_tier() -> dict:
     ]
     torch.cuda.synchronize()
     before = svc.stats.batches
-    fs.reset_kernel_launches()
+    reset_launches()
     try:
         with count_host_transfers() as counts:
             futures = []
@@ -1982,7 +2062,7 @@ def _guard_tier() -> dict:
             results = [f.result(timeout=120) for f in futures]
     finally:
         tier.stop()
-    launches = fs.kernel_launches()
+    launches = kernel_launches()
     flushed = svc.stats.batches - before
     finite = all(np.isfinite(s[: len(q)]).all() for (_, s), q in zip(results, queries))
     log(
@@ -2030,7 +2110,7 @@ def phase_guards(card: str) -> dict:
     """[guards] at lear-msn1 full width (the [serve] models, seed 0)."""
     t_phase = time.perf_counter()
     _guard_controls()
-    launches = {"forest_score": 0, "forest_score_segments": 0}
+    launches = dict(NO_LAUNCHES)
     gated = 0
     for label, sentinels, mode, keep, qe in _guard_configs():
         r = _guard_run(label, sentinels, mode, keep, qe)
@@ -2628,10 +2708,10 @@ def _forest_cell(shape_name: str) -> dict:
     synth_s = time.perf_counter() - t0
     Q, D, F = inputs["X"].shape
     cell.step(params, inputs)  # warm: buffers, plans, scratch
-    fs.reset_kernel_launches()
+    reset_launches()
     ops.reset_launch_counts()
     ms, (scores, cont) = _events_ms(lambda: cell.step(params, inputs), CELL_TIMED_STEPS)
-    launches, dispatches = fs.kernel_launches(), ops.launch_counts()
+    launches, dispatches = kernel_launches(), ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if launches["forest_score"] != 3 * CELL_TIMED_STEPS:
         raise AssertionError(f"forest cell {shape_name}: kernel launches {launches}")
@@ -2673,7 +2753,7 @@ def _forest_cell(shape_name: str) -> dict:
              (f"cell {shape_name} classifier [0,1)", pfc, aug, 0, 1),
              (f"cell {shape_name} ranker tail [1,2)", pf, x2d, 1, 2)]
     _timed(f"lear-msn1 {shape_name}", cfg, shape, ms)
-    return {"ms": ms, "peak": peak, "launches": launches["forest_score"], "cases": cases}
+    return {"ms": ms, "peak": peak, "launches": launches, "cases": cases}
 
 
 def _launchers() -> int:
@@ -2685,10 +2765,10 @@ def _launchers() -> int:
     from repro_torch.kernels import forest_score as fs
     from repro_torch.launch import serve, train
 
-    fs.reset_kernel_launches()
+    reset_launches()
     serve.main(["--arch", "dlrm-rm2", "--device", DEVICE])
     serve.main(["--arch", "lear-msn1", "--device", DEVICE])
-    launches = fs.kernel_launches()["forest_score"]
+    launches = kernel_launches()["forest_score"]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="cells_launch_", dir=os.path.join(ROOT, "build"))
     try:
@@ -2719,7 +2799,7 @@ def phase_cells(card: str) -> dict:
     import torch
 
     t_phase = time.perf_counter()
-    launches = _launchers()
+    launches = dict(NO_LAUNCHES, forest_score=_launchers())
     results = {"dlrm-rm2": _dlrm_cell()}
     for arch in CELL_RECSYS[1:]:
         gc.collect()
@@ -2730,7 +2810,8 @@ def phase_cells(card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         r = _forest_cell(name)
-        launches += r.pop("launches")
+        for k, n in r.pop("launches").items():
+            launches[k] += n
         cases += r.pop("cases") if name == "rank_xl" else []
         results[f"lear-msn1 {name}"] = r
     xl = results["lear-msn1 rank_xl"]
@@ -2745,7 +2826,7 @@ def phase_cells(card: str) -> dict:
         + f" vs full scoring {rt[RETRIEVAL_KEEPS[0]]['full_ms']:.3f} ms"
     )
     log(f"[cells] done in {time.perf_counter() - t_phase:.1f} s on {card}")
-    return {"launches": {"forest_score": launches}, "cases": cases, "summary": summary}
+    return {"launches": launches, "cases": cases, "summary": summary}
 
 
 # ---------------------------------------------------------------------------
@@ -4301,18 +4382,18 @@ def _placement_mode(models, mode: str, card: str) -> dict:
     runs += [(f"data_parallel([cuda:0] x {n})", placement.data_parallel(devices=[DEVICE] * n))
              for n in PLACEMENT_SHARDS]
     services = _placement_services(models, mode, len(runs))
-    launches = {"forest_score": 0, "forest_score_segments": 0}
+    launches = dict(NO_LAUNCHES)
     want = base = None
     cases, lines = set(), []
     for (label, pl), svc in zip(runs, services):
         for X, mask in batches[:GUARD_WARM]:
             svc.rank_batch(X, mask, placement=pl)
         torch.cuda.synchronize()
-        fs.reset_kernel_launches()
+        reset_launches()
         with count_host_transfers() as counts:
             got = [svc.rank_batch(X, mask, placement=pl) for X, mask in batches[GUARD_WARM:]]
         torch.cuda.synchronize()
-        n_launch = dict(fs.kernel_launches())
+        n_launch = dict(kernel_launches())
         for name, k in n_launch.items():
             launches[name] += k
         t0 = time.perf_counter()
@@ -4377,7 +4458,7 @@ def _placement_tier() -> dict:
     n_devices = tier.health()["n_devices"]
     torch.cuda.synchronize()
     before = svc.stats.batches
-    fs.reset_kernel_launches()
+    reset_launches()
     try:
         with count_host_transfers() as counts:
             futures = []
@@ -4387,7 +4468,7 @@ def _placement_tier() -> dict:
             results = [f.result(timeout=120) for f in futures]
     finally:
         tier.stop()
-    launches = dict(fs.kernel_launches())
+    launches = dict(kernel_launches())
     flushed = svc.stats.batches - before
     equal = all(
         np.array_equal(s, alone.rank_batch(q[None], np.ones((1, len(q)), bool))[1][0])
@@ -4457,7 +4538,7 @@ def phase_placement(card: str) -> dict:
 
     t_phase = time.perf_counter()
     models = _models(DEVICE, SENTINELS_2)
-    launches = {"forest_score": 0, "forest_score_segments": 0}
+    launches = dict(NO_LAUNCHES)
     cases = set()
     for mode in ("fused", "staged"):
         r = _placement_mode(models, mode, card)
@@ -4673,6 +4754,8 @@ def main() -> int:
         for name, n in parallel_serve["launches"].items():
             launches[name] += n
         elapsed("parallel_serve")
+        if launches["sentinel_features"] == 0:
+            raise AssertionError("the main path never launched the sentinel-features kernel")
         dryrun = phase_dryrun(card, dry_proc, dry_dir)
         elapsed("dryrun")
         examples = phase_examples(card)
@@ -4680,6 +4763,7 @@ def main() -> int:
         kernels = phase_kernels(tail_cases, hybrid["cases"], train["cases"], cells["cases"],
                                 placement["cases"])
         gated = phase_gated()
+        sentinel = phase_sentinel()
         elapsed("kernels")
         phase_shapes(card)
         elapsed("shapes")
@@ -4716,6 +4800,15 @@ def main() -> int:
         "source": sources["forest_score"][0], "replaces": sources["forest_score"][1],
         "launches": tier["gated"] + hybrid["gated"] + guards["gated"],
         "max_abs_err": gated["max_abs_err"],
+        "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"], "library_ms": None, "case": case["case"],
+    })
+    case = sentinel["cases"][0]
+    line.append({
+        "name": "sentinel_features", "route": "cuda",
+        "source": "src/repro_torch/csrc/sentinel_features.cu",
+        "replaces": "none (plain jnp: src/repro/core/features.py augment_features)",
+        "launches": launches["sentinel_features"], "max_abs_err": 0.0,
         "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
         "bound_by": case["bound_by"], "library_ms": None, "case": case["case"],
     })

@@ -1,7 +1,7 @@
 """TS004 — environment reads in device scope.
 
-Engine tunables (``PADDED_CACHE_MAX``, ``LEAF_SELECT_MAX``,
-``RANK_BLOCKED_MIN_D``, the dense scorer's widths, ...) are read ONCE at
+Engine tunables (``PADDED_CACHE_MAX``, ``LEAF_SELECT_MAX``, the dense
+scorer's widths, ...) are read ONCE at
 import through ``env_int``, so every step of a process runs under the same
 values and a warmed shape stays warm. An ``env_int`` / ``os.environ`` /
 ``os.getenv`` read inside device scope would be re-read every step — a

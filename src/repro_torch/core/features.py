@@ -14,34 +14,50 @@ launch and the classifier launch without a host round trip.
   it into ``[RANK_BLOCK_D, RANK_BLOCK_D]`` chunks so the working set stops
   growing with D². Both count the same pairs, so they are bit-exact;
   ``"auto"`` picks blocked above ``RANK_BLOCKED_MIN_D`` candidates.
+  Both are the plain path, which every device but a CUDA card runs.
   :func:`rank_plan` gives the pick with the pairs and tiles it evaluates;
   the blocked compare runs in an ``engine.ranks`` span.
 - :func:`query_minmax` / :func:`normalized_partial`: masked per-query
   min/max and a clipped normalization.
+- :func:`augment_features` appends the four to ``X``. Where
+  :func:`rank_plan` gives ``"fused"`` (a CUDA tensor) it is one launch of
+  :func:`repro_torch.kernels.sentinel_features.sentinel_features_kernel`
+  (ranks, min–max, count and copy, no ``[Q, D, D]`` predicate in memory),
+  bit for bit :func:`augment_features_plain`, which every other device
+  runs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ops import env_int
+from repro_torch.kernels.sentinel_features import sentinel_features_kernel
 from repro_torch.tracing import span
 
 N_AUG = 4    # sentinel-time features appended to the q-d vector
 NEG = -1e30  # masked-document fill; ranks padding after every real doc
 
 RANK_BLOCK_D = 128  # tile edge of the blocked pairwise-count compare
-# Direct up to this many candidates, blocked above (the reference's cutoff,
-# set by the [Q, D, D] working set; overridable per deployment).
-RANK_BLOCKED_MIN_D = env_int("REPRO_RANK_BLOCKED_MIN_D", 256)
+# The plain path's cutoff: direct up to this many candidates, blocked above
+# (the reference's, set by the [Q, D, D] working set). A CUDA card runs
+# neither compare.
+RANK_BLOCKED_MIN_D = 256
 
 
-def rank_plan(D: int, method: str = "auto") -> tuple[str, int, int]:
-    """What :func:`query_ranks` does for a query of ``D`` slots: ``(method,
+def rank_plan(
+    D: int, method: str = "auto", device: torch.device | str | None = None
+) -> tuple[str, int, int]:
+    """What the rank compare of a query of ``D`` slots does: ``(method,
     pairs, tiles)``, the method ``"auto"`` resolves to, the pairs its
-    compare evaluates (``D²``, or the tile-padded ``D`` squared when
-    blocked) and the tile pairs it runs (1 when direct)."""
+    compare spans (``D²``, or the tile-padded ``D`` squared when blocked)
+    and the tile pairs it runs (1 when direct or fused). On a CUDA
+    ``device`` ``"auto"`` is ``"fused"``: the sentinel-features kernel's
+    compare inside :func:`augment_features`, ``D²`` pairs in its one launch.
+    Elsewhere it is the plain path's ``"direct"`` or ``"blocked"``, the
+    only methods that may be asked for by name."""
     if method == "auto":
+        if device is not None and torch.device(device).type == "cuda":
+            return "fused", D * D, 1
         method = "blocked" if D > RANK_BLOCKED_MIN_D else "direct"
     if method == "direct":
         return method, D * D, 1
@@ -134,7 +150,22 @@ def augment_features(
     partial: torch.Tensor,  # [Q, D]
     mask: torch.Tensor,     # [Q, D]
 ) -> torch.Tensor:
-    """Append the four sentinel-time features → ``[Q, D, F + 4]``."""
+    """Append the four sentinel-time features → ``[Q, D, F + 4]``: one
+    kernel launch where :func:`rank_plan` gives ``"fused"`` (a CUDA
+    tensor), :func:`augment_features_plain` elsewhere."""
+    if rank_plan(X.shape[-2], device=X.device)[0] == "fused":
+        return sentinel_features_kernel(X.contiguous(), partial.contiguous(), mask.contiguous())
+    return augment_features_plain(X, partial, mask)
+
+
+def augment_features_plain(
+    X: torch.Tensor,        # [Q, D, F]
+    partial: torch.Tensor,  # [Q, D]
+    mask: torch.Tensor,     # [Q, D]
+) -> torch.Tensor:
+    """The plain version of :func:`augment_features`: PyTorch ops over the
+    ``[Q, D, D]`` rank compare (:func:`query_ranks`), what the kernel is
+    held to."""
     ranks = query_ranks(partial, mask).float()
     lo, hi = query_minmax(partial, mask)
     norm = normalized_partial(partial, lo, hi)

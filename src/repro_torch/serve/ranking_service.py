@@ -191,10 +191,13 @@ class ServiceStats:
     # batch served in shards counts as the one batch it is.
     rows_compacted: int = 0
     rows_gated: int = 0
-    # Pairs the sentinel features' rank compare evaluated: each stage's
-    # classifier ranks its [Q, D] grid, D² pairs a query, or the padded D²
-    # of the blocked compare (core.features.rank_plan). Host arithmetic on
-    # shapes, counted where the stage runs.
+    # Pairs the sentinel features' rank compare spans: each stage's
+    # classifier ranks its [Q, D] grid, D² pairs a query (the card's fused
+    # kernel, or the plain direct compare), or the padded D² of the plain
+    # blocked compare (core.features.rank_plan). Host arithmetic on shapes,
+    # counted where the stage runs. On the card the count is nominal, a
+    # constant of the grid: the fused kernel skips masked rows, so it
+    # compares about (real documents) x D pairs.
     rank_pairs: int = 0
 
     @property
@@ -378,10 +381,12 @@ class RankingService:
         def strategy(partial, mask, features=None):
             clf = self._replica(partial.device).classifiers[k]
             stage = k + (self.dense_stage is not None)   # its entry in the capacities
-            with span("engine.features", stage=stage):
-                aug = augment_features(features, partial, mask)
             Q, D = partial.shape
-            self.stats.rank_pairs += Q * rank_plan(D)[1]
+            method, pairs, _ = rank_plan(D, device=partial.device)
+            fused = {"method": method} if method == "fused" else {}
+            with span("engine.features", stage=stage, **fused):
+                aug = augment_features(features, partial, mask)
+            self.stats.rank_pairs += Q * pairs
             th = self.threshold if threshold is None else threshold
             with span("engine.classifier", stage=stage):
                 return clf.continue_mask(aug, mask, th, use_kernel=self.use_kernel_classifier)
