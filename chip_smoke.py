@@ -591,26 +591,23 @@ def phase_kernels(tail_cases, hybrid_cases=(), train_cases=(), cell_cases=(),
     return results
 
 
-# Launch counts of the hand-written kernels on the main path: the forest
-# kernels' and the sentinel-features kernel's. Each phase zeroes them before
-# the work it counts and reads them after; the timing loops of [kernels] are
-# left out.
-NO_LAUNCHES = {"forest_score": 0, "forest_score_segments": 0, "sentinel_features": 0}
-
-
+# Launch counts of the hand-written kernels (repro_torch.kernels.build's
+# one registry). Each phase zeroes them before the work it counts and reads
+# them after; the timing loops of [kernels] are left out.
 def reset_launches() -> None:
-    from repro_torch.kernels import forest_score as fs
-    from repro_torch.kernels import sentinel_features as sf
+    from repro_torch.kernels import build
 
-    fs.reset_kernel_launches()
-    sf.reset_kernel_launches()
+    build.reset_kernel_launches()
 
 
 def kernel_launches() -> dict[str, int]:
-    from repro_torch.kernels import forest_score as fs
-    from repro_torch.kernels import sentinel_features as sf
+    from repro_torch.kernels import build
 
-    return {**fs.kernel_launches(), **sf.kernel_launches()}
+    return build.kernel_launches()
+
+
+def no_launches() -> dict[str, int]:
+    return dict.fromkeys(kernel_launches(), 0)
 
 
 def _batches(n_features: int):
@@ -639,7 +636,6 @@ def serve_run(label: str, sentinels, mode: str) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.kernels import ops
     from repro_torch.serve.ranking_service import RankingService, ServiceConfig
 
@@ -773,7 +769,7 @@ def phase_serve() -> tuple[dict[str, int], set, float]:
         ("staged-2", SENTINELS_2, "staged", ("forest_score", "sentinel_features")),
         ("auto-2", SENTINELS_2, "auto", ("forest_score", "sentinel_features")),
     )
-    total = dict(NO_LAUNCHES)
+    total = no_launches()
     tail_cases = set()
     for label, sentinels, mode, needed in runs:
         r = serve_run(label, sentinels, mode)
@@ -939,7 +935,6 @@ def phase_tier(card: str) -> dict:
     """The serving tier at full width on the card against the CPU service."""
     import numpy as np
 
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.kernels import ops
     from repro_torch.serve import ServiceStats
 
@@ -1172,7 +1167,6 @@ def hybrid_serve_run(label: str, sentinels, mode: str, params: dict) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.kernels import ops
     from repro_torch.serve.ranking_service import RankingService, ServiceConfig
     from repro_torch.utils import device_ms
@@ -1265,7 +1259,6 @@ def phase_hybrid(card: str, params: dict) -> dict:
     import torch
 
     from repro_torch.configs.lear_msn1 import config
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.kernels import ops
 
     if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
@@ -1275,7 +1268,7 @@ def phase_hybrid(card: str, params: dict) -> dict:
         ("fused-2", SENTINELS_2, "fused", ("forest_score", "forest_score_segments")),
         ("staged-2", SENTINELS_2, "staged", ("forest_score",)),
     )
-    launches = dict(NO_LAUNCHES)
+    launches = no_launches()
     cases, lines, boundary = set(), [], 0
     for label, sentinels, mode, needed in runs:
         r = hybrid_serve_run(label, sentinels, mode, params)
@@ -1507,7 +1500,6 @@ def _train_classifier(cl, ranker, dev):
     from repro_torch.forest import binning
     from repro_torch.forest.gbdt import GBDTParams, grad_hess_logistic, train_gbdt
     from repro_torch.forest.reorder import per_tree_contributions
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.kernels import ops
 
     ops.reset_launch_counts()
@@ -1566,14 +1558,13 @@ def _serve_trained(ranker, clf, te, full_ndcg):
     import numpy as np
     import torch
 
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.kernels import ops
     from repro_torch.metrics.ranking import ndcg_at_k
     from repro_torch.serve.ranking_service import RankingService, ServiceConfig
 
     batches = _query_batches(te.X, te.mask)
     labels, mask = torch.as_tensor(te.labels), torch.as_tensor(te.mask)
-    out, launches = {}, dict(NO_LAUNCHES)
+    out, launches = {}, no_launches()
     ranker_cpu = ranker.to("cpu")
     for th in TRAIN_THRESHOLDS:
         svc = RankingService(ranker, clf, ServiceConfig(threshold=th), device=DEVICE)
@@ -1899,9 +1890,9 @@ def phase_sentinel() -> dict:
             X, partial, mask)
         plain = lambda X=X, partial=partial, mask=mask: features.augment_features_plain(
             X, partial, mask)
-        before = sf.kernel_launches()["sentinel_features"]
+        before = kernel_launches()["sentinel_features"]
         got = kernel()
-        launches = sf.kernel_launches()["sentinel_features"] - before
+        launches = kernel_launches()["sentinel_features"] - before
         want = plain()
         torch.cuda.synchronize()
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
@@ -1982,7 +1973,6 @@ def _guard_run(label: str, sentinels, mode: str, keep, query_exit) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.kernels import ops
     from repro_torch.utils import count_host_transfers
 
@@ -2036,7 +2026,6 @@ def _guard_tier() -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.serve import BucketPolicy, ServingTier, TierConfig
     from repro_torch.utils import count_host_transfers
 
@@ -2110,7 +2099,7 @@ def phase_guards(card: str) -> dict:
     """[guards] at lear-msn1 full width (the [serve] models, seed 0)."""
     t_phase = time.perf_counter()
     _guard_controls()
-    launches = dict(NO_LAUNCHES)
+    launches = no_launches()
     gated = 0
     for label, sentinels, mode, keep, qe in _guard_configs():
         r = _guard_run(label, sentinels, mode, keep, qe)
@@ -2762,7 +2751,6 @@ def _launchers() -> int:
     import shutil
     import tempfile
 
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.launch import serve, train
 
     reset_launches()
@@ -2799,7 +2787,7 @@ def phase_cells(card: str) -> dict:
     import torch
 
     t_phase = time.perf_counter()
-    launches = dict(NO_LAUNCHES, forest_score=_launchers())
+    launches = {**no_launches(), "forest_score": _launchers()}
     results = {"dlrm-rm2": _dlrm_cell()}
     for arch in CELL_RECSYS[1:]:
         gc.collect()
@@ -3254,20 +3242,19 @@ def phase_lm(card: str) -> dict:
 
     import torch
 
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.launch import serve
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))   # lm_parity: the tests' tolerances and rules
     t_phase = time.perf_counter()
-    before = fs.kernel_launches()
+    before = kernel_launches()
     gc.collect()
     torch.cuda.empty_cache()
     results = {arch: _lm_full(arch, card) for arch in LM_FULL}
     serve.main(["--arch", "qwen3-4b", "--device", DEVICE])
     log("[lm] launch.serve --arch qwen3-4b (smoke config) on the card: served")
     shapes = _lm_shapes_only()
-    if fs.kernel_launches() != before:
-        raise AssertionError(f"[lm] the LM path launched forest kernels: {fs.kernel_launches()}")
+    if kernel_launches() != before:
+        raise AssertionError(f"[lm] the LM path launched ranking kernels: {kernel_launches()}")
     if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
             or torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction):
         raise AssertionError("[lm] TF32 or reduced-precision bf16 reductions were enabled")
@@ -3618,11 +3605,10 @@ def phase_lm_train(card: str) -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import forest_score as fs
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))   # lm_parity: the routing rule
     t_phase = time.perf_counter()
-    before = fs.kernel_launches()
+    before = kernel_launches()
     results = {}
     for arch in LM_FULL:
         cfg = get_config(arch)
@@ -3635,8 +3621,8 @@ def phase_lm_train(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     _lm_train_launcher()
-    if fs.kernel_launches() != before:
-        raise AssertionError(f"[lm_train] the LM path launched forest kernels: {fs.kernel_launches()}")
+    if kernel_launches() != before:
+        raise AssertionError(f"[lm_train] the LM path launched ranking kernels: {kernel_launches()}")
     seconds = time.perf_counter() - t_phase
     log(f"[lm_train] done in {seconds:.1f} s on {card}")
     q, d = results["qwen3-4b"]["full"], results["deepseek-moe-16b"]["full"]
@@ -3795,13 +3781,12 @@ def phase_nequip(card: str) -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.models.api import make_cell
     from repro_torch.utils import tree_items
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))   # nequip_parity: the molecule batch
     t_phase = time.perf_counter()
-    before = fs.kernel_launches()
+    before = kernel_launches()
     cfg = get_config("nequip")
     log(f"[nequip] {cfg.name}: {cfg.n_layers} layers, d_hidden {cfg.d_hidden}, l_max {cfg.l_max}, "
         f"n_rbf {cfg.n_rbf}, cutoff {cfg.cutoff}, {cfg.dtype}; segment sums by index_put "
@@ -3822,8 +3807,8 @@ def phase_nequip(card: str) -> dict:
     log(f"[nequip] ogb_products by shape only, on meta: N {specs['positions'].shape[0]}, E {E}, "
         f"d_feat {ogb.d_feat}; {sum(t.numel() for t in state.params.values()):,} parameters; "
         f"messages {_gib(_nequip_message_bytes(cfg, E))} a layer")
-    if fs.kernel_launches() != before:
-        raise AssertionError(f"[nequip] launched forest kernels: {fs.kernel_launches()}")
+    if kernel_launches() != before:
+        raise AssertionError(f"[nequip] launched ranking kernels: {kernel_launches()}")
     seconds = time.perf_counter() - t_phase
     log(f"[nequip] done in {seconds:.1f} s on {card}")
     m = out["minibatch_lg"]
@@ -4105,11 +4090,10 @@ def phase_parallel_train(card: str) -> dict:
     import torch.distributed as dist
 
     from repro_torch.distributed import single_pod_rules
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.launch.mesh import make_local_mesh
 
     t_phase = time.perf_counter()
-    before = fs.kernel_launches()
+    before = kernel_launches()
     mesh, rules = make_local_mesh(DEVICE), single_pod_rules()
     log(f"[parallel_train] mesh {mesh} (backend {dist.get_backend(mesh.get_group('data'))}), "
         f"single_pod_rules")
@@ -4121,8 +4105,8 @@ def phase_parallel_train(card: str) -> dict:
         count_err = _pt_masked_count(card)
     finally:
         dist.destroy_process_group()
-    if fs.kernel_launches() != before:
-        raise AssertionError(f"[parallel_train] launched forest kernels: {fs.kernel_launches()}")
+    if kernel_launches() != before:
+        raise AssertionError(f"[parallel_train] launched ranking kernels: {kernel_launches()}")
     seconds = time.perf_counter() - t_phase
     log(f"[parallel_train] done in {seconds:.1f} s on {card}")
     over = ", ".join(f"{a} {(t['ms'] / t['plain_ms'] - 1) * 100:+.1f}%" for a, t in times.items())
@@ -4166,15 +4150,14 @@ def _ps_pair(label, cell, params, inputs, mesh, rules, card, placed_inputs=None)
     and ``PS_STEPS`` timed each way; the outputs bit-equal and the forest
     kernel launched as often."""
     from repro_torch.distributed import sharding_rules
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.train import remesh
 
     def run(state, inp, ctx):
-        before = fs.kernel_launches()
+        before = kernel_launches()
         with ctx:
             cell.step(state, inp)
             ms, out = _events_ms(lambda: cell.step(state, inp), PS_STEPS)
-        after = fs.kernel_launches()
+        after = kernel_launches()
         return ms, out, {k: after[k] - before.get(k, 0) for k in after}
 
     plain_ms, want, plain_n = run(params, inputs, contextlib.nullcontext())
@@ -4372,7 +4355,6 @@ def _placement_mode(models, mode: str, card: str) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.serve import placement
     from repro_torch.utils import count_host_transfers
 
@@ -4382,7 +4364,7 @@ def _placement_mode(models, mode: str, card: str) -> dict:
     runs += [(f"data_parallel([cuda:0] x {n})", placement.data_parallel(devices=[DEVICE] * n))
              for n in PLACEMENT_SHARDS]
     services = _placement_services(models, mode, len(runs))
-    launches = dict(NO_LAUNCHES)
+    launches = no_launches()
     want = base = None
     cases, lines = set(), []
     for (label, pl), svc in zip(runs, services):
@@ -4439,7 +4421,6 @@ def _placement_tier() -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import forest_score as fs
     from repro_torch.serve import BucketPolicy, ServingTier, TierConfig, placement
     from repro_torch.utils import count_host_transfers
 
@@ -4538,7 +4519,7 @@ def phase_placement(card: str) -> dict:
 
     t_phase = time.perf_counter()
     models = _models(DEVICE, SENTINELS_2)
-    launches = dict(NO_LAUNCHES)
+    launches = no_launches()
     cases = set()
     for mode in ("fused", "staged"):
         r = _placement_mode(models, mode, card)

@@ -53,6 +53,9 @@ reads it on the device, writes 0 for the padding rows at or past it and
 does no tree work for a document tile wholly past it. Those rows are
 discarded by the scatter, so the result is the ungated launch's. The
 segmented head cannot be gated; it scores every row of its block.
+``CascadeResult.gated_launches`` records which compacted blocks were so
+scored, and ``CascadeResult.trees_traversed`` the cascade's accounting, so
+a caller reads what ran rather than working it out again.
 
 A batch split along its queries into shards (data-parallel serving) keeps
 the one-program batch's overflow: ``survivors_before`` gives a shard, per
@@ -87,7 +90,7 @@ from repro_torch.kernels.ops import (
     forest_score_segments,
     padded_forest,
 )
-from repro_torch.metrics.speedup import speedup_progressive, speedup_vs_full
+from repro_torch.metrics.speedup import speedup_vs_full, trees_traversed_progressive
 from repro_torch.tracing import span
 
 _DEPRECATED_KWARGS_MSG = (
@@ -125,6 +128,12 @@ class CascadeResult:
     survivors: list | None = None  # progressive: each compaction's survivor
     #   count (0-dim tensors) in the order they ran: the dense gate's, the
     #   staged stages', the tail's
+    trees_traversed: torch.Tensor | None = None  # progressive: the trees
+    #   (and classifier trees) the cascade traversed, 0-dim f32; ``speedup``
+    #   is the full ensemble's traversals over it
+    gated_launches: tuple[int, ...] = ()  # progressive: per range launch on
+    #   a compacted block, gated on its count, in launch order, the entry in
+    #   the capacities (and survivor counts) of the stage it compacted
 
 
 @dataclasses.dataclass
@@ -279,16 +288,19 @@ class CascadeRanker:
                 pf, S, flat, scores, alive, overflow, caps[-1], slots, limits[-1],
                 stage=config.n_stages - 1, gated=qe is not None,
             )
+        traversed = trees_traversed_progressive(mask, stage_masks, acct_sentinels, T, acct_costs)
         return CascadeResult(
             scores=scores,
             continue_mask=alive,
-            speedup=speedup_progressive(mask, stage_masks, acct_sentinels, T, acct_costs),
+            speedup=mask.sum() * T / traversed,
             overflow=overflow,
             stage_masks=stage_masks,
             partials=partials,
             mode=config.mode,
             query_exited=exited if qe is not None else None,
             survivors=slots.counts,
+            trees_traversed=traversed,
+            gated_launches=tuple(slots.launched),
         )
 
 
@@ -342,10 +354,13 @@ def _legacy_config(
 class _Slots:
     """The compactions of one call, in the order they run. ``before``: a
     shard's per-compaction survivor counts of the shards ahead of it
-    (``None`` for a whole batch); ``counts``: this call's."""
+    (``None`` for a whole batch); ``counts``: this call's; ``launched``:
+    the stage of each compacted block a gated range launch scored
+    (:func:`_gated_range`)."""
 
     before: Sequence[torch.Tensor] | None
     counts: list = dataclasses.field(default_factory=list)
+    launched: list = dataclasses.field(default_factory=list)
 
     def take(
         self, cont: torch.Tensor, cap: int, limit: int, stage: int
@@ -407,18 +422,33 @@ def _dense_gate(
     )
 
 
-def _scatter_grid(
-    vec: torch.Tensor, gate: _Gate, alive: torch.Tensor, fallback: torch.Tensor
+def _scatter(
+    vec: torch.Tensor, sel: torch.Tensor, n_valid: torch.Tensor, shape: tuple[int, int]
 ) -> torch.Tensor:
-    """Per-row values of the gate's compacted block back onto the ``[Q, D]``
-    grid where ``alive`` (every alive document holds a slot), ``fallback``
-    elsewhere; padding slots go to a discarded extra element."""
-    Q, D = fallback.shape
-    valid = torch.arange(gate.sel.shape[0], device=vec.device) < gate.n_cont
-    idx = torch.where(valid, gate.sel, torch.full_like(gate.sel, Q * D))
-    grid = torch.zeros(Q * D + 1, dtype=torch.float32, device=vec.device)
+    """A compacted block's per-row values on the ``[Q, D]`` grid of
+    ``shape``, 0 where no valid slot lands. Valid slots hold distinct
+    indices, so a plain scatter places each value without atomics; padding
+    slots go to a discarded extra element."""
+    n = shape[0] * shape[1]
+    valid = torch.arange(sel.shape[0], device=sel.device) < n_valid
+    idx = torch.where(valid, sel, torch.full_like(sel, n))
+    grid = torch.zeros(n + 1, dtype=torch.float32, device=vec.device)
     grid.scatter_(0, idx, vec.float())
-    return torch.where(alive, grid[: Q * D].reshape(Q, D), fallback)
+    return grid[:n].reshape(shape)
+
+
+def _gated_range(
+    pf: PaddedForest, flat: torch.Tensor, sel: torch.Tensor, n_valid: torch.Tensor,
+    seg_lo: int, seg_hi: int | None, slots: _Slots, stage: int, count_as: str = "plain",
+) -> torch.Tensor:
+    """One range launch over segments ``[seg_lo, seg_hi)`` on the compacted
+    block ``flat[sel]``, gated on its compaction's count ``n_valid`` (as the
+    one-element int32 the kernel reads); records ``stage``, the compaction's
+    entry in the capacities, in ``slots.launched``."""
+    slots.launched.append(stage)
+    return forest_score_range(
+        pf, flat[sel], seg_lo, seg_hi, count_as=count_as, n_valid=n_valid.to(torch.int32),
+    )
 
 
 def _apply_query_exit(
@@ -434,17 +464,20 @@ def _apply_query_exit(
 
 
 def _head_prefixes(
-    pf: PaddedForest, rows: torch.Tensor, S: int, n_valid: torch.Tensor | None = None,
+    pf: PaddedForest, flat: torch.Tensor, S: int, gate: _Gate | None, slots: _Slots,
 ) -> list[torch.Tensor]:
-    """Prefix scores of ``rows`` at each of the first ``S`` sentinels from
-    one head launch (a plain one for ``S == 1``): ``seg0 + base``, then
-    ``+ seg_k`` left to right. ``n_valid``: the count of a compacted
-    ``rows`` block, which gates the plain launch (the segmented one cannot
-    be gated)."""
-    with span("engine.head", rows=rows.shape[0], trees=pf.boundaries[S - 1]):
+    """Prefix scores at each of the first ``S`` sentinels from one head
+    launch (a plain one for ``S == 1``) on every row of ``flat``, or on the
+    dense gate's block: ``seg0 + base``, then ``+ seg_k`` left to right. On
+    the gate's block the plain launch is gated on its count (the segmented
+    one cannot be)."""
+    rows = flat.shape[0] if gate is None else gate.sel.shape[0]
+    with span("engine.head", rows=rows, trees=pf.boundaries[S - 1]):
+        if S == 1 and gate is not None:
+            return [_gated_range(pf, flat, gate.sel, gate.n_cont, 0, 1, slots, stage=0)]
         if S == 1:
-            return [forest_score_range(pf, rows, 0, 1, n_valid=_as_count(n_valid))]
-        seg = forest_score_segments(pf, rows, n_segments=S)
+            return [forest_score_range(pf, flat, 0, 1)]
+        seg = forest_score_segments(pf, flat if gate is None else flat[gate.sel], n_segments=S)
         acc = seg[:, 0] + pf.base_score
         prefixes = [acc]
         for k in range(1, S):
@@ -470,21 +503,22 @@ def _fused(
     there is one); stage decisions as vector work."""
     Q, D = mask.shape
     S = len(strategies)
+    vecs = _head_prefixes(pf, flat, S, gate, slots)
     if gate is None:
-        vecs = _head_prefixes(pf, flat, S)
         alive = mask
         exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
         overflow = torch.zeros((), dtype=torch.long, device=flat.device)
         scores, grids, stage_masks, k0 = None, [], [], 0
     else:
-        vecs = _head_prefixes(pf, flat[gate.sel], S, gate.n_cont)
         alive, exited, overflow = gate.alive, gate.exited, gate.overflow
         scores, grids, stage_masks, k0 = gate.scores, [gate.scores], [gate.alive], 1
     for k in range(S):
         if gate is None:
             grid = vecs[k].reshape(Q, D)
         else:
-            grid = _scatter_grid(vecs[k], gate, alive, grids[-1])
+            grid = torch.where(
+                alive, _scatter(vecs[k], gate.sel, gate.n_cont, mask.shape), grids[-1]
+            )
         scores = grid if scores is None else torch.where(alive, grid, scores)
         alive = alive & strategies[k](grid, alive, **skw)
         alive, exited = _apply_query_exit(qe, k + k0, grid, alive, exited)
@@ -504,18 +538,16 @@ def _staged(
     rows the fused head scores, so the modes stay bit-exact)."""
     Q, D = mask.shape
     S = len(strategies)
+    seg0 = _head_prefixes(pf, flat, 1, gate, slots)[0]
     if gate is None:
         alive = mask
         exited = torch.zeros(Q, dtype=torch.bool, device=flat.device)
         overflow = torch.zeros((), dtype=torch.long, device=flat.device)
-        with span("engine.head", rows=flat.shape[0], trees=pf.boundaries[0]):
-            prefix = forest_score_range(pf, flat, 0, 1).reshape(Q, D)
+        prefix = seg0.reshape(Q, D)
         prefixes, stage_masks, k0 = [prefix], [], 0
     else:
         alive, exited, overflow = gate.alive, gate.exited, gate.overflow
-        with span("engine.head", rows=gate.sel.shape[0], trees=pf.boundaries[0]):
-            seg0 = forest_score_range(pf, flat[gate.sel], 0, 1, n_valid=_as_count(gate.n_cont))
-        prefix = _scatter_grid(seg0, gate, alive, gate.scores)
+        prefix = torch.where(alive, _scatter(seg0, gate.sel, gate.n_cont, mask.shape), gate.scores)
         prefixes, stage_masks, k0 = [gate.scores, prefix], [alive], 1
     for k in range(S):
         alive = alive & strategies[k](prefix, alive, **skw)
@@ -528,11 +560,9 @@ def _staged(
             alive = alive & within.reshape(Q, D)
             with span("engine.middle", stage=k + 1 + k0, rows=caps[k],
                       trees=pf.boundaries[k + 1] - pf.boundaries[k]):
-                seg_sel = forest_score_range(
-                    pf, flat[sel], k + 1, k + 2, n_valid=_as_count(n_cont)
-                )
+                seg_sel = _gated_range(pf, flat, sel, n_cont, k + 1, k + 2, slots, stage=k + k0)
                 prefix = torch.where(
-                    alive, _scatter_tail(prefix, sel, seg_sel, n_cont), prefix
+                    alive, prefix + _scatter(seg_sel, sel, n_cont, mask.shape), prefix
                 )
             prefixes.append(prefix)
         stage_masks.append(alive)
@@ -550,17 +580,10 @@ def _final_tail(
     reference's gated tail, which may find no survivor at all."""
     with span("engine.tail", rows=cap, trees=pf.boundaries[-1] - pf.boundaries[S - 1]):
         sel, n_cont, _, over = slots.take(alive.reshape(-1), cap, limit, stage=stage)
-        tail_sel = forest_score_range(
-            pf, flat[sel], seg_lo=S, count_as="gated" if gated else "plain",
-            n_valid=_as_count(n_cont),
+        tail_sel = _gated_range(
+            pf, flat, sel, n_cont, S, None, slots, stage, count_as="gated" if gated else "plain",
         )
-        scores = _scatter_tail(scores, sel, tail_sel, n_cont)
-        return scores, overflow + over
-
-
-def _as_count(n: torch.Tensor | None) -> torch.Tensor | None:
-    """A compaction's count as the one-element int32 the kernel reads."""
-    return None if n is None else n.to(torch.int32)
+        return scores + _scatter(tail_sel, sel, n_cont, scores.shape), overflow + over
 
 
 def _compacted_tail(
@@ -575,24 +598,5 @@ def _compacted_tail(
     Q, D, F = X.shape
     sel, n_cont = COMPACTORS[compaction](cont.reshape(Q * D), capacity)
     tail_sel = forest_score(tail, X.reshape(Q * D, F)[sel])
-    return _scatter_tail(partial, sel, tail_sel, n_cont), n_cont
+    return partial + _scatter(tail_sel, sel, n_cont, partial.shape), n_cont
 
-
-def _scatter_tail(
-    scores: torch.Tensor,
-    sel: torch.Tensor,
-    tail_sel: torch.Tensor,
-    n_cont: torch.Tensor,
-) -> torch.Tensor:
-    """Add the valid compacted tail scores back onto the ``[Q, D]`` grid.
-
-    Valid slots hold distinct indices, so a plain scatter (padding slots
-    sent to a discarded extra element) places each sum without atomics;
-    every other document gets ``+ 0.0``, as in the reference.
-    """
-    Q, D = scores.shape
-    valid = torch.arange(sel.shape[0], device=sel.device) < n_cont
-    idx = torch.where(valid, sel, torch.full_like(sel, Q * D))
-    deltas = torch.zeros(Q * D + 1, dtype=torch.float32, device=scores.device)
-    deltas.scatter_(0, idx, tail_sel.float())
-    return scores + deltas[: Q * D].reshape(Q, D)

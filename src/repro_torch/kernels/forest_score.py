@@ -42,15 +42,18 @@ feature affects only the nodes that test it. Masks are int64 bit patterns
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
-from pathlib import Path
 
 import torch
 
 from repro_torch import tracing
 from repro_torch.kernels import build
+from repro_torch.kernels.build import (  # noqa: F401 -- set_build_dir: kept importable here
+    FIRST_TOUCHES,
+    KERNEL_LAUNCHES,
+    on_device,
+    set_build_dir,
+)
 from repro_torch.typecheck import Tensor
 
 ALL_ONES = -1
@@ -65,29 +68,8 @@ NODE_BYTES = 16           # one packed node record {feature, threshold, mask}
 # tuning.
 GRID_PLAN = (0, 0, 0)
 
-# Launches of each CUDA kernel, bumped by its wrapper where it launches the
-# kernel and nowhere else (the plain CPU path does not count).
-KERNEL_LAUNCHES = {"forest_score": 0, "forest_score_segments": 0}
-
-# First-touch costs that would land on a request if warmup did not pay them
-# first, counted where they happen: loads of the kernel library, growths of
-# the per-stream scratch, the library's shared-memory limit asked for a new
-# table shape, and padded_forest cache misses (kernels.ops). The launcher's
-# plans are counted in the library (forest_score_plan_count); the
-# shared-memory opt-in is raised with a kernel's first plan or limit query
-# on a device, so these counts cover it. ``dense`` counts the dense scorer's
-# first run per (device, stream, row count) (models.dense_scorer). See
-# first_touches().
-FIRST_TOUCHES = {
-    "library": 0, "scratch": 0, "max_features": 0, "padded_forest": 0, "dense": 0,
-}
-
 # Bound on the [B, trees, N] working set of one step of the plain version.
 _PLAIN_CHUNK_ELEMS = 1 << 22
-
-_LIB: ctypes.CDLL | None = None
-_LIB_PATH = None
-_LIB_LOCK = threading.Lock()
 
 # Scratch of the kernels' last-CTA reduction, per (device, stream), grown
 # as needed: the per-block partial sums (f32) and the arrival counters
@@ -99,32 +81,21 @@ _SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 _MAX_FEATURES: dict[tuple[int, int, int, int], int] = {}
 
 
-def reset_kernel_launches() -> None:
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
-
-
-def kernel_launches() -> dict[str, int]:
-    return dict(KERNEL_LAUNCHES)
-
-
 def first_touches() -> dict[str, int]:
-    """First-touch counts since the process started: :data:`FIRST_TOUCHES`
-    and ``plans``, the launch plans the library has made (0 before it is
-    loaded). Serving a warmed shape moves none of them."""
-    counts = dict(FIRST_TOUCHES)
-    with _LIB_LOCK:
-        counts["plans"] = 0 if _LIB is None else _LIB.forest_score_plan_count()
-    return counts
+    """First-touch counts since the process started:
+    :data:`repro_torch.kernels.build.FIRST_TOUCHES` and ``plans``, the
+    launch plans the library has made (0 before it is loaded). Serving a
+    warmed shape moves none of them."""
+    lib = build.loaded("forest_score")
+    return {**FIRST_TOUCHES, "plans": 0 if lib is None else lib.forest_score_plan_count()}
 
 
 def _next_pow2(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
 
-def bind_library(path: str | Path) -> ctypes.CDLL:
-    """Load a built kernel library and declare its C functions' types."""
-    lib = ctypes.CDLL(str(path))
+def _bind(lib: build.Library) -> None:
+    """Declare the forest library's C functions' types."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.forest_score_range.argtypes = [
         p, i, i, p, p, i, i, i, i, i, i, p, p, p, p, i, i, i, p,
@@ -140,33 +111,11 @@ def bind_library(path: str | Path) -> ctypes.CDLL:
         lib.forest_score_max_features, lib.forest_score_plan_count,
     ):
         fn.restype = i
-    return lib
 
 
-def library() -> ctypes.CDLL:
-    """The built kernel library (compiled at first use, then cached)."""
-    global _LIB, _LIB_PATH
-    with _LIB_LOCK:
-        if _LIB is None:
-            path, _ = build.build("forest_score")
-            _LIB = bind_library(path)
-            _LIB_PATH = path
-            FIRST_TOUCHES["library"] += 1
-        return _LIB
-
-
-def set_build_dir(path: str | Path) -> None:
-    """Build (or reuse) the kernel library under ``path`` from now on.
-    Raises ``RuntimeError`` once the library is loaded from another
-    directory: a process holds one copy of the kernels."""
-    path = Path(path).resolve()
-    with _LIB_LOCK:
-        if _LIB is not None and _LIB_PATH.parent != path:
-            raise RuntimeError(
-                f"repro_torch: the kernel library is already loaded from "
-                f"{_LIB_PATH.parent}; set the build directory before the first build"
-            )
-        build.BUILD_DIR = path
+def library() -> build.Library:
+    """The forest kernel library (compiled at first use, then cached)."""
+    return build.load("forest_score", _bind)
 
 
 def pack_nodes(
@@ -414,13 +363,6 @@ def _check(
         )
 
 
-def _on_device(x: torch.Tensor) -> contextlib.AbstractContextManager:
-    """Make ``x``'s card the current one for a launch (a no-op when it is)."""
-    if x.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(x.device)
-
-
 def _cuda_operands(
     x: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
     mask: torch.Tensor, leaf_value: torch.Tensor,
@@ -540,7 +482,7 @@ def forest_score_kernel(
         )
     B, F = x.shape
     N, L = feature.shape[1], leaf_value.shape[1]
-    with _on_device(x):
+    with on_device(x):
         check_cuda_shapes(F, N, L, block_t, device=x.device.index)
         out = torch.empty(B, dtype=torch.float32, device=x.device)
         if B == 0:
@@ -598,7 +540,7 @@ def forest_score_segments_kernel(
     B, F = x.shape
     S = len(starts)
     N, L = feature.shape[1], leaf_value.shape[1]
-    with _on_device(x):
+    with on_device(x):
         check_cuda_shapes(F, N, L, block_t, S, device=x.device.index)
         out = torch.empty((B, S), dtype=torch.float32, device=x.device)
         if B == 0:

@@ -22,7 +22,7 @@ The reference counts per *trace*; this eager port counts per *call*, so
 one cascade step's run moves the counters by what one reference trace
 stages (fused = 1 segmented + ≤1 plain). These counters move on the CPU
 path too; the CUDA launches themselves are counted per kernel in
-:data:`repro_torch.kernels.forest_score.KERNEL_LAUNCHES`.
+:data:`repro_torch.kernels.build.KERNEL_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -33,9 +33,9 @@ import typing
 
 import torch
 
+from repro_torch.kernels.build import FIRST_TOUCHES
 from repro_torch.kernels.forest_score import (
     ALL_ONES,
-    FIRST_TOUCHES,
     _next_pow2,
     forest_score_kernel,
     forest_score_segments_kernel,

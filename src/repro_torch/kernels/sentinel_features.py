@@ -19,48 +19,26 @@ it for a CUDA tensor and runs the plain version otherwise.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.forest_score import FIRST_TOUCHES, _on_device
+from repro_torch.kernels.build import KERNEL_LAUNCHES, on_device
 from repro_torch.typecheck import Tensor
 
 N_AUG = 4  # features the kernel appends (core.features.N_AUG)
 
-# Launches of the kernel, bumped by the wrapper where it launches and
-# nowhere else.
-KERNEL_LAUNCHES = {"sentinel_features": 0}
 
-_LIB: ctypes.CDLL | None = None
-_LIB_LOCK = threading.Lock()
-
-
-def reset_kernel_launches() -> None:
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
+def _bind(lib: build.Library) -> None:
+    """Declare the library's C function's types."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sentinel_features.argtypes = [p, p, p, p, i, i, i, p]
+    lib.sentinel_features.restype = i
 
 
-def kernel_launches() -> dict[str, int]:
-    return dict(KERNEL_LAUNCHES)
-
-
-def library() -> ctypes.CDLL:
-    """The built kernel library (compiled at first use into
-    :data:`repro_torch.kernels.build.BUILD_DIR`, then cached); a load counts
-    as a first touch (``forest_score.first_touches()["library"]``)."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            path, _ = build.build("sentinel_features")
-            lib = ctypes.CDLL(str(path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.sentinel_features.argtypes = [p, p, p, p, i, i, i, p]
-            lib.sentinel_features.restype = i
-            _LIB = lib
-            FIRST_TOUCHES["library"] += 1
-        return _LIB
+def library() -> build.Library:
+    """The kernel library (compiled at first use, then cached)."""
+    return build.load("sentinel_features", _bind)
 
 
 def _expect(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple[int, ...]) -> None:
@@ -110,7 +88,7 @@ def sentinel_features_kernel(
     out = torch.empty((Q, D, F + N_AUG), dtype=torch.float32, device=X.device)
     if Q == 0 or D == 0:
         return out
-    with _on_device(X):
+    with on_device(X):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = library().sentinel_features(
             X.data_ptr(), partial.data_ptr(), mask.data_ptr(), out.data_ptr(),

@@ -39,7 +39,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from repro_torch.kernels.forest_score import FIRST_TOUCHES
+from repro_torch.kernels.build import FIRST_TOUCHES
 from repro_torch.kernels.ops import env_int
 from repro_torch.models.recsys import dot_interact
 from repro_torch.utils import resolve_device

@@ -70,17 +70,14 @@ from collections.abc import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.cascade import CascadeRanker, bucket_capacity
+from repro_torch.core.cascade import CascadeRanker, CascadeResult, bucket_capacity
 from repro_torch.core.features import rank_plan
 from repro_torch.core.lear import LearClassifier, augment_features
 from repro_torch.core.stage import DenseStage, EngineConfig, TreeStage
 from repro_torch.core.strategies import QueryExitConfig, dense_keep_fraction
 from repro_torch.forest.ensemble import TreeEnsemble
 from repro_torch.kernels.ops import ENGINE_BLOCK_B
-from repro_torch.metrics.speedup import (
-    progressive_cost_model,
-    trees_traversed_progressive,
-)
+from repro_torch.metrics.speedup import progressive_cost_model
 from repro_torch.serve.calibration import calibrate_launch_overhead_trees
 from repro_torch.serve.placement import ServePlacement, single_device
 from repro_torch.tracing import span
@@ -195,9 +192,9 @@ class ServiceStats:
     # classifier ranks its [Q, D] grid, D² pairs a query (the card's fused
     # kernel, or the plain direct compare), or the padded D² of the plain
     # blocked compare (core.features.rank_plan). Host arithmetic on shapes,
-    # counted where the stage runs. On the card the count is nominal, a
-    # constant of the grid: the fused kernel skips masked rows, so it
-    # compares about (real documents) x D pairs.
+    # counted once a batch with the other counters. On the card the count
+    # is nominal, a constant of the grid: the fused kernel skips masked
+    # rows, so it compares about (real documents) x D pairs.
     rank_pairs: int = 0
 
     @property
@@ -314,15 +311,6 @@ class RankingService:
         # Stage tuples per (strategy closures, dense stage): the same
         # objects every batch of a configuration (and of each rung).
         self._stages_cache: dict[tuple, tuple] = {}
-        # Accounting: a hybrid service's dense gate is a zero-sentinel stage
-        # charging cost_trees per candidate.
-        tree_costs = tuple(float(c.n_trees) for c in stages)
-        if self.dense_stage is not None:
-            self._acct_sentinels = (0, *self.sentinels)
-            self._acct_classifier_trees = (float(self.dense_stage.cost_trees), *tree_costs)
-        else:
-            self._acct_sentinels = self.sentinels
-            self._acct_classifier_trees = tree_costs
         self.n_stages = len(self.sentinels) + (self.dense_stage is not None)
         # The degradation ladder: None until install_rungs; level 0 is the
         # baseline configuration.
@@ -381,12 +369,10 @@ class RankingService:
         def strategy(partial, mask, features=None):
             clf = self._replica(partial.device).classifiers[k]
             stage = k + (self.dense_stage is not None)   # its entry in the capacities
-            Q, D = partial.shape
-            method, pairs, _ = rank_plan(D, device=partial.device)
+            method = rank_plan(partial.shape[1], device=partial.device)[0]
             fused = {"method": method} if method == "fused" else {}
             with span("engine.features", stage=stage, **fused):
                 aug = augment_features(features, partial, mask)
-            self.stats.rank_pairs += Q * pairs
             th = self.threshold if threshold is None else threshold
             with span("engine.classifier", stage=stage):
                 return clf.continue_mask(aug, mask, th, use_kernel=self.use_kernel_classifier)
@@ -559,15 +545,17 @@ class RankingService:
         k = min(self.top_k, D)
         parts, before = [], None
         for i, (Xs, ms) in enumerate(shards):
-            top_s, scores_s, stats_s, counts = self._rank_shard(
+            top_s, scores_s, stats_s, result = self._rank_shard(
                 Xs, ms, mode, capacities, k, before
             )
             parts.append((top_s, scores_s, stats_s))
+            if i == 0:   # every shard launches the same: count the batch once
+                gated = result.gated_launches
             if i + 1 < len(shards):   # the next shard's survivors_before
                 nxt = shards[i + 1][0].device
                 before = [
                     _moved(c if before is None else before[j] + c, nxt)
-                    for j, c in enumerate(counts)
+                    for j, c in enumerate(result.survivors)
                 ]
         if len(parts) == 1:
             top_idx, scores, stats = parts[0]
@@ -586,13 +574,16 @@ class RankingService:
             ))
             sp.set(bytes=packed.nbytes)
         with span("service.unpack"):
-            return self._unpack(packed, Q, D, k, mode, capacities)
+            return self._unpack(packed, Q, D, k, mode, capacities, gated)
 
     def _unpack(
         self, packed: np.ndarray, Q: int, D: int, k: int, mode: str, capacities: list[int],
+        gated: tuple[int, ...],
     ) -> tuple[np.ndarray, np.ndarray]:
         """The packed read as (top-k, scores), with the bucket's adaptive
-        state and the service's stats moved by what it counted."""
+        state and the service's stats moved by what it counted. ``gated``:
+        the cascade's gated launches (``CascadeResult.gated_launches``), as
+        entries of ``capacities``."""
         T = self.ensemble.n_trees
         top_idx = packed[: Q * k].astype(np.int64).reshape(Q, k)
         scores = packed[Q * k: Q * k + Q * D].astype(np.float32).reshape(Q, D)
@@ -630,30 +621,18 @@ class RankingService:
         s.queries_exited += int(q_exited)
         s.trees_traversed += float(traversed)
         s.trees_full_equiv += int(batch_docs) * T
-        for j in self._compacted_launches(mode):
+        for j in gated:
             s.rows_compacted += capacities[j]
             s.rows_gated += max(0, capacities[j] - int(survivors[j]))
+        s.rank_pairs += len(self.sentinels) * Q * rank_plan(D, device=self.device)[1]
         return top_idx, scores
-
-    def _compacted_launches(self, mode: str) -> list[int]:
-        """The entries of the capacities (and of the per-stage survivor
-        counts) whose compacted block a range launch scores, gated on that
-        stage's count: a hybrid's head on the dense gate's block where it is
-        a plain launch, the staged middle segments, the tail."""
-        S, dense = len(self.sentinels), int(self.dense_stage is not None)
-        entries = [0] if dense and (mode == "staged" or S == 1) else []
-        if mode == "staged":
-            entries += [dense + k for k in range(S - 1)]
-        if self.sentinels[-1] < self.ensemble.n_trees:
-            entries.append(self.n_stages - 1)
-        return entries
 
     def _rank_shard(
         self, X: torch.Tensor, mask: torch.Tensor, mode: str, capacities: Sequence[int],
         k: int, before: list[torch.Tensor] | None,
-    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, CascadeResult]:
         """The cascade on one shard, on its device: (top-k ``[Qs, k]``,
-        scores ``[Qs, D]``, the stats vector, the compaction counts)."""
+        scores ``[Qs, D]``, the stats vector, the cascade's result)."""
         dev = X.device
         config = EngineConfig(
             stages=self._engine_stages(dev),
@@ -673,15 +652,12 @@ class RankingService:
             exited = result.query_exited
             stats = torch.stack([t.double() for t in (
                 *(m.sum() for m in result.stage_masks),
-                trees_traversed_progressive(
-                    mask, result.stage_masks, self._acct_sentinels, self.ensemble.n_trees,
-                    list(self._acct_classifier_trees),
-                ),
+                result.trees_traversed,
                 result.overflow,
                 mask.sum(),
                 exited.sum() if exited is not None else torch.zeros((), device=dev),
             )])
-        return top_idx, result.scores, stats, result.survivors
+        return top_idx, result.scores, stats, result
 
 
 @dataclasses.dataclass

@@ -6,7 +6,7 @@ its first-touch costs are different ones, each of which would otherwise
 land on a request (:func:`repro_torch.kernels.forest_score.first_touches`
 counts them):
 
-- the ``nvcc`` build and load of the kernel library;
+- the ``nvcc`` build and load of the kernel libraries;
 - the ``padded_forest`` buffers and packed tables of every boundary set
   the rungs use;
 - the launcher's plan for every ``(B, F, …)`` the capacities produce, and
@@ -24,7 +24,7 @@ it, stats and EMAs are wiped; the peaks stay. A warmed bucket served at
 any installed rung then adds no first touch.
 
 :func:`enable_persistent_cache` is the counterpart of JAX's persistent
-compilation cache: the kernel library is built once per source hash into a
+compilation cache: the kernel libraries are built once per source hash into a
 directory that outlives the process.
 """
 
@@ -39,7 +39,6 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch.kernels import build
-from repro_torch.kernels.forest_score import set_build_dir
 from repro_torch.serve.ranking_service import RankingService, ServiceStats
 
 if typing.TYPE_CHECKING:  # annotation-only: avoids a serve-package cycle
@@ -49,12 +48,12 @@ DEFAULT_WARMUP_BUCKETS = ((1, 64), (4, 64), (8, 64))
 
 
 def enable_persistent_cache(cache_dir: str | None = None) -> str:
-    """Build and find the kernel library under ``cache_dir`` (created if
+    """Build and find the kernel libraries under ``cache_dir`` (created if
     needed; default ``build/repro_torch/`` in the checkout) and return the
     directory. Call it before the first build: it raises ``RuntimeError``
-    once the library is loaded from another directory."""
+    once a library is loaded from another directory."""
     path = Path(cache_dir) if cache_dir is not None else build.DEFAULT_BUILD_DIR
-    set_build_dir(path)
+    build.set_build_dir(path)
     path.mkdir(parents=True, exist_ok=True)
     return str(path)
 

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.forest.ensemble import random_ensemble  # noqa: E402
 from repro_torch.forest.scoring import score_bitvector  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import forest_score as fs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from torch_parity import check_tree_tie_rule  # noqa: E402
@@ -102,10 +103,11 @@ def test_nonfinite_features_follow_the_oracle(dev):
 def test_launch_counter_counts_kernel_launches_only(dev):
     ens = random_ensemble(1, 20, 4, 8, device=dev)
     x = _x(np.random.default_rng(1), 40, 8, dev)
-    fs.reset_kernel_launches()
+    build.reset_kernel_launches()
     ops.forest_score(ens, x)
     ops.forest_score(ens.to("cpu"), x.cpu())  # plain path: not a launch
-    assert fs.kernel_launches() == {"forest_score": 1, "forest_score_segments": 0}
+    assert build.kernel_launches() == {"forest_score": 1, "forest_score_segments": 0,
+                                       "sentinel_features": 0}
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -381,12 +383,13 @@ def test_gated_launch_counts_once_even_with_no_survivors(dev):
     pf, x, _ = _tail(dev, 64)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     ops.reset_launch_counts()
-    fs.reset_kernel_launches()
+    build.reset_kernel_launches()
     out = ops.forest_score_range(pf, x, seg_lo=1, count_as="gated", n_valid=zero)
     torch.cuda.synchronize()
     assert not out.any()
     assert ops.launch_counts() == {"plain": 0, "segmented": 0, "gated": 1}
-    assert fs.kernel_launches() == {"forest_score": 1, "forest_score_segments": 0}
+    assert build.kernel_launches() == {"forest_score": 1, "forest_score_segments": 0,
+                                       "sentinel_features": 0}
 
 
 def test_gated_launch_on_a_side_stream(dev):
@@ -735,10 +738,10 @@ def test_forest_cell_kernel_route_equals_plain_route(dev, extra):
     cell = make_cell(cfg, ShapeSpec("q", "serve", batch=40))
     params = cell.init_state(5, device=dev)
     inputs = as_tensors(synthesize_inputs(cell, seed=2), dev)
-    fs.reset_kernel_launches()
+    build.reset_kernel_launches()
     scores, cont = cell.step(params, inputs)
     torch.cuda.synchronize()
-    assert fs.kernel_launches()["forest_score"] == (4 if "sentinel2" in extra else 3)
+    assert build.kernel_launches()["forest_score"] == (4 if "sentinel2" in extra else 3)
 
     def plain(x, feature, threshold, mask, leaf, *, leaf_gather, packed, **kw):
         return fs.forest_score_plain(x, feature, threshold, mask, leaf, **kw)
@@ -1176,11 +1179,11 @@ def test_rank_batch_reads_once_under_the_sync_debug_mode(dev, sentinels, mode, q
     for X, mask in batches[:2]:
         svc.rank_batch(X, mask)
         cpu.rank_batch(X, mask)
-    fs.reset_kernel_launches()
+    build.reset_kernel_launches()
     with count_host_transfers() as counts:
         outs = [svc.rank_batch(X, mask) for X, mask in batches[2:]]
     assert (counts.explicit_gets, counts.implicit_syncs) == (3, 0), counts
-    assert sum(fs.kernel_launches().values()) > 0
+    assert sum(build.kernel_launches().values()) > 0
     for (X, mask), (top, scores) in zip(batches[2:], outs):
         _, want = cpu.rank_batch(X, mask)
         np.testing.assert_allclose(scores, want, rtol=1e-5, atol=1e-5)
@@ -1245,14 +1248,14 @@ def test_data_parallel_on_one_card_is_bit_equal(dev, mode, gate):
                 np.arange(64)[None] < rng.integers(16, 65, size=(8, 1))) for _ in range(4)]
     outs = [single.rank_batch(X, mask) for X, mask in batches[:2]]
     got = [split.rank_batch(X, mask, placement=pl) for X, mask in batches[:2]]
-    fs.reset_kernel_launches()
+    build.reset_kernel_launches()
     outs += [single.rank_batch(X, mask) for X, mask in batches[2:]]
-    one = dict(fs.kernel_launches())
-    fs.reset_kernel_launches()
+    one = dict(build.kernel_launches())
+    build.reset_kernel_launches()
     with count_host_transfers() as counts:
         got += [split.rank_batch(X, mask, placement=pl) for X, mask in batches[2:]]
     assert (counts.explicit_gets, counts.implicit_syncs) == (2, 0), counts
-    assert dict(fs.kernel_launches()) == {k: 2 * n for k, n in one.items()} and sum(one.values())
+    assert dict(build.kernel_launches()) == {k: 2 * n for k, n in one.items()} and sum(one.values())
     for (t_s, s_s), (t_p, s_p) in zip(outs, got):
         np.testing.assert_array_equal(s_p, s_s)
         np.testing.assert_array_equal(t_p, t_s)

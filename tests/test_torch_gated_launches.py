@@ -164,6 +164,8 @@ def test_every_compacted_launch_gets_its_compactions_count(monkeypatch, case):
         features=torch.as_tensor(X),
     )
     assert spy.gated() == spy.compacted() and spy.gated()
+    # The result records each gated launch's stage, as the spy saw them.
+    assert got.gated_launches == tuple(st for st, *_, launched, _ in spy.takes if launched)
     # Uncompacted launches (the head on every row, the classifiers) are ungated.
     assert all(rows == Q * D for rows, n in spy.launches if n is None)
     # The tail's count is the last stage's survivors, before its capacity.

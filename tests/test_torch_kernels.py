@@ -24,6 +24,7 @@ from repro.forest import ensemble as ref_ensemble  # noqa: E402
 from repro.forest import scoring as ref_scoring  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro_torch.forest.scoring import score_bitvector, score_numpy_oracle  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import forest_score as fs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from torch_parity import mask_lanes, to_port  # noqa: E402
@@ -162,12 +163,14 @@ def test_dispatch_counters_and_cpu_path_is_not_a_launch():
     pf = ops.padded_forest(port, boundaries=(10, 25, 40))
     x = torch.randn(20, 6, generator=torch.Generator().manual_seed(0))
     ops.reset_launch_counts()
-    fs.reset_kernel_launches()
+    build.reset_kernel_launches()
     ops.forest_score_range(pf, x, 1)
     ops.forest_score_segments(pf, x, 2)
     ops.forest_score_range(pf, x, 2, count_as="gated")
     assert ops.launch_counts() == {"plain": 1, "segmented": 1, "gated": 1}
-    assert fs.kernel_launches() == {"forest_score": 0, "forest_score_segments": 0}
+    assert build.kernel_launches() == {
+        "forest_score": 0, "forest_score_segments": 0, "sentinel_features": 0,
+    }
 
 
 def test_padded_cache_is_lru_bounded():

@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import features  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import sentinel_features as sf  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -58,11 +59,12 @@ def _hold(X, partial, mask):
     """The kernel equals the plain path bit for bit; its ranks equal both
     plain compares' on the real documents."""
     F = X.shape[-1]
-    sf.reset_kernel_launches()
+    build.reset_kernel_launches()
     got = sf.sentinel_features_kernel(X, partial, mask)
     want = features.augment_features_plain(X, partial, mask)
     torch.cuda.synchronize()
-    assert sf.kernel_launches() == {"sentinel_features": 1}
+    assert build.kernel_launches() == {"forest_score": 0, "forest_score_segments": 0,
+                                       "sentinel_features": 1}
     assert got.shape == want.shape
     assert torch.equal(_bits(got), _bits(want)), (got - want).abs().max()
     direct = features.query_ranks_direct(partial, mask)
@@ -113,12 +115,13 @@ def test_augment_features_launches_the_kernel_and_marks_its_span(dev):
     cols = torch.randn(5, 40, 2, device=dev)
     part_view = cols[..., 0]                  # a strided partial is made contiguous
     part_view.copy_(partial)
-    sf.reset_kernel_launches()
+    build.reset_kernel_launches()
     with tracing.recording():
         with tracing.span("engine.features", stage=0):
             got = features.augment_features(X, part_view, mask)
     torch.cuda.synchronize()
-    assert sf.kernel_launches() == {"sentinel_features": 1}
+    assert build.kernel_launches() == {"forest_score": 0, "forest_score_segments": 0,
+                                       "sentinel_features": 1}
     assert torch.equal(_bits(got), _bits(features.augment_features_plain(X, partial, mask)))
     (rec,) = [r for r in tracing.drain().records if r.name == "engine.features"]
     assert rec.attrs == {"stage": 0}
@@ -146,11 +149,11 @@ def _serve_recorded(dev, sentinels, mode, X, mask, T, depth):
 
     F = X.shape[-1]
     svc = _service(dev, sentinels, mode, F, T, depth)
-    sf.reset_kernel_launches()
+    build.reset_kernel_launches()
     with tracing.recording():
         top, scores = svc.rank_batch(X, mask)
     records = tracing.drain().records
-    assert sf.kernel_launches() == {"sentinel_features": len(sentinels)}
+    assert build.kernel_launches()["sentinel_features"] == len(sentinels)
 
     def plain(X, partial, mask):
         return features.augment_features_plain(X, partial, mask)

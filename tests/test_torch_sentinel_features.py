@@ -11,6 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import features  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import forest_score as fs  # noqa: E402
 from repro_torch.kernels import sentinel_features as sf  # noqa: E402
 
 
@@ -134,9 +136,9 @@ def test_the_cpu_path_stays_plain(D, F, monkeypatch):
     mask[0] = False                      # an all-masked query
     mask[1, 0] = True
     partial[1, 0] = features.NEG         # a real document at exactly NEG
-    before = sf.kernel_launches()
+    before = build.kernel_launches()
     got = features.augment_features(X, partial, mask)
-    assert sf.kernel_launches() == before == {"sentinel_features": before["sentinel_features"]}
+    assert build.kernel_launches() == before
     assert torch.equal(got, features.augment_features_plain(X, partial, mask))
     assert torch.equal(got, _plain_by_hand(X, partial, mask))
     assert torch.equal(got[0], torch.cat([X[0], torch.zeros(D, 4)], dim=-1))
@@ -149,7 +151,14 @@ def test_the_meta_path_shapes_through_the_plain_version():
 
 
 def test_launch_counter_resets(monkeypatch):
-    monkeypatch.setitem(sf.KERNEL_LAUNCHES, "sentinel_features", 3)
-    assert sf.kernel_launches() == {"sentinel_features": 3}
-    sf.reset_kernel_launches()
-    assert sf.kernel_launches() == {"sentinel_features": 0}
+    """One registry counts every kernel library's launches."""
+    monkeypatch.setitem(build.KERNEL_LAUNCHES, "sentinel_features", 3)
+    monkeypatch.setitem(build.KERNEL_LAUNCHES, "forest_score", 2)
+    assert build.kernel_launches() == {
+        "forest_score": 2, "forest_score_segments": 0, "sentinel_features": 3,
+    }
+    assert sf.KERNEL_LAUNCHES is fs.KERNEL_LAUNCHES is build.KERNEL_LAUNCHES
+    build.reset_kernel_launches()
+    assert build.kernel_launches() == {
+        "forest_score": 0, "forest_score_segments": 0, "sentinel_features": 0,
+    }

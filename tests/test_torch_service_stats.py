@@ -118,6 +118,35 @@ def test_gated_rows_count_what_the_launches_skipped(monkeypatch, sentinels, mode
         assert 0 < s.rows_gated < s.rows_compacted
 
 
+@pytest.mark.parametrize("mode,dense,shards", [
+    ("fused", False, 1), ("staged", False, 1), ("fused", True, 1), ("staged", True, 1),
+    ("staged", False, 2),
+])
+def test_trees_traversed_are_reckoned_once_a_shard(monkeypatch, mode, dense, shards):
+    """The cascade's accounting runs once a shard a batch, and the service
+    packs that result: it reckons no traversal of its own."""
+    from repro_torch.core import cascade
+    from repro_torch.metrics import speedup
+    from repro_torch.serve import ranking_service
+
+    calls, real = [], speedup.trees_traversed_progressive
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    for module in (speedup, cascade, ranking_service):
+        if hasattr(module, "trees_traversed_progressive"):
+            monkeypatch.setattr(module, "trees_traversed_progressive", spy)
+    svc = _service((8, 28), mode, dense)
+    pl = placement.data_parallel(devices=["cpu"] * shards) if shards > 1 else None
+    batches = list(_batches(7, 3, Q=4 * shards))
+    for X, mask in batches:
+        svc.rank_batch(X, mask, placement=pl)
+    assert len(calls) == shards * len(batches)
+    assert svc.stats.trees_traversed > 0
+
+
 def test_two_shards_count_the_same_as_one_batch():
     single, split = _service((8, 28), "staged"), _service((8, 28), "staged")
     pl = placement.data_parallel(devices=["cpu"] * 2)

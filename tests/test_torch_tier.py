@@ -349,16 +349,18 @@ def test_single_device_placement_is_the_plain_path():
         np.testing.assert_array_equal(t_a, t_c)
 
 
-def test_enable_persistent_cache_points_the_build_at_the_dir(tmp_path, monkeypatch):
+@pytest.mark.parametrize("library", ["forest_score", "sentinel_features"])
+def test_enable_persistent_cache_points_the_build_at_the_dir(tmp_path, monkeypatch, library):
     monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)  # restored after
     d = tmp_path / "kernels"
     assert enable_persistent_cache(str(d)) == str(d)
     assert d.is_dir() and build.BUILD_DIR == d.resolve()
-    assert build.library_path("forest_score").parent == d.resolve()
+    assert build.library_path(library).parent == d.resolve()
     assert enable_persistent_cache() == str(build.DEFAULT_BUILD_DIR)
-    # Once a library is loaded, only its own directory is accepted.
-    monkeypatch.setattr(fs, "_LIB", object())
-    monkeypatch.setattr(fs, "_LIB_PATH", d.resolve() / "libforest_score-x.so")
+    # Once either library is loaded, only its own directory is accepted.
+    monkeypatch.setattr(build, "_LOADED", {library: (object(), d.resolve() / f"lib{library}-x.so")})
     assert enable_persistent_cache(str(d)) == str(d)
-    with pytest.raises(RuntimeError, match="already loaded"):
+    with pytest.raises(RuntimeError, match=f"{library} kernel library is already loaded"):
         enable_persistent_cache(str(tmp_path / "elsewhere"))
+    with pytest.raises(RuntimeError, match="already loaded"):
+        fs.set_build_dir(tmp_path / "elsewhere")
