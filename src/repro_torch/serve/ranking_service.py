@@ -18,11 +18,13 @@ early exit and returns the top-k:
   launch overhead on the service's device at start-up);
 - compaction capacities from a running per-stage survivor peak with
   headroom, never below the cold-start estimate, in powers of two;
-- ONE device→host copy per batch: the response (top-k, scores) and the
-  stats (per-stage survivors, trees traversed, overflow, doc count, exited
-  queries) are packed into one tensor and read together through
-  :func:`repro_torch.utils.device_get` (``count_host_transfers`` holds
-  the tests to it);
+- ONE device→host copy per batch: the stats (per-stage survivors, trees
+  traversed, overflow, doc count, exited queries; float64), the top-k
+  (int64) and the scores (float32) are packed, each in its own type, as
+  the bytes of one tensor and read together through
+  :func:`repro_torch.utils.device_get`, into page-locked memory on the
+  card; the response is numpy views of that read, with no cast
+  (``count_host_transfers`` holds the tests to the one read);
 - overflowing survivors keep their sentinel scores (bounded quality loss,
   never a crash), and the stats record them;
 - query-level exit (``ServiceConfig.query_exit``) with the device-gated
@@ -81,7 +83,7 @@ from repro_torch.metrics.speedup import progressive_cost_model
 from repro_torch.serve.calibration import calibrate_launch_overhead_trees
 from repro_torch.serve.placement import ServePlacement, single_device
 from repro_torch.tracing import span
-from repro_torch.utils import device_get, resolve_device
+from repro_torch.utils import device_get, host_pinned, resolve_device
 
 if typing.TYPE_CHECKING:  # annotation-only: avoids a serve-package cycle
     from repro_torch.serve.degradation import ExitRung
@@ -196,6 +198,9 @@ class ServiceStats:
     # is nominal, a constant of the grid: the fused kernel skips masked
     # rows, so it compares about (real documents) x D pairs.
     rank_pairs: int = 0
+    # Batches whose one host read landed in page-locked memory (every batch
+    # on the card, none on the CPU).
+    reads_pinned: int = 0
 
     @property
     def speedup(self) -> float:
@@ -521,7 +526,8 @@ class RankingService:
         """``X: [Q, D, F]`` → (top-k doc indices ``[Q, k]``, scores ``[Q, D]``).
 
         Everything from submit to the response stays on the devices; the
-        only device→host transfer is one copy of one packed tensor.
+        only device→host transfer is one copy of one packed tensor, and the
+        two arrays are views of it that no later call overwrites.
         ``placement`` puts the operands on the devices, in shards along Q;
         ``None`` is :func:`~repro_torch.serve.placement.single_device`.
         """
@@ -566,30 +572,31 @@ class RankingService:
             )
             stats = stats.reshape(len(parts), -1).sum(0)
 
-        # ONE device read: response and stats packed into one f64 tensor
-        # (every value is exact in f64: indices, counts, f32 scores).
+        # ONE device read, each value in its own type: the stats (float64,
+        # as the counts pass 2**24), the top-k (int64) and the scores
+        # (float32), as the bytes of one buffer; the 8-byte fields go first,
+        # so every view of it is aligned.
         with span("service.read") as sp:
-            packed = device_get(torch.cat(
-                [top_idx.reshape(-1).double(), scores.reshape(-1).double(), stats]
-            ))
-            sp.set(bytes=packed.nbytes)
+            packed = device_get(_packed(stats, top_idx, scores))
+            pinned = host_pinned(packed)
+            sp.set(bytes=packed.nbytes, pinned=pinned)
         with span("service.unpack"):
-            return self._unpack(packed, Q, D, k, mode, capacities, gated)
+            return self._unpack(packed, Q, D, k, mode, capacities, gated, pinned)
 
     def _unpack(
         self, packed: np.ndarray, Q: int, D: int, k: int, mode: str, capacities: list[int],
-        gated: tuple[int, ...],
+        gated: tuple[int, ...], pinned: bool,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """The packed read as (top-k, scores), with the bucket's adaptive
-        state and the service's stats moved by what it counted. ``gated``:
-        the cascade's gated launches (``CascadeResult.gated_launches``), as
-        entries of ``capacities``."""
+        """The packed read as (top-k, scores), views of its bytes, with the
+        bucket's adaptive state and the service's stats moved by what it
+        counted. ``gated``: the cascade's gated launches
+        (``CascadeResult.gated_launches``), as entries of ``capacities``;
+        ``pinned``: whether the read landed in page-locked memory."""
         T = self.ensemble.n_trees
-        top_idx = packed[: Q * k].astype(np.int64).reshape(Q, k)
-        scores = packed[Q * k: Q * k + Q * D].astype(np.float32).reshape(Q, D)
         S = self.n_stages
-        survivors = packed[Q * (k + D): Q * (k + D) + S].astype(np.int64)
-        traversed, overflow, batch_docs, q_exited = packed[Q * (k + D) + S:]
+        stats, top_idx, scores = _unpacked(packed, S, Q, k, D)
+        survivors = stats[:S].astype(np.int64)
+        traversed, overflow, batch_docs, q_exited = stats[S:]
 
         a = self.survivor_ema
         state = self._active_state()
@@ -625,6 +632,7 @@ class RankingService:
             s.rows_compacted += capacities[j]
             s.rows_gated += max(0, capacities[j] - int(survivors[j]))
         s.rank_pairs += len(self.sentinels) * Q * rank_plan(D, device=self.device)[1]
+        s.reads_pinned += pinned
         return top_idx, scores
 
     def _rank_shard(
@@ -692,6 +700,27 @@ class TwoStageCascade:
         ]
         survivors = cand_ids[top_idx]
         return survivors, self.full_fn(survivors), cheap
+
+
+def _packed(*parts: torch.Tensor) -> torch.Tensor:
+    """``parts``, each flattened in its own type, as the bytes of one
+    ``uint8`` tensor, in order: one ``cat`` of byte views."""
+    return torch.cat([p.reshape(-1).view(torch.uint8) for p in parts])
+
+
+def _unpacked(
+    packed: np.ndarray, S: int, Q: int, k: int, D: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The read of ``_packed(stats, top_idx, scores)`` as views of its
+    bytes, no value cast: stats float64 ``[S + 4]``, top-k int64
+    ``[Q, k]``, scores float32 ``[Q, D]``."""
+    a = 8 * (S + 4)
+    b = a + 8 * Q * k
+    return (
+        packed[:a].view(np.float64),
+        packed[a:b].view(np.int64).reshape(Q, k),
+        packed[b:].view(np.float32).reshape(Q, D),
+    )
 
 
 def _moved(t: torch.Tensor, device: torch.device) -> torch.Tensor:

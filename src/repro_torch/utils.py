@@ -1,7 +1,8 @@
 """Device resolution shared by the port's public entry points, the
 device timer of its measurement scripts, the path walk of nested states
 (:func:`tree_items`, :func:`tree_map`), the one sanctioned device→host
-read (:func:`device_get`) and the guard that counts host reads
+read (:func:`device_get`, into page-locked memory on the card; and
+:func:`host_pinned`, which tells) and the guard that counts host reads
 (:func:`count_host_transfers`).
 
 Every entry point that creates tensors (ensemble constructors, the ranking
@@ -159,17 +160,39 @@ class TransferCounts:
 
 def device_get(tensor: torch.Tensor) -> np.ndarray:
     """The sanctioned, explicit device→host read: ``tensor``'s values as a
-    numpy array (the counterpart of ``jax.device_get``). A running
-    :func:`count_host_transfers` counts it as explicit, with whatever the
-    card's sync debug mode flags inside it."""
+    numpy array (the counterpart of ``jax.device_get``).
+
+    A CUDA tensor is copied asynchronously into a fresh page-locked block
+    of PyTorch's caching host allocator, and the call waits on the
+    tensor's stream before it returns. The array holds the block (the host
+    tensor is its ``base``), which goes back to the cache once the last
+    view of it is dropped, so no later read overwrites it. A CPU tensor is
+    returned as a view, with no copy. A running :func:`count_host_transfers`
+    counts the call as explicit, with whatever the card's sync debug mode
+    flags inside it (the wait on the stream)."""
     if _ACTIVE:
         with _GUARD_LOCK:
             _ACTIVE[0].explicit_gets += 1
     _THREAD.in_get += 1
     try:
-        return tensor.detach().cpu().numpy()
+        tensor = tensor.detach()
+        if tensor.is_cuda:
+            host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+            host.copy_(tensor, non_blocking=True)
+            torch.cuda.current_stream(tensor.device).synchronize()
+            tensor = host
+        return tensor.numpy()
     finally:
         _THREAD.in_get -= 1
+
+
+def host_pinned(array: np.ndarray) -> bool:
+    """Whether ``array``, a :func:`device_get` result or a view of one, lies
+    in page-locked host memory."""
+    base = array
+    while isinstance(base, np.ndarray):
+        base = base.base
+    return isinstance(base, torch.Tensor) and base.is_pinned()
 
 
 def _targets_cpu(args: tuple, kwargs: dict) -> bool:

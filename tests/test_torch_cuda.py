@@ -11,6 +11,8 @@ The plain versions are held to the JAX reference by the CPU tests
 plain version exactly (same integer leaf choice, same f32 add order).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -1147,7 +1149,7 @@ def test_guard_sees_device_get_and_async_copies_on_the_card(dev):
         torch.repeat_interleave(torch.ones(4, dtype=torch.long, device=dev), output_size=4)
     assert isinstance(host, np.ndarray)
     assert (counts.explicit_gets, counts.implicit_syncs) == (1, 0), counts
-    assert counts.sync_warnings >= 1  # the read itself: a blocking copy
+    assert counts.sync_warnings >= 1  # the read itself: its wait on the stream
     torch.cuda.synchronize()
     assert Xd.device == x.device and bool(md.all()) and float(Xd.sum()) == X.sum()
 
@@ -1187,6 +1189,53 @@ def test_rank_batch_reads_once_under_the_sync_debug_mode(dev, sentinels, mode, q
     for (X, mask), (top, scores) in zip(batches[2:], outs):
         _, want = cpu.rank_batch(X, mask)
         np.testing.assert_allclose(scores, want, rtol=1e-5, atol=1e-5)
+
+
+def test_rank_batch_reads_into_pinned_memory(dev, monkeypatch):
+    """The one read a batch lands in page-locked memory: the answers are
+    views of a pinned block, bit-equal to a plain ``.cpu()`` of the device
+    tensors packed, and an answer kept survives later calls."""
+    from repro_torch.core.lear import LearClassifier
+    from repro_torch.serve import ranking_service as rs
+    from repro_torch.serve.ranking_service import RankingService, ServiceConfig
+    from repro_torch.utils import count_host_transfers, host_pinned
+
+    ens = random_ensemble(61, 200, 5, 24, device=dev)
+    clfs = [LearClassifier(random_ensemble(62 + i, 10, 4, 28, device=dev), s)
+            for i, s in enumerate((20, 60))]
+    svc = RankingService(
+        ens, clfs[0], ServiceConfig(threshold=0.4, execution_mode="staged",
+                                    launch_overhead_trees=512.0),
+        extra_classifiers=clfs[1:], device=dev,
+    )
+    packed, real = [], rs._packed
+    monkeypatch.setattr(rs, "_packed", lambda *parts: packed.append(parts) or real(*parts))
+    rng = np.random.default_rng(63)
+    batches = [(rng.normal(size=(4, 64, 24)).astype(np.float32),
+                np.arange(64)[None] < rng.integers(16, 65, size=(4, 1))) for _ in range(11)]
+    for X, mask in batches[:2]:
+        svc.rank_batch(X, mask)
+    before = dataclasses.replace(svc.stats)
+    with count_host_transfers() as counts:
+        top, scores = svc.rank_batch(*batches[2])
+    assert (counts.explicit_gets, counts.implicit_syncs) == (1, 0), counts
+    assert svc.stats.reads_pinned == before.reads_pinned + 1
+    base = scores
+    while isinstance(base, np.ndarray):
+        base = base.base
+    assert isinstance(base, torch.Tensor) and base.is_pinned() and host_pinned(top)
+    stats_d, top_d, scores_d = packed[-1]
+    assert (top.dtype, scores.dtype) == (np.int64, np.float32)
+    assert top.tobytes() == top_d.cpu().numpy().tobytes()
+    assert scores.tobytes() == scores_d.cpu().numpy().tobytes()
+    stats_h = stats_d.cpu().numpy()
+    assert svc.stats.docs - before.docs == int(stats_h[-2])
+    assert svc.stats.trees_traversed - before.trees_traversed == float(stats_h[-4])
+    kept = top.copy(), scores.copy()
+    later = [svc.rank_batch(X, mask) for X, mask in batches[3:]]
+    assert svc.stats.reads_pinned == before.reads_pinned + 1 + len(later)
+    assert all(s.tobytes() != kept[1].tobytes() for _, s in later)
+    assert top.tobytes() == kept[0].tobytes() and scores.tobytes() == kept[1].tobytes()
 
 
 def test_shape_checked_wrappers_on_card_tensors(dev):

@@ -275,7 +275,7 @@ def test_rank_batch_with_query_exit_reads_the_device_once(monkeypatch):
     rng = np.random.default_rng(5)
     port.rank_batch(*_gated_batch(rng, 2, 64, 0.5))
     calls = []
-    for name in ("item", "tolist", "__bool__", "__int__", "__float__", "cpu"):
+    for name in ("item", "tolist", "__bool__", "__int__", "__float__", "cpu", "numpy"):
         real = getattr(torch.Tensor, name)
         monkeypatch.setattr(
             torch.Tensor, name,
@@ -283,7 +283,7 @@ def test_rank_batch_with_query_exit_reads_the_device_once(monkeypatch):
         )
     ops.reset_launch_counts()
     port.rank_batch(*_gated_batch(rng, 2, 64, 0.5))
-    assert calls == ["cpu"]
+    assert calls == ["numpy"]   # device_get's view of the CPU tensor
     assert ops.launch_counts()["gated"] == 1
 
 

@@ -196,7 +196,9 @@ def test_rank_batch_span_tree(sentinels, mode):
         "mode": mode, "stages": len(sentinels),
     }
     S, k = len(sentinels), svc.top_k
-    assert _find(root, "service.read")[0][1] == {"bytes": 8 * (Q * (k + D) + S + 4)}
+    assert _find(root, "service.read")[0][1] == {
+        "bytes": 8 * (S + 4) + 8 * Q * k + 4 * Q * D, "pinned": False,
+    }
     head = sentinels[-1] if mode == "fused" else sentinels[0]
     assert _find(root, "engine.head")[0][1] == {"rows": Q * D, "trees": head}
     assert [n[1] for n in _find(root, "engine.features")] == [
